@@ -1,0 +1,218 @@
+"""Tile planning: the multi-tier slot grid of (tile, depth) keys.
+
+Single-device port of the reference's planner (`gsrast_tpu/ops/binning.py`:
+`owned_row_range`, `tier_dims`, `auto_tiers`, `plan_tiers`). Every visible
+Gaussian is enumerated over the tiles of its rectangle on a slot grid sized
+near the true intersection count: Gaussians are ranked by tile count
+(descending), and tier j gives the top B_j of them slots for tile ordinals
+k_{j-1}..k_j, laid out t-major. The integer structure is identical to the
+reference's, slot for slot, so the fused sort in `render.pipeline` orders
+intersections exactly as the reference does.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import config as cfg
+from . import projection
+from .preprocess import Preprocessed
+
+
+def owned_row_range(y_min, y_max, row0: int, row_stride: int, num_rows: int):
+    """Rows {row0 + r*row_stride : 0 <= r < num_rows} intersected with
+    [y_min, y_max), as (first owned row y0, count)."""
+    y_lo = torch.clamp(y_min, min=row0)
+    y_hi = torch.clamp(y_max, max=row0 + num_rows * row_stride)
+    y0 = y_lo + (row0 - y_lo) % row_stride
+    nrows = torch.clamp((y_hi - y0 + row_stride - 1) // row_stride, min=0)
+    return y0, nrows
+
+
+def tile_counts(prep: Preprocessed, grid_h: int):
+    """Per-Gaussian tile counts over the whole grid (0 when culled), with
+    the first covered tile row y0 and the rect width rw, all int32."""
+    rect = prep.rect
+    rw = torch.clamp(rect.x_max - rect.x_min, min=0)
+    y0, nrows = owned_row_range(rect.y_min, rect.y_max, 0, 1, grid_h)
+    counts = torch.where(prep.radius > 0, nrows * rw, 0).to(torch.int32)
+    return counts, y0, rw
+
+
+class TierPlan(NamedTuple):
+    """Integer structure of the multi-tier slot grid (all int32).
+
+    Slot (rank r, tile ordinal t) of tier j is off_j + (t - k_{j-1})*B_j + r
+    over the count-ranked order `order`."""
+
+    tile_key: torch.Tensor   # (S,) tile id; num_tiles marks a dead slot
+    depth_key: torch.Tensor  # (S,) float32 depth bits (0 on padding)
+    gauss: torch.Tensor      # (S,) Gaussian index; -1 on dead slots
+    order: torch.Tensor      # (N,) count-descending Gaussian ranking
+    total: torch.Tensor      # () live slots = intersections
+    overflow_tile_cap: torch.Tensor  # () tiles dropped by k_last or a budget
+
+
+def tier_dims(n: int, tiers) -> tuple:
+    """Static per-tier (width w_j, rows B_j, slot offset off_j) and the total
+    slot count. Budgets are rounded up to 128 rows, clamped to n and to
+    nesting (non-increasing); tier 0 with frac >= 1 covers every Gaussian."""
+    dims = []
+    off = 0
+    prev_b = n
+    prev_k = 0
+    for j, (k, frac) in enumerate(tiers):
+        if k <= prev_k:
+            raise ValueError(f"tier ks must ascend, got {tiers}")
+        if j == 0 and frac >= 1.0:
+            b = n
+        else:
+            b = min(n, max(128, -(-int(n * frac) // 128) * 128), prev_b)
+        dims.append((k - prev_k, b, off))
+        off += (k - prev_k) * b
+        prev_b, prev_k = b, k
+    return tuple(dims), off
+
+
+def auto_tiers(counts, margin: float = 1.12, k0_max: int = 4,
+               tier_penalty: float = 0.08):
+    """A near-minimal tier spec for a scene's per-Gaussian tile counts
+    (host numpy): minimises the slot volume sum_j w_j * B_j over tier cut
+    points by a shortest path on a candidate k grid, with `margin` headroom
+    on every budget. Gaussians with count 0 get no slots."""
+    counts = np.asarray(counts)
+    n = max(int(counts.shape[0]), 1)
+    cmax = max(int(counts.max()) if counts.size else 1, 1)
+    cands = sorted({1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128,
+                    192, 256, 384, 512, 768, 1024, cmax})
+    cands = [c for c in cands if c <= cmax]
+    # frac(count > k) with headroom; budgets never below one 128-row block.
+    frac = {k: min(1.0, float((counts > k).mean()) * margin + 128.0 / n)
+            for k in [0] + cands}
+    f0 = frac[0]
+    # best[i] = (least slot volume covering counts <= cands[i], tiers)
+    best = {}
+    for i, ci in enumerate(cands):
+        best[i] = ((ci * f0, [(ci, f0)]) if ci <= k0_max
+                   else (float("inf"), None))
+        for j in range(i):
+            cj = cands[j]
+            if best[j][1] is None:
+                continue
+            # tier_penalty charges each extra tier's fixed cost so thin
+            # tiers merge away.
+            cost = best[j][0] + (ci - cj) * frac[cj] + tier_penalty
+            if cost < best[i][0]:
+                best[i] = (cost, best[j][1] + [(ci, frac[cj])])
+    tiers = best[len(cands) - 1][1]
+    return tuple((int(k), round(float(f), 4)) for k, f in tiers)
+
+
+def plan_tiers(prep: Preprocessed, grid_h: int, grid_w: int,
+               render_cfg: cfg.RenderConfig) -> TierPlan:
+    """The slot grid of (tile, depth) keys for `render_cfg.tiers` over the
+    whole tile grid.
+
+    The reference floors k / rect_width through a float32 reciprocal, which
+    is exact only while k_last * grid_w < 4e6; this port divides integers
+    exactly and keeps the same bound, so both stay identical wherever the
+    reference is defined."""
+    tiers = render_cfg.tiers
+    if not tiers:
+        raise ValueError("plan_tiers requires render_cfg.tiers")
+    if tiers[-1][0] * grid_w >= 4_000_000:
+        raise ValueError(
+            f"k_last={tiers[-1][0]} x grid_w={grid_w} exceeds the bound the "
+            "reference planner is exact under; use wider tiles")
+    n = prep.depth.shape[0]
+    device = prep.depth.device
+    num_tiles = grid_h * grid_w
+    sentinel = num_tiles
+    k_last = tiers[-1][0]
+    i32 = torch.int32
+
+    rect = prep.rect
+    counts_full, y0, rw = tile_counts(prep, grid_h)
+    rw_safe = torch.clamp(rw, min=1)
+    counts = torch.clamp(counts_full, max=k_last)
+    depth_q = projection.depth_order_key(prep.depth)
+
+    # Tile-vs-ellipse cull inputs (tiers >= 1): alpha at the tile's closest
+    # pixel is bounded by opacity * exp(-lam_min d^2 / 2); drop the slot when
+    # that bound is under 0.98 * ALPHA_MIN.
+    a, b, c = prep.conic.unbind(-1)
+    lam_min = torch.clamp(
+        0.5 * (a + c)
+        - torch.sqrt(torch.clamp(0.25 * (a - c) ** 2 + b * b, min=0.0)),
+        min=0.0)
+    cull_thresh = 2.0 * torch.log(
+        torch.clamp(prep.opacity, min=1e-12) / (0.98 * cfg.ALPHA_MIN))
+
+    # One count-descending ranking; stable, so ties keep index order.
+    order_l = torch.sort(-counts, stable=True).indices
+    order = order_l.to(i32)
+    r_xmin, r_rw, r_rho0, r_counts, r_depthq, r_mx, r_my, r_lam, r_thr = (
+        x[order_l] for x in (rect.x_min, rw_safe, y0, counts, depth_q,
+                           prep.mean2d[..., 0], prep.mean2d[..., 1],
+                           lam_min, cull_thresh))
+
+    dims, s0 = tier_dims(n, tiers)
+    th_px, tw_px = float(render_cfg.tile_h), float(render_cfg.tile_w)
+    tkeys, gausses = [], []
+    rank = torch.arange(n, dtype=i32, device=device)
+    granted_k = torch.where(rank < dims[0][1], tiers[0][0], 0).to(i32)
+    k_lo = 0
+    for j, ((w_j, b_j, _off), (k_j, _)) in enumerate(zip(dims, tiers)):
+        # T-major (w_j, B_j): tile ordinal down, rank across.
+        ks = k_lo + torch.arange(w_j, dtype=i32, device=device)[:, None]
+        rw_j = r_rw[None, :b_j]
+        ry = ks // rw_j
+        rx = ks - ry * rw_j
+        gy = r_rho0[None, :b_j] + ry
+        gx = r_xmin[None, :b_j] + rx
+        valid = ks < r_counts[None, :b_j]
+        if j > 0:
+            px_lo = gx.to(torch.float32) * tw_px
+            py_lo = gy.to(torch.float32) * th_px
+            mxj = r_mx[None, :b_j]
+            myj = r_my[None, :b_j]
+            dx = torch.clamp(torch.maximum(px_lo - mxj,
+                                           mxj - (px_lo + (tw_px - 1))),
+                             min=0.0)
+            dy = torch.clamp(torch.maximum(py_lo - myj,
+                                           myj - (py_lo + (th_px - 1))),
+                             min=0.0)
+            valid &= (dx * dx + dy * dy) * r_lam[None, :b_j] <= (
+                r_thr[None, :b_j])
+            granted_k = torch.where((rank < b_j) & (r_counts > k_lo),
+                                    k_j, granted_k).to(i32)
+        tkeys.append(torch.where(valid, gy * grid_w + gx, sentinel)
+                     .to(i32).reshape(-1))
+        gausses.append(order[None, :b_j].expand(w_j, b_j).reshape(-1))
+        k_lo = k_j
+
+    tile_key = torch.cat(tkeys)
+    depth_key = torch.cat([r_depthq[None, :b_j].expand(w_j, b_j).reshape(-1)
+                           for (w_j, b_j, _off) in dims])
+    gauss = torch.cat(gausses)
+    # The reference pads the grid to a multiple of 128 slots; so does this
+    # port, so that plans compare slot for slot.
+    pad = -(-s0 // 128) * 128 - s0
+    if pad:
+        tile_key = torch.cat(
+            [tile_key, torch.full((pad,), sentinel, dtype=i32, device=device)])
+        depth_key = torch.cat(
+            [depth_key, torch.zeros((pad,), dtype=i32, device=device)])
+        gauss = torch.cat(
+            [gauss, torch.full((pad,), -1, dtype=i32, device=device)])
+
+    live = tile_key != sentinel
+    total = torch.sum(live, dtype=i32)
+    dropped = torch.sum(counts_full - counts) + torch.sum(
+        torch.clamp(torch.clamp(r_counts, max=k_last) - granted_k, min=0))
+    return TierPlan(tile_key=tile_key, depth_key=depth_key,
+                    gauss=torch.where(live, gauss, -1), order=order,
+                    total=total, overflow_tile_cap=dropped.to(i32))
