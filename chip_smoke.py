@@ -4,19 +4,25 @@
 
 Builds the hand-written CUDA kernels of `gsrast_tpu_torch` from the sources
 in this checkout, holds each against its plain PyTorch version at the shapes
-the render path gives it, drives the forward render path through its user
-entry points (the CLI on the trained 116k-Gaussian fixture at 1920x1080, and
-`render` on the 1M-Gaussian SH-degree-3 scene of the reference benchmark),
-and checks that the path went through the kernels. Each phase prints one
-line before the next begins; the line before the last is the per-kernel
-JSON record, and the last is {"ok": true, "device": {...}}. Any failure
-raises and exits nonzero. It imports no JAX.
+the render and training paths give it, drives the forward render path
+through its user entry points (the CLI on the trained 116k-Gaussian fixture
+at 1920x1080, and `render` on the 1M-Gaussian SH-degree-3 scene of the
+reference benchmark) and the training path (whole-render gradients against
+the CPU, 30 steps at 1080p through the `train.trainer` API, the CLI `train`
+with a checkpoint resume, and the fwd+bwd and train-step times at the
+north-star size), and checks that each path went through the kernels. Each
+phase prints one line before the next begins; the line before the last is
+the per-kernel JSON record, and the last is {"ok": true, "device": {...}}.
+Any failure raises and exits nonzero. It imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -29,11 +35,20 @@ FIXTURE_116K = os.path.join(ROOT, "tests", "fixtures", "trained_116k.ply")
 FIXTURE_SMALL = os.path.join(ROOT, "tests", "fixtures", "trained_small.ply")
 OUT_DIR = os.path.join(ROOT, "gsrast_tpu_torch", "_build")  # git-ignored
 WIDTH, HEIGHT = 1920, 1080
+DEVICE = "cuda:0"
+N_NORTH_STAR = 1_000_000
 
 # Kernel against plain version: rgb/final_t where n_contrib agrees, and the
 # share of pixels whose n_contrib may differ at the saturation boundary.
 ATOL = 1e-5
 MAX_NC_MISMATCH = 1e-4
+# Backward kernel against plain backward on the same inputs (same gate):
+# per gradient row, max |kernel - plain| <= BWD_RTOL * max |plain| of the
+# row; they differ in summation order (atomics) and in how T is replayed.
+BWD_RTOL = 1e-4
+# Whole-render gradients, card against CPU: per parameter group.
+GRAD_RTOL = 1e-4
+BACKGROUND = (0.1, 0.2, 0.3)
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -80,6 +95,35 @@ def compare_blend(kernel_out, plain_out, t_min: float) -> dict:
             "mismatch_at_boundary": at_boundary}
 
 
+def compare_backward(kernel, plain, live: int) -> dict:
+    """Backward kernel against plain backward, per gradient row scaled by
+    the plain row's largest magnitude; row 9 and the dead columns past
+    tile_starts[-1] must be exactly 0 in the kernel's output."""
+    assert bool(torch.isfinite(kernel).all()), "non-finite kernel gradient"
+    assert bool(torch.isfinite(plain).all()), "non-finite plain gradient"
+    errs = (kernel[:9] - plain[:9]).abs().amax(dim=1)
+    scales = plain[:9].abs().amax(dim=1)
+    dead = float(kernel[9].abs().max()) + (
+        float(kernel[:, live:].abs().max()) if live < kernel.shape[1]
+        else 0.0)
+    return {"max_abs_err": float(errs.max()),
+            "row_rel_err": [float(e / max(float(sc), 1e-30))
+                            for e, sc in zip(errs, scales)],
+            "row_scale": [float(sc) for sc in scales],
+            "dead_abs_sum": dead}
+
+
+def event_ms(fn) -> float:
+    """Device time of one fn() in ms, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -92,15 +136,24 @@ def main() -> int:
     from gsrast_tpu_torch.ops import binning
     from gsrast_tpu_torch.ops.preprocess import preprocess
     from gsrast_tpu_torch.render.api import auto_render_config, render
-    from gsrast_tpu_torch.render.blend import (blend_forward_cuda,
+    from gsrast_tpu_torch.render.blend import (blend_backward_cuda,
+                                               blend_backward_torch,
+                                               blend_forward_cuda,
                                                blend_forward_torch)
     from gsrast_tpu_torch.render.pipeline import feature_rows, sort_pack
     from gsrast_tpu_torch.render.tiled import untile, untile_cf
-    from gsrast_tpu_torch.scene.gaussians import random_scene
+    from gsrast_tpu_torch.scene.gaussians import (from_numpy, pad_to_capacity,
+                                                  random_scene)
     from gsrast_tpu_torch.scene.ply import load_ply
+    from gsrast_tpu_torch.train import checkpoint as ckpt
+    from gsrast_tpu_torch.train.loss import rgb_loss
+    from gsrast_tpu_torch.train.trainer import (TrainConfig, apply_gradients,
+                                                init_train_state,
+                                                make_train_step,
+                                                maybe_densify, step_generator)
     import numpy as np
 
-    dev = torch.device("cuda:0")
+    dev = torch.device(DEVICE)
     torch.cuda.set_device(dev)
     os.makedirs(OUT_DIR, exist_ok=True)
 
@@ -175,7 +228,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches_cli = dict(_kernels.launch_counts)
     assert launches_cli["blend_forward"] > 0, launches_cli
-    assert img.device.type == "cuda" and img.shape == (HEIGHT, WIDTH, 3)
+    assert img.device == dev and img.shape == (HEIGHT, WIDTH, 3)
     assert bool(torch.isfinite(img).all())
     assert float(img.amax()) > 0.05, "image is all background"
     assert os.path.getsize(png) > 0
@@ -185,7 +238,7 @@ def main() -> int:
 
     # -- phase 5: north-star scale, forward --------------------------------
     with torch.inference_mode():
-        scene = random_scene(1_000_000, np.random.default_rng(0), sh_degree=3,
+        scene = random_scene(N_NORTH_STAR, np.random.default_rng(0), sh_degree=3,
                              isotropic=False, scale_range=(0.002, 0.008),
                              device=dev)
         cam = make_camera(look_at([0.0, 0.0, -2.5], [0.0, 0.0, 0.0],
@@ -238,12 +291,222 @@ def main() -> int:
     assert cmp1m["nc_mismatch_share"] <= MAX_NC_MISMATCH
     assert cmp1m["mismatch_at_boundary"]
 
+    # -- phase 6: backward kernel against plain backward, 1080p ----------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bwd = {}
+    with torch.inference_mode():
+        scenes = {"trained_116k": load_ply(FIXTURE_116K, device=dev),
+                  "1M": random_scene(N_NORTH_STAR, np.random.default_rng(0),
+                                     sh_degree=3, scale_range=(0.002, 0.008),
+                                     device=dev)}
+        for name, scn in scenes.items():
+            if name == "1M":
+                cam = make_camera(look_at([0.0, 0.0, -2.5], [0.0, 0.0, 0.0],
+                                          device=dev), 1.2, 1.0, WIDTH,
+                                  HEIGHT, device=dev)
+            else:
+                cam = auto_frame(*scn.bbox(), WIDTH, HEIGHT, device=dev)
+            rcfg = auto_render_config(scn, cam)
+            gh, gw = rcfg.grid_shape(HEIGHT, WIDTH)
+            th, tw = rcfg.tile_h, rcfg.tile_w
+            prep = preprocess(scn.activated(), cam, rcfg)
+            plan = binning.plan_tiers(prep, gh, gw, rcfg)
+            feat, starts = sort_pack(feature_rows(prep), plan, gh * gw)
+            _, ft, nc = blend_forward_cuda(feat, starts, gh, gw, th, tw)
+            d_rgb = torch.randn((gh * gw, 3, th * tw), generator=gen,
+                                device=dev)
+            d_ft = torch.randn((gh * gw, th * tw), generator=gen, device=dev)
+            args = (feat, starts, d_rgb, d_ft, ft, nc, gh, gw, th, tw)
+            cmp = compare_backward(blend_backward_cuda(*args),
+                                   blend_backward_torch(*args),
+                                   int(starts[-1]))
+            cmp["kernel_ms"] = cuda_ms(lambda: blend_backward_cuda(*args))
+            cmp["plain_ms"] = cuda_ms(lambda: blend_backward_torch(*args))
+            bwd[name] = cmp
+            print(f"phase 6 blend backward {name} {WIDTH}x{HEIGHT} tiles "
+                  f"{th}x{tw} isect={int(plan.total)} positions="
+                  f"{int(nc.sum())}: kernel {cmp['kernel_ms']:.3f} ms, plain "
+                  f"{cmp['plain_ms']:.3f} ms; {json.dumps(cmp)}", flush=True)
+            assert max(cmp["row_rel_err"]) <= BWD_RTOL, cmp
+            assert min(cmp["row_scale"]) > 0 and cmp["dead_abs_sum"] == 0.0
+        del scenes, prep, plan, feat, starts, ft, nc, d_rgb, d_ft, args
+
+    # -- phase 7: whole-render gradients, card against CPU -----------------
+    def render_grads(scn, cam, rcfg) -> dict:
+        delta = torch.zeros((scn.capacity, 2), device=cam.device,
+                            requires_grad=True)
+        out = render(scn, cam, rcfg, mean2d_delta=delta)
+        (torch.mean((out.image - 0.25) ** 2)
+         + 0.1 * torch.mean(out.final_t)).backward()
+        grads = {f: p.grad.cpu() for f, p in scn.param_groups().items()}
+        grads["mean2d_delta"] = delta.grad.cpu()
+        return grads
+
+    small = load_ply(FIXTURE_SMALL)
+    cam_s = auto_frame(*small.bbox(), 128, 128)
+    cfg_s = auto_render_config(small, cam_s).replace(background=BACKGROUND)
+    g_cpu = render_grads(small, cam_s, cfg_s)
+    _kernels.reset_launch_counts()
+    g_gpu = render_grads(load_ply(FIXTURE_SMALL, device=dev), cam_s.to(dev),
+                         cfg_s.replace(backend="cuda"))
+    torch.cuda.synchronize()
+    launches_grad = dict(_kernels.launch_counts)
+    grad_err = {}
+    for name, ref in g_cpu.items():
+        scale = float(ref.abs().max())
+        assert scale > 0, f"{name}: zero gradient"
+        assert bool(torch.isfinite(g_gpu[name]).all()), name
+        grad_err[name] = float((g_gpu[name] - ref).abs().max()) / scale
+    print(f"phase 7 render gradients trained_small 128x128, card vs CPU, "
+          f"relative to each group's largest magnitude: "
+          f"{json.dumps(grad_err)} launches={launches_grad}", flush=True)
+    assert max(grad_err.values()) <= GRAD_RTOL, grad_err
+    assert min(launches_grad.values()) > 0, launches_grad
+
+    # -- phase 8: training at full width, trained_116k at 1080p ------------
+    base = load_ply(FIXTURE_116K, device=dev)
+    n_116k = base.capacity
+    cam = auto_frame(*base.bbox(), WIDTH, HEIGHT, device=dev)
+    mn, mx = (x.cpu().numpy() for x in base.bbox())
+    extent = float(np.linalg.norm(mx - mn))
+    rcfg = auto_render_config(base, cam, margin=1.5)
+    with torch.no_grad():
+        target = render(base, cam, rcfg).image
+    arrays = {f: p.detach().cpu().numpy()
+              for f, p in base.param_groups().items()}
+    # The reference's perturbation (N(0, 0.03^2) on a scene in [-1, 1]^3)
+    # scaled to this scene's half bbox diagonal.
+    arrays["means"] = arrays["means"] + 0.03 * 0.5 * extent * (
+        np.random.default_rng(2).standard_normal(arrays["means"].shape))
+    arrays["opacity_logits"] = arrays["opacity_logits"] - 0.5
+    scene = pad_to_capacity(from_numpy(arrays, device=dev), n_116k + 4096)
+    tc = TrainConfig(densify_from=10, densify_until=10, densify_every=10)
+    state = init_train_state(scene, tc, extent)
+    step = make_train_step(rcfg, tc, extent)
+    _kernels.reset_launch_counts()
+    metrics, step_ms, dens = [], [], None
+    for i in range(30):
+        step_ms.append(event_ms(
+            lambda: metrics.append(step(state, cam, target))))
+        info = maybe_densify(state, tc, step_generator(dev, i), extent)
+        if info is not None:
+            dens = {k: v for k, v in info.items() if k != "changed_slots"}
+    torch.cuda.synchronize()
+    launches_train = dict(_kernels.launch_counts)
+    loss0, loss30 = float(metrics[0]["loss"]), float(metrics[-1]["loss"])
+    psnr30 = float(metrics[-1]["psnr"])
+    print(f"phase 8 train trained_116k {WIDTH}x{HEIGHT} tiles "
+          f"{rcfg.tile_h}x{rcfg.tile_w} 30 steps: loss {loss0:.5f} -> "
+          f"{loss30:.5f}, psnr {float(metrics[0]['psnr']):.2f} -> "
+          f"{psnr30:.2f}, densify at step 10 {json.dumps(dens)}; step "
+          f"{statistics.median(step_ms[-10:]):.3f} ms (median of the last "
+          f"10, CUDA events); launches={launches_train}", flush=True)
+    assert loss30 < loss0 and np.isfinite(psnr30)
+    assert dens is not None and dens["num_active"] == int(
+        state.scene.num_active())
+    assert launches_train["blend_backward"] >= 30, launches_train
+    del state, scene, step, metrics, target
+
+    # -- phase 9: the CLI, train then resume ------------------------------
+    ckpt_dir = os.path.join(OUT_DIR, "ckpt")
+    ply = os.path.join(OUT_DIR, "trained.ply")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    argv = ["train", "--scene", FIXTURE_116K, "--width", str(WIDTH),
+            "--height", str(HEIGHT), "--steps", "4", "--ckpt-dir", ckpt_dir,
+            "--ckpt-every", "2", "--save-ply", ply]
+    _kernels.reset_launch_counts()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        first = cli.main(argv)
+        saved_at = ckpt.latest_step(ckpt_dir)
+        argv[argv.index("--steps") + 1] = "6"
+        resumed = cli.main(argv + ["--resume"])
+    torch.cuda.synchronize()
+    launches_cli_train = dict(_kernels.launch_counts)
+    trained = load_ply(ply)
+    print(f"phase 9 cli train trained_116k {WIDTH}x{HEIGHT}: steps "
+          f"{first.step} then resumed to {resumed.step}; checkpoint at "
+          f"{saved_at}; launches={launches_cli_train}; saved "
+          f"{trained.capacity} Gaussians; cli: "
+          f"{' | '.join(log.getvalue().splitlines())}", flush=True)
+    assert first.step == 4 and saved_at == 4 and resumed.step == 6
+    assert "resumed from step 4" in log.getvalue()
+    assert min(launches_cli_train.values()) > 0, launches_cli_train
+    assert trained.capacity == n_116k
+    assert all(bool(torch.isfinite(p).all())
+               for p in trained.param_groups().values())
+    del first, resumed, trained
+
+    # -- phase 10: north-star fwd+bwd and train step, 1M SH3 at 1080p -----
+    scene = random_scene(N_NORTH_STAR, np.random.default_rng(0), sh_degree=3,
+                         scale_range=(0.002, 0.008), device=dev)
+    cam = make_camera(look_at([0.0, 0.0, -2.5], [0.0, 0.0, 0.0], device=dev),
+                      1.2, 1.0, WIDTH, HEIGHT, device=dev)
+    rcfg = auto_render_config(scene, cam)
+    mn, mx = (x.cpu().numpy() for x in scene.bbox())
+    extent = float(np.linalg.norm(mx - mn))
+    tc = TrainConfig()
+    state = init_train_state(scene, tc, extent)
+    step = make_train_step(rcfg, tc, extent)
+    target = torch.full((HEIGHT, WIDTH, 3), 0.25, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    train_ms = cuda_ms(lambda: step(state, cam, target))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    def fwd_bwd():  # the reference benchmark's step: grad of mean(img^2)
+        state.optimizer.zero_grad(set_to_none=True)
+        img = render(scene, cam, rcfg).image
+        torch.mean(img * img).backward()
+
+    fwd_bwd_ms = cuda_ms(fwd_bwd)
+    delta = torch.zeros((scene.capacity, 2), device=dev, requires_grad=True)
+    split = {"forward": cuda_ms(lambda: render(scene, cam, rcfg,
+                                               mean2d_delta=delta))}
+    out = render(scene, cam, rcfg, mean2d_delta=delta)
+    split["loss"] = cuda_ms(lambda: rgb_loss(out.image, target))
+    backward = []
+    for _ in range(12):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = rgb_loss(render(scene, cam, rcfg,
+                               mean2d_delta=delta).image, target)
+        backward.append(event_ms(loss.backward))
+    split["backward"] = statistics.median(backward[2:])
+    with torch.no_grad():
+        gh, gw = rcfg.grid_shape(HEIGHT, WIDTH)
+        th, tw = rcfg.tile_h, rcfg.tile_w
+        prep = preprocess(scene.activated(), cam, rcfg)
+        plan = binning.plan_tiers(prep, gh, gw, rcfg)
+        feat, starts = sort_pack(feature_rows(prep), plan, gh * gw)
+        _, ft, nc = blend_forward_cuda(feat, starts, gh, gw, th, tw)
+        d_rgb = torch.randn((gh * gw, 3, th * tw), generator=gen, device=dev)
+        d_ft = torch.randn((gh * gw, th * tw), generator=gen, device=dev)
+        split["blend_backward_kernel"] = cuda_ms(lambda: blend_backward_cuda(
+            feat, starts, d_rgb, d_ft, ft, nc, gh, gw, th, tw))
+    split["rest_of_backward"] = split["backward"] - split[
+        "blend_backward_kernel"]
+    split["adam"] = cuda_ms(lambda: apply_gradients(state, tc, extent))
+    print(f"phase 10 north-star 1M SH3 {WIDTH}x{HEIGHT} tiles {th}x{tw}: "
+          f"train step {train_ms:.3f} ms; fwd+bwd {fwd_bwd_ms:.3f} ms = "
+          f"{WIDTH * HEIGHT / fwd_bwd_ms / 1e3:.3f} Mpix/s; split ms "
+          f"{json.dumps({k: round(v, 3) for k, v in split.items()})}; "
+          f"peak allocated {peak_gib:.2f} GiB (train step)", flush=True)
+    assert all(bool(torch.isfinite(p.grad).all())
+               for p in scene.param_groups().values())
+
+    b116 = bwd["trained_116k"]
     print(json.dumps({"kernels": [{
         "name": "blend_forward", "route": "cuda",
         "source": "gsrast_tpu_torch/csrc/blend_forward.cu",
         "replaces": "gsrast_tpu/render/pallas_blend.py:181",
         "launches": launches_cli["blend_forward"],
         "max_abs_err": cmp116["max_abs_err"], "ms": ms_k, "plain_ms": ms_p,
+    }, {
+        "name": "blend_backward", "route": "cuda",
+        "source": "gsrast_tpu_torch/csrc/blend_backward.cu",
+        "replaces": "gsrast_tpu/render/pallas_blend.py:350",
+        "launches": launches_cli_train["blend_backward"],
+        "max_abs_err": b116["max_abs_err"], "ms": b116["kernel_ms"],
+        "plain_ms": b116["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

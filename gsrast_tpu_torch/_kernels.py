@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else.
-launch_counts = {"blend_forward": 0}
+launch_counts = {"blend_forward": 0, "blend_backward": 0}
 
 
 def reset_launch_counts() -> None:
@@ -85,5 +85,9 @@ def load() -> Library:
     fn = lib.gsrast_blend_forward
     fn.argtypes = [vp, i64, vp, i32, i32, i32, i32, f32, f32, f32, vp, vp, vp,
                    vp]
+    fn.restype = ctypes.c_int
+    fn = lib.gsrast_blend_backward
+    fn.argtypes = [vp, i64, vp, i32, i32, i32, i32, f32, f32, vp, vp, vp, vp,
+                   vp, vp]
     fn.restype = ctypes.c_int
     return Library(lib=lib, path=path, build_seconds=seconds, build_log=log)

@@ -16,9 +16,8 @@ import torch
 from .. import config as cfg
 
 
-def compute_cov3d(scale: torch.Tensor, quat: torch.Tensor) -> torch.Tensor:
-    """Sigma = R S S^T R^T as (..., 6): [xx, xy, xz, yy, yz, zz]. `quat` is a
-    unit (w, x, y, z)."""
+def quat_to_rotmat(quat: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (..., 4) as (w, x, y, z) -> rotation (..., 3, 3)."""
     w, x, y, z = quat.unbind(-1)
     r00 = 1.0 - 2.0 * (y * y + z * z)
     r01 = 2.0 * (x * y - w * z)
@@ -29,6 +28,17 @@ def compute_cov3d(scale: torch.Tensor, quat: torch.Tensor) -> torch.Tensor:
     r20 = 2.0 * (x * z - w * y)
     r21 = 2.0 * (y * z + w * x)
     r22 = 1.0 - 2.0 * (x * x + y * y)
+    return torch.stack([torch.stack([r00, r01, r02], dim=-1),
+                        torch.stack([r10, r11, r12], dim=-1),
+                        torch.stack([r20, r21, r22], dim=-1)], dim=-2)
+
+
+def compute_cov3d(scale: torch.Tensor, quat: torch.Tensor) -> torch.Tensor:
+    """Sigma = R S S^T R^T as (..., 6): [xx, xy, xz, yy, yz, zz]. `quat` is a
+    unit (w, x, y, z)."""
+    rot = quat_to_rotmat(quat)
+    (r00, r01, r02), (r10, r11, r12), (r20, r21, r22) = (
+        row.unbind(-1) for row in rot.unbind(-2))
     sx, sy, sz = scale.unbind(-1)
     # M = R diag(s); Sigma = M M^T.
     m00, m01, m02 = r00 * sx, r01 * sy, r02 * sz

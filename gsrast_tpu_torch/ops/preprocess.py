@@ -26,7 +26,11 @@ class Preprocessed(NamedTuple):
 
 
 def preprocess(gaussians: ActivatedGaussians, camera: Camera,
-               render_cfg: cfg.RenderConfig) -> Preprocessed:
+               render_cfg: cfg.RenderConfig,
+               mean2d_delta: torch.Tensor | None = None) -> Preprocessed:
+    """`mean2d_delta`: optional (N, 2) zero perturbation added to the screen
+    positions; its gradient is the per-Gaussian screen-space positional
+    gradient that drives densification."""
     view = camera.view
     grid_h, grid_w = render_cfg.grid_shape(camera.height, camera.width)
 
@@ -35,6 +39,8 @@ def preprocess(gaussians: ActivatedGaussians, camera: Camera,
     mean2d, ndc = projection.project(
         gaussians.means, camera.full_projection(), camera.width,
         camera.height)
+    if mean2d_delta is not None:
+        mean2d = mean2d + mean2d_delta
     visible = projection.in_frustum(depth, ndc) & gaussians.mask
 
     cov6 = covariance.compute_cov3d(gaussians.scales, gaussians.quats)
@@ -59,7 +65,8 @@ def preprocess(gaussians: ActivatedGaussians, camera: Camera,
     # c = 2 ln(opacity / ALPHA_MIN), capped at (3 sigma)^2, whose tight
     # axis-aligned bound is +-sqrt(c Sigma_xx) by +-sqrt(c Sigma_yy). The 2%
     # margin on the threshold keeps the dropped pixels provably below
-    # ALPHA_MIN under float32 rounding.
+    # ALPHA_MIN under float32 rounding. The extents reach only int32 values
+    # (radius, rect): ceil(sqrt(0)) would give a NaN gradient in autograd.
     cfac = torch.clamp(
         2.0 * torch.log(gaussians.opacities / (0.98 * cfg.ALPHA_MIN)),
         0.0, cfg.GAUSSIAN_EXTENT_SIGMA ** 2)

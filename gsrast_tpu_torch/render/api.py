@@ -29,13 +29,16 @@ def scene_tile_counts(scene, camera: Camera,
         return binning.tile_counts(prep, grid_h)[0].cpu().numpy()
 
 
-def auto_render_config(scene, camera: Camera) -> cfg.RenderConfig:
+def auto_render_config(scene, camera: Camera,
+                       margin: float = 1.12) -> cfg.RenderConfig:
     """The product-default RenderConfig for (scene, camera): the tier plan
     derived from the scene's own tile-count distribution, and the tile shape
     of the reference's big-splat rule: start from 16x32 and double the tile
     area, up to P = 2048, while the mean tiles per Gaussian is above 8. The
     backend follows the camera's device: 'cuda' on a CUDA device, else
-    'torch'.
+    'torch'. `margin` is the tier budgets' headroom (`auto_tiers`); training
+    passes a larger one, since densification reshapes the count
+    distribution.
 
     The 16x32 base and the P <= 2048 cap were tuned on the TPU and are kept
     for parity with the reference; they are still to be tuned on the GPU."""
@@ -50,15 +53,16 @@ def auto_render_config(scene, camera: Camera) -> cfg.RenderConfig:
             rcfg = rcfg.replace(tile_h=rcfg.tile_h * 2)
         counts = scene_tile_counts(scene, camera, rcfg)
         mean_c = float(counts.mean()) if counts.size else 0.0
-    return rcfg.replace(tiers=binning.auto_tiers(counts))
+    return rcfg.replace(tiers=binning.auto_tiers(counts, margin=margin))
 
 
 def render(scene: Union[GaussianScene, ActivatedGaussians], camera: Camera,
-           render_cfg: cfg.RenderConfig) -> RenderOutput:
-    """Render `scene` from `camera`. `render_cfg.tiers` must be set (see
-    `auto_render_config`). The 'cuda' backend is forward-only: call it under
-    `torch.inference_mode()`."""
+           render_cfg: cfg.RenderConfig,
+           mean2d_delta: torch.Tensor | None = None) -> RenderOutput:
+    """Render `scene` from `camera`, differentiably. `render_cfg.tiers` must
+    be set (see `auto_render_config`). `mean2d_delta`: see
+    `ops.preprocess.preprocess`."""
     if render_cfg.backend not in cfg.BACKENDS:
         raise ValueError(f"unknown backend {render_cfg.backend!r}; expected "
                          f"one of {cfg.BACKENDS}")
-    return render_tiled(_activated(scene), camera, render_cfg)
+    return render_tiled(_activated(scene), camera, render_cfg, mean2d_delta)

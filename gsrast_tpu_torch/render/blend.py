@@ -18,10 +18,26 @@ Blend semantics (the reference's):
   included T (1 - alpha), 1 when none; n_contrib = the number of included
   positions, skipped ones counted.
 
-Two versions: `blend_forward_cuda`, the hand-written kernel of
-`csrc/blend_forward.cu`, and `blend_forward_torch`, the plain closed-form
-version (cumulative products along each tile's segment) that the CPU runs
-and that the kernel is checked against.
+Backward (the reference's `_backward_kernel`, `pallas_blend.py:350`): with
+u = d_rgb . c and w = alpha T per (pixel, position), and T replayed back to
+front from the saved final_t, every position that blended (`applied`: not
+skipped and before n_contrib) gets
+  d alpha = T u - (sum of u w over later positions + final_t d_final_t)
+            / (1 - alpha),  0 where opacity e^power >= ALPHA_MAX
+  d power = d alpha * opacity e^power
+and the 9 gradient rows sum over the tile's pixels:
+  d mx = -(A Sx + B Sy), d my = -(C Sy + B Sx)   (Sx = sum dpower dx, ...)
+  d A = -1/2 sum dpower dx^2, d B = -sum dpower dx dy, d C = -1/2 sum dpower dy^2
+  d opacity = sum d alpha e^power, d rgb = sum w d_rgb.
+Row 9 (tile id) and every column outside the tiles' segments stay 0: the
+sort-pack gather's backward adds every column into a real Gaussian.
+
+Each direction has two versions: the hand-written kernels of
+`csrc/blend_forward.cu` and `csrc/blend_backward.cu` (`*_cuda`, CUDA tensors
+only), and the plain closed-form versions (`*_torch`: cumulative products
+and sums along each tile's segment) that the CPU runs and that the kernels
+are checked against. `BlendFunction` pairs the forward with its backward for
+autograd.
 """
 
 from __future__ import annotations
@@ -58,21 +74,75 @@ def _check_inputs(feat: torch.Tensor, tile_starts: torch.Tensor,
         raise ValueError("feat and tile_starts must share a device")
 
 
+def _check_pixel_inputs(num_tiles: int, p: int, **tensors) -> None:
+    """Per-pixel inputs of the backward: d_rgb (T, 3, P) float32; d_final_t
+    and final_t (T, P) float32; n_contrib (T, P) int32."""
+    for name, x in tensors.items():
+        shape = (num_tiles, 3, p) if name == "d_rgb" else (num_tiles, p)
+        dtype = torch.int32 if name == "n_contrib" else torch.float32
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            raise ValueError(f"{name} must be {shape} {dtype}, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+
+
+def _dispatch(backend: str, device: torch.device, cuda_fn, torch_fn):
+    """backend 'cuda' launches the kernel and needs CUDA tensors; backend
+    'torch' runs the plain version and needs CPU tensors. Any other pairing
+    raises: nothing falls back."""
+    if backend == "cuda" and device.type == "cuda":
+        return cuda_fn
+    if backend == "torch" and device.type == "cpu":
+        return torch_fn
+    raise ValueError(
+        f"blend backend {backend!r} cannot run on {device} tensors: "
+        "'cuda' needs CUDA tensors, 'torch' needs CPU tensors")
+
+
 def blend_forward(feat: torch.Tensor, tile_starts: torch.Tensor, grid_h: int,
                   grid_w: int, tile_h: int, tile_w: int,
                   backend: str = "cuda") -> BlendOut:
-    """Blend every tile. backend 'cuda' launches the kernel and needs CUDA
-    tensors; backend 'torch' runs the plain version and needs CPU tensors.
-    Any other pairing raises: nothing falls back."""
-    if backend == "cuda" and feat.device.type == "cuda":
-        return blend_forward_cuda(feat, tile_starts, grid_h, grid_w, tile_h,
-                                  tile_w)
-    if backend == "torch" and feat.device.type == "cpu":
-        return blend_forward_torch(feat, tile_starts, grid_h, grid_w, tile_h,
-                                   tile_w)
-    raise ValueError(
-        f"blend backend {backend!r} cannot run on {feat.device} tensors: "
-        "'cuda' needs CUDA tensors, 'torch' needs CPU tensors")
+    """Blend every tile with the kernel or the plain version (`_dispatch`)."""
+    fn = _dispatch(backend, feat.device, blend_forward_cuda,
+                   blend_forward_torch)
+    return fn(feat, tile_starts, grid_h, grid_w, tile_h, tile_w)
+
+
+def blend_backward(feat: torch.Tensor, tile_starts: torch.Tensor,
+                   d_rgb: torch.Tensor, d_final_t: torch.Tensor,
+                   final_t: torch.Tensor, n_contrib: torch.Tensor,
+                   grid_h: int, grid_w: int, tile_h: int, tile_w: int,
+                   backend: str = "cuda") -> torch.Tensor:
+    """d_feat (10, S) with the kernel or the plain version (`_dispatch`)."""
+    fn = _dispatch(backend, feat.device, blend_backward_cuda,
+                   blend_backward_torch)
+    return fn(feat, tile_starts, d_rgb, d_final_t, final_t, n_contrib,
+              grid_h, grid_w, tile_h, tile_w)
+
+
+class BlendFunction(torch.autograd.Function):
+    """The blend as an autograd node: (feat, tile_starts, grid_h, grid_w,
+    tile_h, tile_w, backend) -> (rgb, final_t, n_contrib). The backward
+    runs the same backend's backward on the saved final_t and n_contrib, so
+    its gate is the forward's; n_contrib is not differentiable. Autograd
+    hands an output the loss does not use a zero cotangent (materialized
+    grads, the default)."""
+
+    @staticmethod
+    def forward(ctx, feat, tile_starts, grid_h, grid_w, tile_h, tile_w,
+                backend):
+        rgb, final_t, n_contrib = blend_forward(
+            feat, tile_starts, grid_h, grid_w, tile_h, tile_w, backend)
+        ctx.save_for_backward(feat, tile_starts, final_t, n_contrib)
+        ctx.mark_non_differentiable(n_contrib)
+        ctx.geometry = (grid_h, grid_w, tile_h, tile_w, backend)
+        return rgb, final_t, n_contrib
+
+    @staticmethod
+    def backward(ctx, d_rgb, d_final_t, _d_n_contrib):
+        feat, tile_starts, final_t, n_contrib = ctx.saved_tensors
+        d_feat = blend_backward(feat, tile_starts, d_rgb, d_final_t, final_t,
+                                n_contrib, *ctx.geometry)
+        return d_feat, None, None, None, None, None, None
 
 
 def blend_forward_cuda(feat: torch.Tensor, tile_starts: torch.Tensor,
@@ -85,9 +155,6 @@ def blend_forward_cuda(feat: torch.Tensor, tile_starts: torch.Tensor,
     if feat.device.type != "cuda":
         raise ValueError(f"blend_forward_cuda needs CUDA tensors, got "
                          f"{feat.device}")
-    if feat.requires_grad:
-        raise ValueError("blend_forward_cuda is forward-only: feat requires "
-                         "grad (render under torch.inference_mode())")
     if feat.shape[1] >= 2**31:
         raise ValueError(
             f"{feat.shape[1]} intersections exceed int32 indexing")
@@ -189,3 +256,128 @@ def blend_forward_torch(feat: torch.Tensor, tile_starts: torch.Tensor,
         final_t[t0:t1] = ft
         n_contrib[t0:t1] = nc
     return rgb, final_t, n_contrib
+
+
+def blend_backward_cuda(feat: torch.Tensor, tile_starts: torch.Tensor,
+                        d_rgb: torch.Tensor, d_final_t: torch.Tensor,
+                        final_t: torch.Tensor, n_contrib: torch.Tensor,
+                        grid_h: int, grid_w: int, tile_h: int,
+                        tile_w: int) -> torch.Tensor:
+    """The hand-written kernel (`csrc/blend_backward.cu`) on CUDA tensors:
+    d_feat (10, S), zero outside the applied positions. Runs on the current
+    stream without synchronising; its atomic sums may change in the last
+    bits from run to run."""
+    num_tiles, p = grid_h * grid_w, tile_h * tile_w
+    _check_inputs(feat, tile_starts, num_tiles)
+    _check_pixel_inputs(num_tiles, p, d_rgb=d_rgb, d_final_t=d_final_t,
+                        final_t=final_t, n_contrib=n_contrib)
+    tensors = (feat, tile_starts, d_rgb, d_final_t, final_t, n_contrib)
+    if any(x.device != feat.device for x in tensors) or (
+            feat.device.type != "cuda"):
+        raise ValueError("blend_backward_cuda needs all inputs on one CUDA "
+                         f"device, got {[str(x.device) for x in tensors]}")
+    if feat.shape[1] >= 2**31:
+        raise ValueError(
+            f"{feat.shape[1]} intersections exceed int32 indexing")
+    feat, tile_starts, d_rgb, d_final_t, final_t, n_contrib = (
+        x.contiguous() for x in tensors)
+    d_feat = torch.zeros_like(feat)
+    fn = _kernels.load().lib.gsrast_blend_backward
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream(feat.device).cuda_stream
+        code = fn(feat.data_ptr(), feat.shape[1], tile_starts.data_ptr(),
+                  num_tiles, grid_w, tile_h, tile_w, cfg.ALPHA_MIN,
+                  cfg.ALPHA_MAX, d_rgb.data_ptr(), d_final_t.data_ptr(),
+                  final_t.data_ptr(), n_contrib.data_ptr(), d_feat.data_ptr(),
+                  stream)
+    _kernels.launch_counts["blend_backward"] += 1
+    if code != 0:
+        raise RuntimeError(f"blend_backward kernel launch failed: CUDA error "
+                           f"{code}")
+    return d_feat
+
+
+def blend_backward_torch(feat: torch.Tensor, tile_starts: torch.Tensor,
+                         d_rgb: torch.Tensor, d_final_t: torch.Tensor,
+                         final_t: torch.Tensor, n_contrib: torch.Tensor,
+                         grid_h: int, grid_w: int, tile_h: int, tile_w: int,
+                         budget: int = PLAIN_CHUNK_ELEMENTS) -> torch.Tensor:
+    """The plain backward, on any device: d_feat (10, S). Tiles run in
+    chunks as in `blend_forward_torch`, over each segment's first
+    max(n_contrib) positions only (later ones carry no gradient); a segment
+    longer than the budget allows is walked in blocks of positions, newest
+    block first, with T and the suffix sum of u w carried between blocks."""
+    num_tiles, p = grid_h * grid_w, tile_h * tile_w
+    _check_inputs(feat, tile_starts, num_tiles)
+    _check_pixel_inputs(num_tiles, p, d_rgb=d_rgb, d_final_t=d_final_t,
+                        final_t=final_t, n_contrib=n_contrib)
+    dev = feat.device
+    s = feat.shape[1]
+    starts = tile_starts[:-1].long()
+    live = torch.minimum(tile_starts[1:] - tile_starts[:-1],
+                         n_contrib.amax(dim=1)).long()
+    counts = live.tolist()
+    ends = starts + live
+    pix = torch.arange(p, device=dev)
+    pcol, prow = pix % tile_w, pix // tile_w
+
+    d_feat = torch.zeros((FEATURE_ROWS, s), dtype=torch.float32, device=dev)
+    for t0, t1, kmax in _tile_chunks(counts, p, budget):
+        if kmax == 0:
+            continue
+        nt = t1 - t0
+        tids = torch.arange(t0, t1, device=dev)
+        px = ((tids % grid_w) * tile_w)[:, None] + pcol
+        py = ((tids // grid_w) * tile_h)[:, None] + prow
+        px, py = px[:, None, :].float(), py[:, None, :].float()  # (nt, 1, P)
+        kb = max(1, min(kmax, budget // (nt * p)))
+        nc = n_contrib[t0:t1, None, :]
+        dc = d_rgb[t0:t1, :, None, :]  # (nt, 3, 1, P)
+        ft_dft = (final_t[t0:t1] * d_final_t[t0:t1])[:, None, :]
+        t_after = final_t[t0:t1, None, :]  # T after the block, (nt, 1, P)
+        q = torch.zeros((nt, 1, p), dtype=torch.float32, device=dev)
+        for k0 in reversed(range(0, kmax, kb)):
+            pos = k0 + torch.arange(kb, device=dev)
+            take = starts[t0:t1, None] + pos  # (nt, kb)
+            in_range = take < ends[t0:t1, None]
+            f = feat[:, take.clamp(max=s - 1)][..., None]  # (10, nt, kb, 1)
+            dx = f[F_MX] - px
+            dy = f[F_MY] - py
+            power = (-0.5 * (f[F_CA] * (dx * dx) + f[F_CC] * (dy * dy))
+                     - f[F_CB] * (dx * dy))
+            gauss = torch.exp(power)
+            og = f[F_OP] * gauss
+            alpha = torch.clamp(og, max=cfg.ALPHA_MAX)
+            applied = (in_range[..., None] & (power <= 0.0)
+                       & (alpha >= cfg.ALPHA_MIN) & (pos[:, None] < nc))
+            a = torch.where(applied, alpha, 0.0)
+            om = 1.0 - a
+            cum = torch.cumprod(om, dim=1)  # (nt, kb, P)
+            t_start = t_after / cum[:, -1:]
+            t_g = t_start * torch.cat([torch.ones_like(cum[:, :1]),
+                                       cum[:, :-1]], dim=1)
+            w = a * t_g
+            u = (dc[:, 0] * f[F_R] + dc[:, 1] * f[F_G]) + dc[:, 2] * f[F_B]
+            uw = u * w
+            later = torch.cumsum(uw.flip(1), dim=1).flip(1)  # inclusive
+            later = torch.cat([later[:, 1:], torch.zeros_like(later[:, :1])],
+                              dim=1)
+            dalpha = t_g * u - (later + q + ft_dft) / om
+            grads = applied & (og < cfg.ALPHA_MAX)
+            dpower = torch.where(grads, dalpha * og, 0.0)
+            dpx, dpy = dpower * dx, dpower * dy
+            sx, sy = dpx.sum(2), dpy.sum(2)  # (nt, kb)
+            ca, cb, cc = f[F_CA, ..., 0], f[F_CB, ..., 0], f[F_CC, ..., 0]
+            rows = torch.stack([
+                -(ca * sx + cb * sy),
+                -(cc * sy + cb * sx),
+                -0.5 * (dpx * dx).sum(2),
+                -(dpx * dy).sum(2),
+                -0.5 * (dpy * dy).sum(2),
+                torch.where(grads, dalpha * gauss, 0.0).sum(2),
+                *((w * dc[:, c]).sum(2) for c in range(3)),
+            ])  # (9, nt, kb)
+            d_feat[:F_TID, take[in_range]] = rows[:, in_range]
+            q = q + uw.sum(1, keepdim=True)
+            t_after = t_start
+    return d_feat

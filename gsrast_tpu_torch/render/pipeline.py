@@ -6,6 +6,16 @@ Counterpart of the reference's `render_tiled_pallas`
 rows ride its sort as payloads because a gather is slow on the TPU; here one
 stable sort of a 64-bit (tile, depth) key yields the permutation, and the
 feature rows are gathered by it.
+
+Differentiable end to end: the tile plan is integer structure built from
+detached preprocess outputs (the reference's `stop_gradient(prep)`), the
+blend is `BlendFunction`, and autograd turns the sort-pack gather
+(`index_select`) into an index-add of per-intersection gradients by
+Gaussian id (`index_add_`, atomic adds on the card), which replaces the
+reference's routing sorts (`pallas_pipeline.py:218-244`). The gather is
+not written `feat_nt[:, gauss]`: that differentiates into `index_put_`
+with accumulation, whose CUDA kernel sorts the indices and sums each run
+of equal ones serially, 38 ms of a 64 ms 1M/1080p fwd+bwd on an H100.
 """
 
 from __future__ import annotations
@@ -19,7 +29,7 @@ from ..camera import Camera
 from ..ops import binning
 from ..ops.preprocess import Preprocessed, preprocess
 from ..scene.gaussians import ActivatedGaussians
-from .blend import blend_forward
+from .blend import BlendFunction
 from .tiled import RenderOutput, untile, untile_cf
 
 
@@ -38,7 +48,11 @@ def sort_pack(feat_nt: torch.Tensor, plan: binning.TierPlan,
     Gaussian and row 9 its tile id, and tile_starts (T+1,) int32. Live slots
     come first, in exactly the order of the reference's stable two-key sort
     of (tile, depth); the dead slots after `tile_starts[-1]` are in no
-    defined order and carry no defined features."""
+    defined order and carry no defined features: slot s gathers Gaussian
+    s mod N, so that the backward's index-add spreads their cotangents
+    (exactly zero: the blend backward writes nothing outside the tiles'
+    segments) over distinct addresses instead of queueing atomics on
+    one."""
     # The depth bits of culled Gaussians can be negative int32, which would
     # sign-extend over the tile bits; padded slots carry depth 0. Masking to
     # the low 32 bits keeps the tile in the high word. Live slots have
@@ -46,8 +60,11 @@ def sort_pack(feat_nt: torch.Tensor, plan: binning.TierPlan,
     key = (plan.tile_key.long() << 32) | (plan.depth_key.long() & 0xFFFFFFFF)
     perm = torch.sort(key, stable=True).indices
     tile = plan.tile_key[perm]
-    gauss = plan.gauss[perm].long().clamp(min=0)
-    feat = torch.cat([feat_nt[:, gauss], tile[None].float()], dim=0)
+    gauss = plan.gauss[perm].long()
+    slot = torch.arange(gauss.shape[0], device=gauss.device)
+    gauss = torch.where(gauss >= 0, gauss, slot % feat_nt.shape[1])
+    feat = torch.cat([feat_nt.index_select(1, gauss), tile[None].float()],
+                     dim=0)
     queries = torch.arange(num_tiles + 1, dtype=torch.int32,
                            device=tile.device)
     tile_starts = torch.searchsorted(tile, queries, side="left",
@@ -56,15 +73,18 @@ def sort_pack(feat_nt: torch.Tensor, plan: binning.TierPlan,
 
 
 def render_tiled(gaussians: ActivatedGaussians, camera: Camera,
-                 render_cfg: cfg.RenderConfig) -> RenderOutput:
+                 render_cfg: cfg.RenderConfig,
+                 mean2d_delta: torch.Tensor | None = None) -> RenderOutput:
     tile_h, tile_w = render_cfg.tile_h, render_cfg.tile_w
     grid_h, grid_w = render_cfg.grid_shape(camera.height, camera.width)
     num_tiles = grid_h * grid_w
 
-    prep = preprocess(gaussians, camera, render_cfg)
-    plan = binning.plan_tiers(prep, grid_h, grid_w, render_cfg)
+    prep = preprocess(gaussians, camera, render_cfg, mean2d_delta)
+    plan = binning.plan_tiers(
+        Preprocessed(*(x.detach() if isinstance(x, torch.Tensor) else x
+                       for x in prep)), grid_h, grid_w, render_cfg)
     feat, tile_starts = sort_pack(feature_rows(prep), plan, num_tiles)
-    rgb_tiles, ft_tiles, nc_tiles = blend_forward(
+    rgb_tiles, ft_tiles, nc_tiles = BlendFunction.apply(
         feat, tile_starts, grid_h, grid_w, tile_h, tile_w, render_cfg.backend)
 
     background = torch.tensor(render_cfg.background, dtype=torch.float32,

@@ -4,16 +4,23 @@
 holds, as the five parameter groups of an `nn.Module`, with a validity mask
 as a buffer. `activated()` applies the activations the renderer consumes:
 exp scales, normalised quaternions, masked sigmoid opacity.
+
+Capacity vs count: a scene may hold `capacity` rows of which the mask marks
+the live ones; densification fills dead slots and pruning frees them in
+place, without reallocating (see `train/densify.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+
+PARAM_FIELDS = ("means", "log_scales", "quats", "opacity_logits", "sh")
 
 
 def _sh_degree(sh: torch.Tensor) -> int:
@@ -57,6 +64,18 @@ class GaussianScene(nn.Module):
     def sh_degree(self) -> int:
         return _sh_degree(self.sh)
 
+    @property
+    def capacity(self) -> int:
+        return self.means.shape[0]
+
+    def num_active(self) -> torch.Tensor:
+        return torch.sum(self.mask, dtype=torch.int32)
+
+    def param_groups(self) -> Dict[str, nn.Parameter]:
+        """The five trainable parameters by field name, in `PARAM_FIELDS`
+        order: the optimizer's parameter groups."""
+        return {name: getattr(self, name) for name in PARAM_FIELDS}
+
     def activated(self) -> ActivatedGaussians:
         q = self.quats
         norm = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
@@ -71,11 +90,12 @@ class GaussianScene(nn.Module):
         )
 
     def bbox(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Min and max corner over the live Gaussians."""
+        """Min and max corner over the live Gaussians (no gradient)."""
         big = 3.0e38
         live = self.mask[:, None]
-        mn = torch.amin(torch.where(live, self.means, big), dim=0)
-        mx = torch.amax(torch.where(live, self.means, -big), dim=0)
+        means = self.means.detach()
+        mn = torch.amin(torch.where(live, means, big), dim=0)
+        mx = torch.amax(torch.where(live, means, -big), dim=0)
         return mn, mx
 
 
@@ -83,17 +103,38 @@ def from_numpy(arrays: dict, device="cpu") -> GaussianScene:
     """A scene from host arrays keyed by field name: the five parameter
     groups and optionally `mask` (all live when absent). This is how weights
     cross from the reference package: pass its scene's fields as numpy."""
-    def f32(name):
-        return torch.as_tensor(np.asarray(arrays[name], np.float32),
-                               device=device)
+    def f32(name):  # a copy: training updates the parameters in place
+        return torch.tensor(np.asarray(arrays[name], np.float32),
+                            device=device)
 
     means = f32("means")
     n = means.shape[0]
     mask = arrays.get("mask")
     mask = (torch.ones(n, dtype=torch.bool, device=device) if mask is None
-            else torch.as_tensor(np.asarray(mask, bool), device=device))
+            else torch.tensor(np.asarray(mask, bool), device=device))
     return GaussianScene(means, f32("log_scales"), f32("quats"),
                          f32("opacity_logits").reshape(n), f32("sh"), mask)
+
+
+def pad_to_capacity(scene: GaussianScene, capacity: int) -> GaussianScene:
+    """A new scene with `capacity` rows: the live rows of `scene` followed
+    by dead slots (identity rotation, log-scale and opacity logit -10, zero
+    elsewhere), as the reference pads."""
+    n = scene.capacity
+    if capacity < n:
+        raise ValueError(f"capacity {capacity} < current size {n}")
+    pad = capacity - n
+
+    def _pad(x: torch.Tensor, fill=0.0) -> torch.Tensor:
+        x = x.detach()
+        return torch.cat([x, torch.full((pad,) + x.shape[1:], fill,
+                                        dtype=x.dtype, device=x.device)])
+
+    quats = _pad(scene.quats)
+    quats[n:, 0] = 1.0
+    return GaussianScene(_pad(scene.means), _pad(scene.log_scales, -10.0),
+                         quats, _pad(scene.opacity_logits, -10.0),
+                         _pad(scene.sh), _pad(scene.mask, False))
 
 
 def random_scene(n: int, generator: np.random.Generator, sh_degree: int = 0,

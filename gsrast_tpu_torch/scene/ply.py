@@ -1,8 +1,8 @@
-"""Trained-scene .ply import (numpy only).
+"""Trained-scene .ply import and export (numpy only).
 
 Parses the vertex element of a trained 3DGS .ply by property name (robust to
 SH-degree variants) into the raw-parameter `GaussianScene`; activations stay
-explicit (`GaussianScene.activated`).
+explicit (`GaussianScene.activated`). `save_ply` writes the same layout back.
 """
 
 from __future__ import annotations
@@ -114,3 +114,38 @@ def load_ply(path_or_bytes, device="cpu") -> G.GaussianScene:
     return G.from_numpy(dict(means=means, log_scales=log_scales, quats=quats,
                              opacity_logits=raw["opacity"], sh=sh),
                         device=device)
+
+
+def save_ply(scene: G.GaussianScene, path: str) -> None:
+    """Write the live Gaussians of `scene` in the standard trained-scene
+    .ply layout (the inverse of `load_ply`; raw parameters, normals zero)."""
+    host = {f: getattr(scene, f).detach().cpu().numpy()
+            for f in G.PARAM_FIELDS + ("mask",)}
+    live = host.pop("mask")
+    means, log_scales, quats, opacity, sh = (host[f][live]
+                                             for f in G.PARAM_FIELDS)
+    n, k, _ = sh.shape
+    n_rest = (k - 1) * 3
+    names = (["x", "y", "z", "nx", "ny", "nz"]
+             + [f"f_dc_{i}" for i in range(3)]
+             + [f"f_rest_{i}" for i in range(n_rest)]
+             + ["opacity"]
+             + [f"scale_{i}" for i in range(3)]
+             + [f"rot_{i}" for i in range(4)])
+    out = np.zeros(n, np.dtype([(nm, "<f4") for nm in names]))
+    out["x"], out["y"], out["z"] = means.T
+    for i in range(3):
+        out[f"f_dc_{i}"] = sh[:, 0, i]
+        out[f"scale_{i}"] = log_scales[:, i]
+    rest = sh[:, 1:, :].transpose(0, 2, 1).reshape(n, n_rest)
+    for i in range(n_rest):
+        out[f"f_rest_{i}"] = rest[:, i]
+    out["opacity"] = opacity
+    for i in range(4):
+        out[f"rot_{i}"] = quats[:, i]
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}"]
+    header += [f"property float {nm}" for nm in names]
+    header += ["end_header", ""]
+    with open(path, "wb") as f:
+        f.write("\n".join(header).encode("ascii"))
+        f.write(out.tobytes())

@@ -8,17 +8,14 @@ import numpy as np
 import pytest
 import torch
 
-import gsrast_tpu_torch as gt
 from gsrast_tpu_torch import _kernels
-from gsrast_tpu_torch.ops import binning
-from gsrast_tpu_torch.ops.preprocess import preprocess
-from gsrast_tpu_torch.render.api import scene_tile_counts
 from gsrast_tpu_torch.render.blend import (blend_forward, blend_forward_cuda,
                                            blend_forward_torch)
-from gsrast_tpu_torch.render.pipeline import feature_rows, sort_pack
 
-from torch_parity import (SCENE_FIELDS, TRAINED_SMALL, front_camera,
-                          port_front_camera, seeded_arrays, t2n)
+from torch_parity import BLEND_CASES as CASES
+from torch_parity import packed_port as _packed_port
+from torch_parity import packed_reference as _packed
+from torch_parity import t2n
 
 torch.set_num_threads(2)
 
@@ -27,80 +24,6 @@ torch.set_num_threads(2)
 # the MXU), so rgb/final_t agree to a few float32 ulps of the accumulated
 # values: atol 3e-6, as the reference's own kernel-vs-XLA tests use.
 ATOL = 3e-6
-
-
-CASES = ("trained_small_16x32", "aniso_32x64", "saturated_stack")
-
-
-def _saturated_stack() -> dict:
-    """64 near-opaque splats stacked along the view axis at the centre."""
-    n = 64
-    means = np.zeros((n, 3), np.float32)
-    means[:, 2] = np.linspace(0.0, 0.5, n, dtype=np.float32)
-    sh = np.zeros((n, 1, 3), np.float32)
-    sh[:, 0] = np.random.default_rng(1).uniform(-1.0, 1.0, (n, 3))
-    return dict(means=means,
-                log_scales=np.log(np.full((n, 3), 0.3, np.float32)),
-                quats=np.tile(np.float32([1, 0, 0, 0]), (n, 1)),
-                opacity_logits=np.full((n,), 4.0, np.float32), sh=sh)
-
-
-def _case_setup(case):
-    """(scene arrays or None for trained_small, (width, height), tiles)."""
-    if case == "trained_small_16x32":
-        return None, (128, 128), (16, 32)
-    if case == "aniso_32x64":
-        return seeded_arrays(9, 150), (128, 64), (32, 64)
-    return _saturated_stack(), (128, 16), (8, 32)
-
-
-def _packed(case):
-    """Reference-packed features of one case: (feat_packed (16, S),
-    tile_starts, grid_h, grid_w, tile_h, tile_w)."""
-    import gsrast_tpu as gs
-    from gsrast_tpu.ops import binning as jax_binning
-    from gsrast_tpu.ops.preprocess import preprocess as jax_preprocess
-    from gsrast_tpu.render import pallas_pipeline as jax_pp
-    from gsrast_tpu.render.api import scene_tile_counts as jax_tile_counts
-    from gsrast_tpu.scene.gaussians import from_arrays
-
-    arrays, (w, h), (th, tw) = _case_setup(case)
-    if arrays is None:
-        scene = gs.load_ply(TRAINED_SMALL)
-        cam = gs.auto_frame(*scene.bbox(), w, h)
-    else:
-        scene = from_arrays(*(arrays[f] for f in SCENE_FIELDS))
-        cam, _ = front_camera(w, h)
-    rcfg = gs.RenderConfig(tile_h=th, tile_w=tw)
-    rcfg = rcfg.replace(tiers=jax_binning.auto_tiers(
-        jax_tile_counts(scene, cam, rcfg)))
-    prep = jax_preprocess(scene.activated(), cam, rcfg)
-    gh, gw = rcfg.grid_shape(cam.height, cam.width)
-    plan = jax_binning.plan_tiers(prep, gh, gw, rcfg)
-    assert int(plan.overflow_tile_cap) == 0
-    feat, starts = jax_pp.fused_pack(
-        jax_pp.feature_rows(prep), plan.tile_key, plan.depth_key, plan.slot,
-        plan.gauss, plan.order, rcfg.tiers, prep.depth.shape[0], gh * gw)
-    return feat, starts, gh, gw, th, tw
-
-
-def _packed_port(case, device):
-    """The same case packed by the port alone, on `device`."""
-    arrays, (w, h), (th, tw) = _case_setup(case)
-    if arrays is None:
-        scene = gt.load_ply(TRAINED_SMALL, device=device)
-        cam = gt.auto_frame(*scene.bbox(), w, h, device=device)
-    else:
-        scene = gt.from_numpy(arrays, device=device)
-        cam = port_front_camera(w, h, device=device)
-    rcfg = gt.RenderConfig(tile_h=th, tile_w=tw)
-    rcfg = rcfg.replace(tiers=binning.auto_tiers(
-        scene_tile_counts(scene, cam, rcfg)))
-    prep = preprocess(scene.activated(), cam, rcfg)
-    gh, gw = rcfg.grid_shape(h, w)
-    plan = binning.plan_tiers(prep, gh, gw, rcfg)
-    feat, starts = sort_pack(feature_rows(prep), plan, gh * gw)
-    return feat, starts, gh, gw, th, tw
 
 
 @pytest.mark.parametrize("case", CASES)

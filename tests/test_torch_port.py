@@ -47,7 +47,10 @@ def test_render_config_defaults_equal_reference():
 
 def test_import_leaves_jax_out():
     code = ("import sys, gsrast_tpu_torch, gsrast_tpu_torch.cli, "
-            "gsrast_tpu_torch.render.blend; "
+            "gsrast_tpu_torch.render.blend, gsrast_tpu_torch.scene.ply, "
+            "gsrast_tpu_torch.train.loss, gsrast_tpu_torch.train.densify, "
+            "gsrast_tpu_torch.train.trainer, "
+            "gsrast_tpu_torch.train.checkpoint; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'gsrast_tpu.')) or m == 'gsrast_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -71,7 +74,32 @@ def test_cli_render_writes_png(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [["render", TRAINED_SMALL, "--mode",
-                                   "pointcloud"], ["train", "--scene", "x"]])
+                                   "pointcloud"],
+                                  ["train", "--scene", TRAINED_SMALL,
+                                   "--target", "target.png"]])
 def test_cli_unported_exits(argv):
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(argv)
+
+
+def test_cli_train_runs_and_resumes(tmp_path, capsys):
+    """`python -m gsrast_tpu_torch train` on the CPU: two steps with a
+    checkpoint and a saved .ply, then a resume to step 3."""
+    ckpts, ply = tmp_path / "ckpts", tmp_path / "trained.ply"
+    argv = ["train", "--scene", TRAINED_SMALL, "--steps", "2", "--width",
+            "64", "--height", "64", "--device", "cpu", "--ckpt-dir",
+            str(ckpts), "--ckpt-every", "1", "--save-ply", str(ply)]
+    state = cli.main(argv)
+    out = capsys.readouterr().out
+    assert state.step == 2 and "step 0: loss=" in out and "step 1:" in out
+    assert sorted(p.name for p in ckpts.iterdir()) == [
+        "step_00000001", "step_00000002"]
+    saved = gt.load_ply(str(ply))
+    assert saved.capacity == state.scene.capacity
+    assert bool(torch.isfinite(saved.means).all())
+    np.testing.assert_array_equal(t2n(saved.sh), t2n(state.scene.sh))
+
+    argv[argv.index("--steps") + 1] = "3"
+    state = cli.main(argv + ["--resume"])
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert state.step == 3

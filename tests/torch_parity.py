@@ -12,8 +12,11 @@ import numpy as np
 import torch
 
 import gsrast_tpu_torch as gt
+from gsrast_tpu_torch.ops import binning
 from gsrast_tpu_torch.ops import preprocess as tp
 from gsrast_tpu_torch.ops.projection import TileRect
+from gsrast_tpu_torch.render.api import scene_tile_counts
+from gsrast_tpu_torch.render.pipeline import feature_rows, sort_pack
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 TRAINED_SMALL = os.path.join(FIXTURES, "trained_small.ply")
@@ -92,3 +95,121 @@ def prep_to_torch(prep) -> tp.Preprocessed:
         mean2d=t(prep.mean2d), depth=t(prep.depth), conic=t(prep.conic),
         color=t(prep.color), opacity=t(prep.opacity), radius=t(prep.radius),
         rect=TileRect(*(t(r) for r in prep.rect)))
+
+
+# Blend cases shared by the forward and backward blend tests.
+BLEND_CASES = ("trained_small_16x32", "aniso_32x64", "saturated_stack")
+
+
+def _saturated_stack() -> dict:
+    """64 near-opaque splats stacked along the view axis at the centre."""
+    n = 64
+    means = np.zeros((n, 3), np.float32)
+    means[:, 2] = np.linspace(0.0, 0.5, n, dtype=np.float32)
+    sh = np.zeros((n, 1, 3), np.float32)
+    sh[:, 0] = np.random.default_rng(1).uniform(-1.0, 1.0, (n, 3))
+    return dict(means=means,
+                log_scales=np.log(np.full((n, 3), 0.3, np.float32)),
+                quats=np.tile(np.float32([1, 0, 0, 0]), (n, 1)),
+                opacity_logits=np.full((n,), 4.0, np.float32), sh=sh)
+
+
+def _case_setup(case):
+    """(scene arrays or None for trained_small, (width, height), tiles)."""
+    if case == "trained_small_16x32":
+        return None, (128, 128), (16, 32)
+    if case == "aniso_32x64":
+        return seeded_arrays(9, 150), (128, 64), (32, 64)
+    return _saturated_stack(), (128, 16), (8, 32)
+
+
+def packed_reference(case):
+    """Reference-packed features of one blend case: (feat_packed (16, S),
+    tile_starts, grid_h, grid_w, tile_h, tile_w), as JAX arrays."""
+    import gsrast_tpu as gs
+    from gsrast_tpu.ops import binning as jax_binning
+    from gsrast_tpu.ops.preprocess import preprocess as jax_preprocess
+    from gsrast_tpu.render import pallas_pipeline as jax_pp
+    from gsrast_tpu.render.api import scene_tile_counts as jax_tile_counts
+    from gsrast_tpu.scene.gaussians import from_arrays
+
+    arrays, (w, h), (th, tw) = _case_setup(case)
+    if arrays is None:
+        scene = gs.load_ply(TRAINED_SMALL)
+        cam = gs.auto_frame(*scene.bbox(), w, h)
+    else:
+        scene = from_arrays(*(arrays[f] for f in SCENE_FIELDS))
+        cam, _ = front_camera(w, h)
+    rcfg = gs.RenderConfig(tile_h=th, tile_w=tw)
+    rcfg = rcfg.replace(tiers=jax_binning.auto_tiers(
+        jax_tile_counts(scene, cam, rcfg)))
+    prep = jax_preprocess(scene.activated(), cam, rcfg)
+    gh, gw = rcfg.grid_shape(cam.height, cam.width)
+    plan = jax_binning.plan_tiers(prep, gh, gw, rcfg)
+    assert int(plan.overflow_tile_cap) == 0
+    feat, starts = jax_pp.fused_pack(
+        jax_pp.feature_rows(prep), plan.tile_key, plan.depth_key, plan.slot,
+        plan.gauss, plan.order, rcfg.tiers, prep.depth.shape[0], gh * gw)
+    return feat, starts, gh, gw, th, tw
+
+
+def packed_port(case, device):
+    """The same case packed by the port alone, on `device`."""
+    arrays, (w, h), (th, tw) = _case_setup(case)
+    if arrays is None:
+        scene = gt.load_ply(TRAINED_SMALL, device=device)
+        cam = gt.auto_frame(*scene.bbox(), w, h, device=device)
+    else:
+        scene = gt.from_numpy(arrays, device=device)
+        cam = port_front_camera(w, h, device=device)
+    rcfg = gt.RenderConfig(tile_h=th, tile_w=tw)
+    rcfg = rcfg.replace(tiers=binning.auto_tiers(
+        scene_tile_counts(scene, cam, rcfg)))
+    with torch.no_grad():
+        prep = tp.preprocess(scene.activated(), cam, rcfg)
+        gh, gw = rcfg.grid_shape(h, w)
+        plan = binning.plan_tiers(prep, gh, gw, rcfg)
+        feat, starts = sort_pack(feature_rows(prep), plan, gh * gw)
+    return feat, starts, gh, gw, th, tw
+
+
+# Optimizer and densify state, carried from the reference into the port.
+# The reference's optax.multi_transform labels of the five groups.
+OPTAX_LABELS = {"means": "means", "log_scales": "scales", "quats": "quats",
+                "opacity_logits": "opacity", "sh": "sh"}
+
+
+def densify_state_to_torch(state):
+    """A reference `DensifyState` as the port's, through numpy."""
+    from gsrast_tpu_torch.train.densify import DensifyState
+
+    return DensifyState(*(torch.from_numpy(np.array(x)) for x in state))
+
+
+def adam_state_arrays(opt_state) -> dict:
+    """{field: (count, mu, nu)} of a reference optimizer state (the
+    `make_optimizer` multi_transform of one optax.adam per group)."""
+    import jax
+    import optax
+
+    out = {}
+    for field, label in OPTAX_LABELS.items():
+        inner = opt_state.inner_states[label]
+        (adam,) = [s for s in jax.tree_util.tree_leaves(
+            inner, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+            if isinstance(s, optax.ScaleByAdamState)]
+        out[field] = (int(adam.count), np.array(adam.mu[field]),
+                      np.array(adam.nu[field]))
+    return out
+
+
+def load_adam_state(optimizer, arrays: dict) -> None:
+    """Set the port's Adam state (per-group moments and update count) from
+    `adam_state_arrays`."""
+    for group in optimizer.param_groups:
+        (param,) = group["params"]
+        count, mu, nu = arrays[group["name"]]
+        optimizer.state[param] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": torch.from_numpy(mu).to(param.device),
+            "exp_avg_sq": torch.from_numpy(nu).to(param.device)}
