@@ -10,10 +10,15 @@ at 1920x1080, and `render` on the 1M-Gaussian SH-degree-3 scene of the
 reference benchmark) and the training path (whole-render gradients against
 the CPU, 30 steps at 1080p through the `train.trainer` API, the CLI `train`
 with a checkpoint resume, and the fwd+bwd and train-step times at the
-north-star size), and checks that each path went through the kernels. Each
-phase prints one line before the next begins; the line before the last is
-the per-kernel JSON record, and the last is {"ok": true, "device": {...}}.
-Any failure raises and exits nonzero. It imports no JAX.
+north-star size), the fault-bisection kernels through their entry point
+and against their plain versions at the script's shapes and at the size of
+trained_116k's 1080p plan, training from data through the CLI (a COLMAP
+scene of eight 1080p views of trained_116k with its means as SfM points, a
+cameras.json directory, a target PNG), and a NaN rollback at 1080p; and
+checks that each path went through the kernels. Each phase prints one line
+before the next begins; the line before the last is the per-kernel JSON
+record, and the last is {"ok": true, "device": {...}}. Any failure raises
+and exits nonzero. It imports no JAX.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -48,6 +54,13 @@ MAX_NC_MISMATCH = 1e-4
 BWD_RTOL = 1e-4
 # Whole-render gradients, card against CPU: per parameter group.
 GRAD_RTOL = 1e-4
+# Bisection kernels against their plain versions: max |kernel - plain| over
+# the output's largest magnitude. C and D sum 1,024 elements per step in
+# another order (a tree of warp shuffles against torch.sum).
+BISECT_RTOL = 1e-5
+BISECT_REPS = 20  # back-to-back launches per timed interval
+N_VIEWS = 8  # views of the COLMAP scene of phase 12
+BLEND_KERNELS = ("blend_forward", "blend_backward")
 BACKGROUND = (0.1, 0.2, 0.3)
 
 
@@ -113,6 +126,22 @@ def compare_backward(kernel, plain, live: int) -> dict:
             "dead_abs_sum": dead}
 
 
+def bisect_launch(name: str, args: tuple):
+    """The bisection kernel `name` alone, for timing: one launch on `args`
+    into an output allocated here, without the wrapper's bounds check (a
+    host sync) and zero fill, and not counted. Returns the launcher, which
+    returns the launch's CUDA error code."""
+    from gsrast_tpu_torch import _kernels
+
+    starts, feat, *blocks = args
+    out = torch.zeros_like(feat)
+    fn = getattr(_kernels.load().lib, f"gsrast_bisect_{name}")
+    ptrs = (starts.data_ptr(), len(starts) - 1, feat.data_ptr(),
+            *(b.data_ptr() for b in blocks), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    return lambda: fn(*ptrs)
+
+
 def event_ms(fn) -> float:
     """Device time of one fn() in ms, by CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
@@ -151,6 +180,15 @@ def main() -> int:
                                                 init_train_state,
                                                 make_train_step,
                                                 maybe_densify, step_generator)
+    from gsrast_tpu_torch.diag import bisect_bwd as bb
+    from gsrast_tpu_torch.ops.sh import SH_C0
+    from gsrast_tpu_torch.scene import colmap
+    from gsrast_tpu_torch.scene.dataset import orbit_cameras, save_dataset
+    from gsrast_tpu_torch.train.resilience import (ResilienceConfig,
+                                                   all_finite,
+                                                   read_heartbeat,
+                                                   run_resilient)
+    from gsrast_tpu_torch.utils.image import load_png, save_png
     import numpy as np
 
     dev = torch.device(DEVICE)
@@ -361,7 +399,7 @@ def main() -> int:
           f"relative to each group's largest magnitude: "
           f"{json.dumps(grad_err)} launches={launches_grad}", flush=True)
     assert max(grad_err.values()) <= GRAD_RTOL, grad_err
-    assert min(launches_grad.values()) > 0, launches_grad
+    assert min(launches_grad[k] for k in BLEND_KERNELS) > 0, launches_grad
 
     # -- phase 8: training at full width, trained_116k at 1080p ------------
     base = load_ply(FIXTURE_116K, device=dev)
@@ -431,7 +469,8 @@ def main() -> int:
           f"{' | '.join(log.getvalue().splitlines())}", flush=True)
     assert first.step == 4 and saved_at == 4 and resumed.step == 6
     assert "resumed from step 4" in log.getvalue()
-    assert min(launches_cli_train.values()) > 0, launches_cli_train
+    assert min(launches_cli_train[k] for k in BLEND_KERNELS) > 0, (
+        launches_cli_train)
     assert trained.capacity == n_116k
     assert all(bool(torch.isfinite(p).all())
                for p in trained.param_groups().values())
@@ -493,6 +532,237 @@ def main() -> int:
     assert all(bool(torch.isfinite(p.grad).all())
                for p in scene.param_groups().values())
 
+    del state, scene, step, target, out, delta, loss, feat, starts, ft, nc
+    torch.cuda.empty_cache()
+
+    # -- phase 11: bisection kernels against their plain versions ---------
+    _kernels.reset_launch_counts()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        bb.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches_bisect = {k: v for k, v in _kernels.launch_counts.items()
+                       if k.startswith("bisect_")}
+    lines = log.getvalue().splitlines()
+    print(f"phase 11 bisect entry point: {' | '.join(lines)}; "
+          f"launches={launches_bisect}", flush=True)
+    assert [ln.split(": ")[1].split()[0] for ln in lines[1:]] == ["OK"] * 4
+    assert min(launches_bisect.values()) > 0, launches_bisect
+    with torch.inference_mode():
+        scene = load_ply(FIXTURE_116K, device=dev)
+        cam = auto_frame(*scene.bbox(), WIDTH, HEIGHT, device=dev)
+        rcfg = auto_render_config(scene, cam)
+        gh, gw = rcfg.grid_shape(HEIGHT, WIDTH)
+        prep = preprocess(scene.activated(), cam, rcfg)
+        plan = binning.plan_tiers(prep, gh, gw, rcfg)
+        _, starts = sort_pack(feature_rows(prep), plan, gh * gw)
+        # Each tile's segment rounded up to whole chunks of 128.
+        padded = (starts[1:] - starts[:-1] + 127) // 128 * 128
+        full_starts = torch.cat([padded.new_zeros(1),
+                                 padded.cumsum(0, dtype=torch.int32)])
+        t = gh * gw
+        gen_b = torch.Generator(device=dev).manual_seed(11)
+        full = {"starts": full_starts,
+                "feat": 2.0 * torch.rand((int(full_starts[-1]) // 8, 128),
+                                         generator=gen_b, device=dev),
+                "ft": torch.rand((t, 8, 128), generator=gen_b, device=dev),
+                "nc": torch.randint(0, int(padded.max()) + 1, (t, 8, 128),
+                                    generator=gen_b, device=dev,
+                                    dtype=torch.int32),
+                "drgb": torch.randn((t, 3, 8, 128), generator=gen_b,
+                                    device=dev)}
+        longest = int(padded.max())
+        tile1 = {"starts": torch.tensor([0, longest], dtype=torch.int32,
+                                        device=dev),
+                 "feat": 2.0 * torch.rand((longest // 8, 128),
+                                          generator=gen_b, device=dev),
+                 **{k: full[k][int(padded.argmax())][None]
+                    for k in ("ft", "nc", "drgb")}}
+        del scene, prep, plan, starts
+        sizes = {"script": bb.script_inputs(dev), "full": full,
+                 "longest_tile": tile1}
+        bisect = {}
+        for name, (cuda_fn, torch_fn) in bb.KERNELS.items():
+            res = {}
+            for size, inputs in sizes.items():
+                args = bb.kernel_args(name, inputs)
+                got = cuda_fn(*args)
+                torch.cuda.synchronize()
+                ref = torch_fn(*args)
+                assert bool(torch.isfinite(got).all()), name
+                err = float((got - ref).abs().max())
+                scale = float(ref.abs().max())
+                assert scale > 0, name
+                launch = bisect_launch(name, args)
+                assert launch() == 0, name
+                res[size] = {
+                    "max_abs_err": err, "rel_err": err / scale,
+                    "ms": cuda_ms(lambda: [launch() for _ in range(
+                        BISECT_REPS)]) / BISECT_REPS,
+                    "wrapper_ms": cuda_ms(lambda: cuda_fn(*args)),
+                    "plain_ms": cuda_ms(lambda: torch_fn(*args), iters=3,
+                                        warmup=1)}
+            bisect[name] = res
+            print(f"phase 11 bisect_{name} script (T=4, R=64), full "
+                  f"(trained_116k {WIDTH}x{HEIGHT} plan: T={t}, "
+                  f"R={int(full_starts[-1]) // 8}) and its longest tile "
+                  f"alone ({longest} positions): {json.dumps(res)}",
+                  flush=True)
+            assert max(r["rel_err"] for r in res.values()) <= BISECT_RTOL, (
+                name, res)
+        del full, tile1, sizes
+
+    # -- phase 12: training from data at full width, through the CLI ------
+    base = load_ply(FIXTURE_116K, device=dev)
+    mn, mx = (x.cpu().numpy() for x in base.bbox())
+    fov_y = 1.0
+    fov_x = float(2.0 * np.arctan(np.tan(fov_y / 2) * WIDTH / HEIGHT))
+    views = orbit_cameras((mn + mx) / 2, float(np.linalg.norm(mx - mn)) * 1.1,
+                          WIDTH, HEIGHT, N_VIEWS, fov_x=fov_x, fov_y=fov_y,
+                          device=dev)
+    with torch.no_grad():
+        rcfg_gt = auto_render_config(base, views[0])
+        photos = [render(base, c, rcfg_gt).image for c in views]
+    scene_dir = os.path.join(OUT_DIR, "colmap_116k")
+    shutil.rmtree(scene_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    for i, img in enumerate(photos):
+        save_png(img, os.path.join(scene_dir, "images", f"v{i:02d}.png"))
+    png_write_ms = (time.perf_counter() - t0) * 1e3 / N_VIEWS
+    fx = WIDTH / (2.0 * np.tan(fov_x / 2))
+    fy = HEIGHT / (2.0 * np.tan(fov_y / 2))
+    sh0 = base.sh.detach()[:, 0].cpu().numpy()
+    colmap.write_colmap_bin(
+        scene_dir, {1: colmap.ColmapCamera("PINHOLE", WIDTH, HEIGHT, fx, fy,
+                                           WIDTH / 2, HEIGHT / 2)},
+        [colmap.ColmapImage(f"v{i:02d}.png",
+                            colmap.rotmat_to_qvec(c.view[:3, :3].cpu()
+                                                  .numpy()),
+                            c.view[:3, 3].cpu().numpy(), 1)
+         for i, c in enumerate(views)],
+        xyz=base.means.detach().cpu().numpy(),
+        rgb=np.clip(sh0 * SH_C0 + 0.5, 0.0, 1.0))
+    t0 = time.perf_counter()
+    for i in range(N_VIEWS):
+        load_png(os.path.join(scene_dir, "images", f"v{i:02d}.png"))
+    png_read_ms = (time.perf_counter() - t0) * 1e3 / N_VIEWS
+
+    def cli_train(argv) -> tuple:
+        _kernels.reset_launch_counts()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            st = cli.main(["train", *argv])
+        torch.cuda.synchronize()
+        out = log.getvalue()
+        losses = {int(m[0]): float(m[1]) for m in re.findall(
+            r"step (\d+): loss=(\S+)", out)}
+        assert np.all(np.isfinite(list(losses.values()))), out
+        assert min(_kernels.launch_counts[k] for k in BLEND_KERNELS) > 0, (
+            _kernels.launch_counts)
+        return st, out, losses, dict(_kernels.launch_counts)
+
+    ck_colmap = os.path.join(OUT_DIR, "ckpt_colmap")
+    shutil.rmtree(ck_colmap, ignore_errors=True)
+    steps = 3 * N_VIEWS
+    t0 = time.perf_counter()
+    state, out, losses, launches_colmap = cli_train(
+        ["--scene", "colmap", "--data", scene_dir, "--steps", str(steps),
+         "--ckpt-every", "8", "--ckpt-dir", ck_colmap])
+    colmap_s = time.perf_counter() - t0
+    n_init = base.capacity
+    assert f"initialized {n_init} gaussians from COLMAP SfM points" in out
+    assert sorted(losses) == [0, steps - 1], out  # every 100th and the last
+    heartbeat = read_heartbeat(os.path.join(ck_colmap, "heartbeat.json"))
+    assert heartbeat is not None and heartbeat["step"] == steps
+    assert state.step == steps and all_finite(state)
+
+    ds, xyz, rgb = colmap.load_colmap(scene_dir, device=dev)
+    # The photographs read back as written: 8-bit rounding only.
+    png_err = float((ds.images - torch.stack(photos).clamp(0.0, 1.0))
+                    .abs().max())
+    assert png_err <= 0.5 / 255 + 1e-6, png_err
+    init = colmap.init_scene_from_points(xyz, rgb, device=dev)
+    rcfg0 = auto_render_config(init, ds.cameras[0], margin=1.5)
+    tc = TrainConfig()
+    # Every view scored at the SfM init and at the trained parameters, under
+    # the render config the CLI derives from view 0.
+    view_loss, overflow = {}, {}
+    with torch.no_grad():
+        for name, sc in (("init", init), ("trained", state.scene)):
+            outs = [render(sc, c, rcfg0) for c in ds.cameras]
+            view_loss[name] = [float(rgb_loss(o.image, img, tc.ssim_weight))
+                               for o, img in zip(outs, ds.images)]
+            overflow[name] = [int(o.stats["overflow_tile_cap"]) for o in outs]
+    mn, mx = (x.cpu().numpy() for x in init.bbox())
+    extent = float(np.linalg.norm(mx - mn))
+    st2 = init_train_state(init, tc, extent)
+    step = make_train_step(rcfg0, tc, extent)
+    colmap_ms = [event_ms(lambda: step(st2, ds.cameras[i % N_VIEWS],
+                                       ds.images[i % N_VIEWS]))
+                 for i in range(2 * N_VIEWS)]
+    print(f"phase 12 train --scene colmap --data: {N_VIEWS} views "
+          f"{WIDTH}x{HEIGHT}, {n_init} SfM points, {steps} steps in "
+          f"{colmap_s:.2f} s (CLI, with init and checkpoints); CLI loss at "
+          f"steps 0 and {steps - 1} {json.dumps(losses)}; per-view loss at "
+          f"the init and trained {json.dumps(view_loss)}; overflow_tile_cap "
+          f"per view {json.dumps(overflow)} (tiers {rcfg0.tiers}, tiles "
+          f"{rcfg0.tile_h}x{rcfg0.tile_w}, from view 0); step "
+          f"{statistics.median(colmap_ms[-8:]):.3f} ms (median of the last "
+          f"8 of 16, CUDA events); PNG 1920x1080 write {png_write_ms:.1f} ms, "
+          f"read {png_read_ms:.1f} ms (host, per image), read back within "
+          f"{png_err:.3g} of the renders; heartbeat "
+          f"{json.dumps(heartbeat)}; launches={launches_colmap}", flush=True)
+    for v, (first, last) in enumerate(zip(view_loss["init"],
+                                          view_loss["trained"])):
+        assert np.isfinite(first) and last < first, (v, view_loss)
+    del state, st2, step, init, ds, outs
+
+    ds_dir = os.path.join(OUT_DIR, "dataset_116k")
+    shutil.rmtree(ds_dir, ignore_errors=True)
+    save_dataset(ds_dir, views, photos)
+    state, out, losses_ds, launches_ds = cli_train(
+        ["--scene", FIXTURE_116K, "--data", ds_dir, "--steps", "8",
+         "--ckpt-dir", os.path.join(OUT_DIR, "ckpt_dataset")])
+    assert f"dataset: {N_VIEWS} views {WIDTH}x{HEIGHT}" in out
+    assert state.step == 8 and sorted(losses_ds) == [0, 7]
+    target_png = os.path.join(OUT_DIR, "target_116k.png")
+    with torch.no_grad():
+        cam = auto_frame(*base.bbox(), WIDTH, HEIGHT, device=dev)
+        save_png(render(base, cam, auto_render_config(base, cam)).image,
+                 target_png)
+    state, out, losses_tg, launches_tg = cli_train(
+        ["--scene", FIXTURE_116K, "--target", target_png, "--steps", "8",
+         "--width", str(WIDTH), "--height", str(HEIGHT), "--ckpt-dir",
+         os.path.join(OUT_DIR, "ckpt_target")])
+    assert state.step == 8 and sorted(losses_tg) == [0, 7]
+    print(f"phase 12 train --data <cameras.json dir>: losses at steps 0, "
+          f"7 {json.dumps(losses_ds)} launches={launches_ds}; train --target "
+          f"<png>: {json.dumps(losses_tg)} launches={launches_tg}",
+          flush=True)
+    del state
+
+    # -- phase 13: NaN rollback on the card, trained_116k at 1080p --------
+    mn, mx = (x.cpu().numpy() for x in base.bbox())
+    extent = float(np.linalg.norm(mx - mn))
+    tc = TrainConfig()
+    state = init_train_state(base, tc, extent)
+    step = make_train_step(rcfg_gt, tc, extent)
+    rollback_log = []
+    rc = ResilienceConfig(ckpt_dir=os.path.join(OUT_DIR, "ckpt_nan"),
+                          ckpt_every=4, inject_nan_at_step=6,
+                          heartbeat_path=os.path.join(OUT_DIR, "hb_nan.json"))
+    shutil.rmtree(rc.ckpt_dir, ignore_errors=True)
+    state, stopped = run_resilient(
+        state, 10, lambda st, i: step(st, views[i % N_VIEWS],
+                                      photos[i % N_VIEWS]),
+        rc, log=rollback_log.append)
+    print(f"phase 13 run_resilient trained_116k {WIDTH}x{HEIGHT}, NaN "
+          f"injected after step 6: {rollback_log}; final step {state.step}, "
+          f"finite {all_finite(state)}, stopped early {stopped}", flush=True)
+    assert rollback_log == ["step 6: NON-FINITE state detected; rolling back "
+                            "to checkpoint step 4 (1/3)"], rollback_log
+    assert state.step == 10 and all_finite(state) and not stopped
+
     b116 = bwd["trained_116k"]
     print(json.dumps({"kernels": [{
         "name": "blend_forward", "route": "cuda",
@@ -507,7 +777,15 @@ def main() -> int:
         "launches": launches_cli_train["blend_backward"],
         "max_abs_err": b116["max_abs_err"], "ms": b116["kernel_ms"],
         "plain_ms": b116["plain_ms"],
-    }]}))
+    }] + [{
+        "name": f"bisect_{name}", "route": "cuda",
+        "source": "gsrast_tpu_torch/csrc/bisect_bwd.cu",
+        "replaces": f"scripts/bisect_bwd.py:{line}",
+        "launches": launches_bisect[f"bisect_{name}"],
+        "max_abs_err": bisect[name]["full"]["max_abs_err"],
+        "ms": bisect[name]["full"]["ms"],
+        "plain_ms": bisect[name]["full"]["plain_ms"],
+    } for name, line in (("a", 48), ("b", 71), ("c", 105), ("d", 152))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels of `csrc/`.
 
-The sources compile with nvcc into one shared library with a plain C
-interface, loaded through ctypes. The build runs at first use into
-`_build/` next to this file, keyed by a hash of the sources and the flags,
-so a fresh checkout builds once and later processes reuse the library.
+Each source compiles with its own nvcc process, all started together, and
+the objects link into one shared library with a plain C interface, loaded
+through ctypes. The build runs at first use into `_build/` next to this
+file, keyed by a hash of the sources and the flags, so a fresh checkout
+builds once and later processes reuse the library.
 Nothing here runs at import time: machines without nvcc import the package
 and use the plain PyTorch versions on CPU tensors.
 """
@@ -22,12 +23,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 # Launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else.
-launch_counts = {"blend_forward": 0, "blend_backward": 0}
+launch_counts = {"blend_forward": 0, "blend_backward": 0, "bisect_a": 0,
+                 "bisect_b": 0, "bisect_c": 0, "bisect_d": 0}
 
 
 def reset_launch_counts() -> None:
@@ -69,15 +72,28 @@ def load() -> Library:
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]  # one nvcc per source, all at once
+        logs = [(cmd, proc.communicate()[0], proc.returncode)
+                for cmd, proc in zip(cmds, procs)]
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        if all(code == 0 for _, _, code in logs):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            logs.append((link, proc.stdout + proc.stderr, proc.returncode))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
-                f"{log}")
+        log = "".join(out for _, out, _ in logs)
+        for cmd, out, code in logs:
+            if code != 0:
+                raise RuntimeError(f"nvcc failed with code {code}:\n"
+                                   f"{' '.join(cmd)}\n{out}")
         os.replace(tmp, path)  # atomic: a concurrent process never loads half
     lib = ctypes.CDLL(str(path))
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -89,5 +105,12 @@ def load() -> Library:
     fn = lib.gsrast_blend_backward
     fn.argtypes = [vp, i64, vp, i32, i32, i32, i32, f32, f32, vp, vp, vp, vp,
                    vp, vp]
+    fn.restype = ctypes.c_int
+    for name in ("a", "b", "c"):
+        fn = getattr(lib, f"gsrast_bisect_{name}")
+        fn.argtypes = [vp, i32, vp, vp, vp]
+        fn.restype = ctypes.c_int
+    fn = lib.gsrast_bisect_d
+    fn.argtypes = [vp, i32, vp, vp, vp, vp, vp, vp]
     fn.restype = ctypes.c_int
     return Library(lib=lib, path=path, build_seconds=seconds, build_log=log)

@@ -50,7 +50,10 @@ def test_import_leaves_jax_out():
             "gsrast_tpu_torch.render.blend, gsrast_tpu_torch.scene.ply, "
             "gsrast_tpu_torch.train.loss, gsrast_tpu_torch.train.densify, "
             "gsrast_tpu_torch.train.trainer, "
-            "gsrast_tpu_torch.train.checkpoint; "
+            "gsrast_tpu_torch.train.checkpoint, "
+            "gsrast_tpu_torch.train.resilience, "
+            "gsrast_tpu_torch.scene.colmap, gsrast_tpu_torch.scene.dataset, "
+            "gsrast_tpu_torch.diag.bisect_bwd; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'gsrast_tpu.')) or m == 'gsrast_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -76,9 +79,21 @@ def test_cli_render_writes_png(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [["render", TRAINED_SMALL, "--mode",
                                    "pointcloud"],
                                   ["train", "--scene", TRAINED_SMALL,
-                                   "--target", "target.png"]])
+                                   "--pose", "home"]])
 def test_cli_unported_exits(argv):
     with pytest.raises(SystemExit, match="not ported yet"):
+        cli.main(argv)
+
+
+@pytest.mark.parametrize("argv", [["render", TRAINED_SMALL],
+                                  ["train", "--scene", TRAINED_SMALL],
+                                  ["make-dataset", TRAINED_SMALL, "--out",
+                                   "ds"]])
+def test_cli_without_a_card_exits_unless_cpu(argv, monkeypatch):
+    """--device defaults to cuda: with no card the command exits with a
+    clear error instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device.*--device cpu"):
         cli.main(argv)
 
 
@@ -92,8 +107,10 @@ def test_cli_train_runs_and_resumes(tmp_path, capsys):
     state = cli.main(argv)
     out = capsys.readouterr().out
     assert state.step == 2 and "step 0: loss=" in out and "step 1:" in out
-    assert sorted(p.name for p in ckpts.iterdir()) == [
-        "step_00000001", "step_00000002"]
+    # run_resilient saves at the start, as the reference's does.
+    assert sorted(p.name for p in ckpts.iterdir() if p.is_dir()) == [
+        "step_00000000", "step_00000001", "step_00000002"]
+    assert (ckpts / "heartbeat.json").exists()
     saved = gt.load_ply(str(ply))
     assert saved.capacity == state.scene.capacity
     assert bool(torch.isfinite(saved.means).all())

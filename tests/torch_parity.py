@@ -213,3 +213,59 @@ def load_adam_state(optimizer, arrays: dict) -> None:
             "step": torch.tensor(float(count)),
             "exp_avg": torch.from_numpy(mu).to(param.device),
             "exp_avg_sq": torch.from_numpy(nu).to(param.device)}
+
+
+# A COLMAP scene written by the reference package.
+def _orbit_pose(theta: float, radius: float = 2.5):
+    """(qvec (w, x, y, z), tvec, view) of a reference look_at camera on a
+    horizontal orbit, the pose convention of `tests/test_colmap.py`."""
+    import jax.numpy as jnp
+    from gsrast_tpu.camera import look_at as jax_look_at
+
+    eye = np.array([radius * np.sin(theta), 0.3, -radius * np.cos(theta)])
+    view = np.asarray(jax_look_at(jnp.asarray(eye), jnp.zeros(3)))
+    rot = view[:3, :3]
+    w = np.sqrt(max(0.0, 1 + rot[0, 0] + rot[1, 1] + rot[2, 2])) / 2
+    q = np.array([w, (rot[2, 1] - rot[1, 2]) / (4 * w),
+                  (rot[0, 2] - rot[2, 0]) / (4 * w),
+                  (rot[1, 0] - rot[0, 1]) / (4 * w)])
+    return q, view[:3, 3], view
+
+
+def reference_colmap_fixture(path, n_views: int = 3, wh=(96, 64)) -> dict:
+    """Render a 400-Gaussian SH-1 scene with the reference (XLA backend)
+    from `n_views` orbit poses, and write it with the reference's own
+    `save_png` (PIL, adaptive scanline filters) and `write_colmap_bin`
+    (PINHOLE, fx = fy = 80, the first 200 means as SfM points in grey).
+    Returns the scene's arrays."""
+    import jax
+    import jax.numpy as jnp
+    from gsrast_tpu import config as jcfg
+    from gsrast_tpu.camera import Camera as JaxCamera
+    from gsrast_tpu.render.api import render as jax_render
+    from gsrast_tpu.scene import colmap as jax_colmap
+    from gsrast_tpu.scene.gaussians import random_scene as jax_random_scene
+    from gsrast_tpu.utils.image import save_png as jax_save_png
+
+    w, h = wh
+    scene = jax_random_scene(jax.random.PRNGKey(7), 400, sh_degree=1)
+    fx = fy = 80.0
+    rcfg = jcfg.RenderConfig(backend="xla")
+    os.makedirs(os.path.join(path, "images"), exist_ok=True)
+    images = []
+    for i in range(n_views):
+        q, t, view = _orbit_pose(0.5 * i)
+        cam = JaxCamera(view=jnp.asarray(view),
+                        fov_x=jnp.float32(2 * np.arctan(w / (2 * fx))),
+                        fov_y=jnp.float32(2 * np.arctan(h / (2 * fy))),
+                        width=w, height=h)
+        name = f"v{i:02d}.png"
+        jax_save_png(jax_render(scene.activated(), cam, rcfg).image,
+                     os.path.join(path, "images", name))
+        images.append(jax_colmap.ColmapImage(name, q, t, 1))
+    jax_colmap.write_colmap_bin(
+        str(path), {1: jax_colmap.ColmapCamera("PINHOLE", w, h, fx, fy,
+                                               w / 2, h / 2)},
+        images, xyz=np.asarray(scene.means)[:200],
+        rgb=np.full((200, 3), 0.6, np.float32))
+    return jax_scene_arrays(scene)
