@@ -4,7 +4,11 @@
 
 Builds the hand-written CUDA kernels of `gsrast_tpu_torch` from the sources
 in this checkout, holds each against its plain PyTorch version at the shapes
-the render and training paths give it, drives the forward render path
+the render and training paths give it (the backward also against a second
+launch, bit for bit), prints each blend kernel's work, bound and share of
+the bound beside its time and times it with its blocks taking the tiles in
+index order and longest first (the tile order kernel's), drives the
+forward render path
 through its user entry points (the CLI on the trained 116k-Gaussian fixture
 at 1920x1080, and `render` on the 1M-Gaussian SH-degree-3 scene of the
 reference benchmark) and the training path (whole-render gradients against
@@ -13,8 +17,9 @@ with a checkpoint resume, and the fwd+bwd and train-step times at the
 north-star size), the fault-bisection kernels through their entry point
 and against their plain versions at the script's shapes and at the size of
 trained_116k's 1080p plan, training from data through the CLI (a COLMAP
-scene of eight 1080p views of trained_116k with its means as SfM points, a
-cameras.json directory, a target PNG), and a NaN rollback at 1080p; and
+scene of eight 1080p views of trained_116k with its means as SfM points,
+whose 32x64 tiles the blend kernels are also held at, a cameras.json
+directory, a target PNG), and a NaN rollback at 1080p; and
 checks that each path went through the kernels. Each phase prints one line
 before the next begins; the line before the last is the per-kernel JSON
 record, and the last is {"ok": true, "device": {...}}. Any failure raises
@@ -58,9 +63,21 @@ GRAD_RTOL = 1e-4
 # the output's largest magnitude. C and D sum 1,024 elements per step in
 # another order (a tree of warp shuffles against torch.sum).
 BISECT_RTOL = 1e-5
-BISECT_REPS = 20  # back-to-back launches per timed interval
+RAW_REPS = 20  # back-to-back raw launches per timed interval
 N_VIEWS = 8  # views of the COLMAP scene of phase 12
-BLEND_KERNELS = ("blend_forward", "blend_backward")
+PATH_KERNELS = ("tile_order", "blend_forward", "blend_backward")
+# Bounds: NVIDIA's H100 SXM figures at 700 W (FP32 outside the tensor
+# cores, HBM3), and the flops of one needed (pixel, position) pair at which
+# the splat blends, read off the kernels: the forward's alpha and blend
+# (blend_forward.cu), the backward's replay and gradient terms plus the 9
+# sums over pixels (blend_backward.cu). A needed pair at which it does not
+# blend costs at least the box test of blend_common.cuh: four comparisons.
+FP32_FLOPS = 67e12
+HBM_BPS = 3.35e12
+FWD_FLOPS = 21
+BWD_FLOPS = 46
+SKIP_FLOPS = 4
+ORDER_AB_ROUNDS = 2  # rounds of the tile-order A/B, each order timed once
 BACKGROUND = (0.1, 0.2, 0.3)
 
 
@@ -126,6 +143,200 @@ def compare_backward(kernel, plain, live: int) -> dict:
             "dead_abs_sum": dead}
 
 
+def blended_pairs(feat, tile_starts, n_contrib, grid_w: int, tile_h: int,
+                  tile_w: int, budget: int = 1 << 24) -> tuple:
+    """(forward, backward): the needed (pixel, position) pairs at which the
+    splat blends, power <= 0 and alpha >= ALPHA_MIN as the plain version
+    computes them, among the positions below min(n_contrib + 1, segment)
+    and below n_contrib. Runs of tiles of at most `budget` (tile, position,
+    pixel) elements, on the inputs' device."""
+    from gsrast_tpu_torch import config as cfg
+
+    dev = feat.device
+    starts = tile_starts.long()
+    nc = n_contrib.long()
+    stop = torch.minimum(nc + 1, (starts[1:] - starts[:-1])[:, None])
+    num_tiles, p = nc.shape
+    pix = torch.arange(p, device=dev)
+    need = stop.amax(1).tolist()
+    fwd = bwd = t0 = 0
+    while t0 < num_tiles:
+        t1, kmax = t0 + 1, need[t0]
+        while t1 < num_tiles and (t1 - t0 + 1) * max(kmax, need[t1]) * p <= (
+                budget):
+            kmax, t1 = max(kmax, need[t1]), t1 + 1
+        if kmax > 0:
+            tid = torch.arange(t0, t1, device=dev)[:, None, None]
+            pos = torch.arange(kmax, device=dev)[:, None]
+            take = (starts[t0:t1, None, None] + pos).clamp(
+                max=feat.shape[1] - 1)
+            f = feat[:, take]  # (10, tiles, kmax, 1)
+            dx = f[0] - ((tid % grid_w) * tile_w + pix % tile_w).float()
+            dy = f[1] - ((tid // grid_w) * tile_h + pix // tile_w).float()
+            power = (-0.5 * (f[2] * (dx * dx) + f[4] * (dy * dy))
+                     - f[3] * (dx * dy))
+            alpha = torch.clamp(f[5] * torch.exp(power), max=cfg.ALPHA_MAX)
+            blends = (power <= 0.0) & (alpha >= cfg.ALPHA_MIN)
+            fwd += int((blends & (pos < stop[t0:t1, None, :])).sum())
+            bwd += int((blends & (pos < nc[t0:t1, None, :])).sum())
+        t0 = t1
+    return fwd, bwd
+
+
+def blend_work(feat, tile_starts, n_contrib, grid_w: int, tile_h: int,
+               tile_w: int) -> dict:
+    """The blend kernels' work on these inputs, counted from the features,
+    tile_starts, n_contrib and the tile shape.
+
+    Pairs are (pixel, position) pairs. Needed: what the function needs,
+    min(n_contrib + 1, segment) per pixel for the forward (a pixel
+    evaluates the position where it saturates) and n_contrib for the
+    backward; of those, blended: the pairs at which the splat blends
+    (`blended_pairs`). Evaluated: what the kernels issue before their box
+    test, 32 x the largest need of each 32-pixel sub-patch of a warp
+    (`footprint_pixels`), summed; the backward's warps also sum over their
+    lanes at each position up to the warp's largest n_contrib
+    (`bwd_warp_steps`); `fwd_strips` counts 1x32 strips (one warp a row of
+    32 pixels) for comparison. The bound is the larger of bytes (each input
+    read once, each output written once) over HBM_BPS and flops over
+    FP32_FLOPS: FWD_FLOPS / BWD_FLOPS per blended pair, SKIP_FLOPS per other
+    needed pair; the expf is not counted."""
+    from gsrast_tpu_torch.render.blend import (footprint_pixels,
+                                               kernel_footprint)
+
+    starts = tile_starts.long()
+    seg = starts[1:] - starts[:-1]
+    nc = n_contrib.long()
+    num_tiles, p = nc.shape
+    stop = torch.minimum(nc + 1, seg[:, None])
+
+    def patches(x, kernel):  # (T, P) -> (T, warps, k, 32)
+        fpx = footprint_pixels(kernel_footprint(kernel, tile_h, tile_w),
+                               tile_w).to(x.device)
+        return x[:, fpx.reshape(-1)].reshape(num_tiles, *fpx.shape)
+
+    live = int(starts[-1])
+    fwd_blended, bwd_blended = blended_pairs(feat, tile_starts, n_contrib,
+                                             grid_w, tile_h, tile_w)
+    work = {
+        "fwd_pairs": int(stop.sum()), "bwd_pairs": int(nc.sum()),
+        "fwd_blended": fwd_blended, "bwd_blended": bwd_blended,
+        "fwd_evaluated": 32 * int(patches(stop, "forward").amax(-1).sum()),
+        "bwd_evaluated": 32 * int(patches(nc, "backward").amax(-1).sum()),
+        "bwd_warp_steps": int(patches(nc, "backward").amax(-1).amax(-1)
+                              .sum()),
+        "fwd_strips": 32 * int(stop.reshape(num_tiles, -1, 32).amax(-1)
+                               .sum()),
+        "fwd_bytes": 4 * (9 * live + 5 * num_tiles * p + num_tiles + 1),
+        "bwd_bytes": 4 * (9 * live + 10 * feat.shape[1] + 6 * num_tiles * p
+                          + num_tiles + 1),
+    }
+    for d, flops in (("fwd", FWD_FLOPS), ("bwd", BWD_FLOPS)):
+        blended = work[f"{d}_blended"]
+        work[f"{d}_bound_ms"], work[f"{d}_bound_by"] = bound(
+            work[f"{d}_bytes"], blended * flops
+            + (work[f"{d}_pairs"] - blended) * SKIP_FLOPS)
+    return work
+
+
+def work_line(work: dict, d: str, ms: float) -> str:
+    """The `d` ('fwd' or 'bwd') half of blend_work() beside the kernel's
+    time: pairs, bytes, bound and the share of the bound."""
+    keys = [f"{d}_pairs", f"{d}_blended", f"{d}_evaluated", f"{d}_bytes",
+            f"{d}_bound_ms", f"{d}_bound_by"] + (["fwd_strips"] if d == "fwd" else
+                                ["bwd_warp_steps"])
+    return (f"work {json.dumps({k: work[k] for k in keys})}, share of the "
+            f"bound {work[f'{d}_bound_ms'] / ms:.3f}")
+
+
+def bound(nbytes: float, flops: float) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over HBM_BPS and flops over
+    FP32_FLOPS."""
+    by_bytes, by_flops = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+    return max(by_bytes, by_flops), ("bytes" if by_bytes > by_flops
+                                     else "operations")
+
+
+def bisect_bound(name: str, rows: int, tiles: int) -> tuple:
+    """bound() of bisection kernel `name` on `rows` rows of 128 lanes in
+    `tiles` tiles (diag/bisect_bwd.py): A reads and writes every element
+    (one multiply each); B, C and D read the 8 elements at lanes 16 j of a
+    row and write whole rows; C and D take 8 steps a row over the 1,024
+    carry elements, 3 flops an element a step (C: a division, a product,
+    a sum) or 5 (D, with the gate's product and sum), and D reads its
+    tiles' ft, nc and drgb channel-0 blocks."""
+    row = rows * 128 * 4
+    nbytes = row + (row if name == "a" else rows * 8 * 4)
+    if name == "d":
+        nbytes += 3 * tiles * 1024 * 4
+    flops = {"a": rows * 128, "b": rows * 8, "c": rows * 8 * 1024 * 3,
+             "d": rows * 8 * 1024 * 5}[name]
+    return bound(nbytes, flops)
+
+
+def order_bound(num_tiles: int) -> tuple:
+    """bound() of the order kernel on `num_tiles` tiles: tile_starts read
+    once, the order written once, a bucket (a difference, a division, a
+    minimum) and two counts a tile."""
+    return bound(4 * (2 * num_tiles + 1), 5 * num_tiles)
+
+
+def order_err(order, tile_starts) -> float:
+    """The order kernel's output against the plain `tile_order`: the
+    largest difference of the two sequences of buckets, which is 0 where
+    they match (the kernel leaves the tiles of one bucket in no fixed
+    order), or inf where the output is not a permutation of the tiles."""
+    from gsrast_tpu_torch.render.blend import (ORDER_BUCKET_POSITIONS,
+                                               ORDER_BUCKETS, tile_order)
+
+    lengths = tile_starts[1:] - tile_starts[:-1]
+
+    def buckets(o):
+        return torch.clamp(lengths[o.long()] // ORDER_BUCKET_POSITIONS,
+                           max=ORDER_BUCKETS - 1)
+
+    every_tile = torch.arange(len(order), device=order.device)
+    if not torch.equal(torch.sort(order.long()).values, every_tile):
+        return float("inf")
+    diff = buckets(order) - buckets(tile_order(tile_starts))
+    return float(diff.abs().max()) if len(diff) else 0.0
+
+
+def order_launch(tile_starts):
+    """The order kernel alone, for timing: one launch into an output
+    allocated here, not counted. Returns the launcher, which returns the
+    launch's CUDA error code."""
+    from gsrast_tpu_torch import _kernels
+
+    num_tiles = len(tile_starts) - 1
+    out = torch.empty((num_tiles,), dtype=torch.int32,
+                      device=tile_starts.device)
+    fn = _kernels.load().lib.gsrast_tile_order
+    ptrs = (tile_starts.data_ptr(), num_tiles, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    return lambda: fn(*ptrs)
+
+
+def order_ab(run, tile_starts) -> dict:
+    """The blend kernel run(order) with its blocks taking the tiles in
+    index order and longest first (`tile_order_cuda`): whether both give
+    the same bits, and the ms of each, timed in turns, ORDER_AB_ROUNDS
+    rounds of CUDA-event medians of 10."""
+    from gsrast_tpu_torch.render.blend import tile_order_cuda
+
+    orders = {"index_order": torch.arange(
+        len(tile_starts) - 1, dtype=torch.int32, device=tile_starts.device),
+        "longest_first": tile_order_cuda(tile_starts)}
+    outs = [run(o) for o in orders.values()]
+    outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+    res = {"same_bits": all(torch.equal(a, b) for a, b in zip(*outs))}
+    res.update({k: [] for k in orders})
+    for _ in range(ORDER_AB_ROUNDS):
+        for k, o in orders.items():
+            res[k].append(cuda_ms(lambda: run(o)))
+    return res
+
+
 def bisect_launch(name: str, args: tuple):
     """The bisection kernel `name` alone, for timing: one launch on `args`
     into an output allocated here, without the wrapper's bounds check (a
@@ -168,7 +379,8 @@ def main() -> int:
     from gsrast_tpu_torch.render.blend import (blend_backward_cuda,
                                                blend_backward_torch,
                                                blend_forward_cuda,
-                                               blend_forward_torch)
+                                               blend_forward_torch,
+                                               tile_order, tile_order_cuda)
     from gsrast_tpu_torch.render.pipeline import feature_rows, sort_pack
     from gsrast_tpu_torch.render.tiled import untile, untile_cf
     from gsrast_tpu_torch.scene.gaussians import (from_numpy, pad_to_capacity,
@@ -227,22 +439,42 @@ def main() -> int:
         plan = binning.plan_tiers(prep, gh, gw, rcfg)
         feat, starts = sort_pack(feature_rows(prep), plan, gh * gw)
         args = (feat, starts, gh, gw, th, tw)
-        out_k = blend_forward_cuda(*args)
+        order = tile_order_cuda(starts)
+        order_err116 = order_err(order, starts)
+        launch = order_launch(starts)
+        assert launch() == 0
+        order_ms = {"kernel": cuda_ms(lambda: [launch() for _ in range(
+                        RAW_REPS)]) / RAW_REPS,
+                    "wrapper": cuda_ms(lambda: tile_order_cuda(starts)),
+                    "plain": cuda_ms(lambda: tile_order(starts))}
+        out_k = blend_forward_cuda(*args, order=order)
         cmp116 = compare_blend(out_k, blend_forward_torch(*args),
                                cfg.TRANSMITTANCE_MIN)
         # Blended (pixel, position) pairs, skipped positions included.
         positions = int(out_k[2].sum())
-        ms_k = cuda_ms(lambda: blend_forward_cuda(*args))
+        n_tiles_116k = gh * gw
+        ms_k = cuda_ms(lambda: blend_forward_cuda(*args, order=order))
         ms_p = cuda_ms(lambda: blend_forward_torch(*args))
+        ab116 = order_ab(lambda o: blend_forward_cuda(*args, order=o), starts)
+        work116 = blend_work(feat, starts, out_k[2], gw, th, tw)
+        print(f"phase 3 tile order trained_116k ({gh * gw} tiles, longest "
+              f"segment {int((starts[1:] - starts[:-1]).max())}): largest "
+              f"bucket difference from the plain version {order_err116}; "
+              f"kernel alone {order_ms['kernel']:.4f} ms, through the "
+              f"wrapper {order_ms['wrapper']:.4f} ms, plain "
+              f"{order_ms['plain']:.4f} ms, bound "
+              f"{order_bound(gh * gw)[0]:.6f} ms", flush=True)
         print(f"phase 3 blend trained_116k {WIDTH}x{HEIGHT} tiles {th}x{tw} "
               f"tiers={rcfg.tiers} isect={int(plan.total)} "
               f"positions={positions}: "
               f"kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms; "
-              f"{json.dumps(cmp116)}",
+              f"{json.dumps(cmp116)}; {work_line(work116, 'fwd', ms_k)}; "
+              f"tile order A/B (kernel alone) {json.dumps(ab116)}",
               flush=True)
+        assert order_err116 == 0.0
         assert cmp116["err_rgb"] <= ATOL and cmp116["err_final_t"] <= ATOL
         assert cmp116["nc_mismatch_share"] <= MAX_NC_MISMATCH
-        assert cmp116["mismatch_at_boundary"]
+        assert cmp116["mismatch_at_boundary"] and ab116["same_bits"]
 
         # Small input: the card's render of trained_small against the
         # plain CPU path, which the CPU tests hold against the reference.
@@ -265,7 +497,7 @@ def main() -> int:
                     "--height", str(HEIGHT), "--out", png])
     torch.cuda.synchronize()
     launches_cli = dict(_kernels.launch_counts)
-    assert launches_cli["blend_forward"] > 0, launches_cli
+    assert min(launches_cli[k] for k in PATH_KERNELS[:2]) > 0, launches_cli
     assert img.device == dev and img.shape == (HEIGHT, WIDTH, 3)
     assert bool(torch.isfinite(img).all())
     assert float(img.amax()) > 0.05, "image is all background"
@@ -289,7 +521,7 @@ def main() -> int:
         out = render(scene, cam, rcfg)
         torch.cuda.synchronize()
         launches_1m = dict(_kernels.launch_counts)
-        assert launches_1m["blend_forward"] > 0, launches_1m
+        assert min(launches_1m[k] for k in PATH_KERNELS[:2]) > 0, launches_1m
         assert bool(torch.isfinite(out.image).all())
         overflow = int(out.stats["overflow_tile_cap"])
         isect = int(out.stats["num_intersections"])
@@ -303,6 +535,7 @@ def main() -> int:
         blend = blend_forward_cuda(*args)
         cmp1m = compare_blend(blend, blend_forward_torch(*args),
                               cfg.TRANSMITTANCE_MIN)
+        ab1m = order_ab(lambda o: blend_forward_cuda(*args, order=o), starts)
         stages = {
             "preprocess": cuda_ms(lambda: preprocess(scene.activated(), cam,
                                                      rcfg)),
@@ -317,6 +550,7 @@ def main() -> int:
         }
         plain_1m = cuda_ms(lambda: blend_forward_torch(*args), iters=5)
         fwd_ms = cuda_ms(lambda: render(scene, cam, rcfg))
+        work1m = blend_work(feat, starts, blend[2], gw, th, tw)
     print(f"phase 5 north-star 1M SH3 {WIDTH}x{HEIGHT} tiles {th}x{tw} "
           f"tiers={rcfg.tiers}: forward {fwd_ms:.3f} ms = "
           f"{WIDTH * HEIGHT / fwd_ms / 1e3:.3f} Mpix/s; stages ms "
@@ -324,10 +558,12 @@ def main() -> int:
           f"plain blend {plain_1m:.3f} ms; isect={isect} "
           f"positions={int(blend[2].sum())} "
           f"overflow_tile_cap={overflow} launches={launches_1m}; "
-          f"{json.dumps(cmp1m)}", flush=True)
+          f"{json.dumps(cmp1m)}; blend (the stage: order and kernel) "
+          f"{work_line(work1m, 'fwd', stages['blend'])}; tile order A/B "
+          f"(kernel alone) {json.dumps(ab1m)}", flush=True)
     assert cmp1m["err_rgb"] <= ATOL and cmp1m["err_final_t"] <= ATOL
     assert cmp1m["nc_mismatch_share"] <= MAX_NC_MISMATCH
-    assert cmp1m["mismatch_at_boundary"]
+    assert cmp1m["mismatch_at_boundary"] and ab1m["same_bits"]
 
     # -- phase 6: backward kernel against plain backward, 1080p ----------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -350,24 +586,42 @@ def main() -> int:
             prep = preprocess(scn.activated(), cam, rcfg)
             plan = binning.plan_tiers(prep, gh, gw, rcfg)
             feat, starts = sort_pack(feature_rows(prep), plan, gh * gw)
-            _, ft, nc = blend_forward_cuda(feat, starts, gh, gw, th, tw)
+            order = tile_order_cuda(starts)
+            _, ft, nc = blend_forward_cuda(feat, starts, gh, gw, th, tw,
+                                           order)
             d_rgb = torch.randn((gh * gw, 3, th * tw), generator=gen,
                                 device=dev)
             d_ft = torch.randn((gh * gw, th * tw), generator=gen, device=dev)
             args = (feat, starts, d_rgb, d_ft, ft, nc, gh, gw, th, tw)
-            cmp = compare_backward(blend_backward_cuda(*args),
-                                   blend_backward_torch(*args),
+            first = blend_backward_cuda(*args, order=order)
+            # Sums in a fixed order: a second launch gives the same bits.
+            same_bits = bool(torch.equal(
+                first, blend_backward_cuda(*args, order=order)))
+            cmp = compare_backward(first, blend_backward_torch(*args),
                                    int(starts[-1]))
-            cmp["kernel_ms"] = cuda_ms(lambda: blend_backward_cuda(*args))
+            cmp["bitwise_equal_over_two_launches"] = same_bits
+            cmp["tile_order_err"] = order_err(order, starts)
+            cmp["kernel_ms"] = cuda_ms(
+                lambda: blend_backward_cuda(*args, order=order))
             cmp["plain_ms"] = cuda_ms(lambda: blend_backward_torch(*args))
+            cmp["tile_order_ab"] = order_ab(
+                lambda o: blend_backward_cuda(*args, order=o), starts)
+            cmp["work"] = blend_work(feat, starts, nc, gw, th, tw)
             bwd[name] = cmp
+            shown = {k: v for k, v in cmp.items() if k != "work"}
             print(f"phase 6 blend backward {name} {WIDTH}x{HEIGHT} tiles "
                   f"{th}x{tw} isect={int(plan.total)} positions="
                   f"{int(nc.sum())}: kernel {cmp['kernel_ms']:.3f} ms, plain "
-                  f"{cmp['plain_ms']:.3f} ms; {json.dumps(cmp)}", flush=True)
+                  f"{cmp['plain_ms']:.3f} ms; {json.dumps(shown)}; "
+                  f"{work_line(cmp['work'], 'bwd', cmp['kernel_ms'])}",
+                  flush=True)
+            assert same_bits, f"{name}: two launches differ"
+            assert cmp["tile_order_err"] == 0.0, name
+            assert cmp["tile_order_ab"]["same_bits"], name
             assert max(cmp["row_rel_err"]) <= BWD_RTOL, cmp
             assert min(cmp["row_scale"]) > 0 and cmp["dead_abs_sum"] == 0.0
-        del scenes, prep, plan, feat, starts, ft, nc, d_rgb, d_ft, args
+        del scenes, prep, plan, feat, starts, ft, nc, d_rgb, d_ft, args, first
+        del order
 
     # -- phase 7: whole-render gradients, card against CPU -----------------
     def render_grads(scn, cam, rcfg) -> dict:
@@ -399,7 +653,7 @@ def main() -> int:
           f"relative to each group's largest magnitude: "
           f"{json.dumps(grad_err)} launches={launches_grad}", flush=True)
     assert max(grad_err.values()) <= GRAD_RTOL, grad_err
-    assert min(launches_grad[k] for k in BLEND_KERNELS) > 0, launches_grad
+    assert min(launches_grad[k] for k in PATH_KERNELS) > 0, launches_grad
 
     # -- phase 8: training at full width, trained_116k at 1080p ------------
     base = load_ply(FIXTURE_116K, device=dev)
@@ -469,8 +723,11 @@ def main() -> int:
           f"{' | '.join(log.getvalue().splitlines())}", flush=True)
     assert first.step == 4 and saved_at == 4 and resumed.step == 6
     assert "resumed from step 4" in log.getvalue()
-    assert min(launches_cli_train[k] for k in BLEND_KERNELS) > 0, (
+    assert min(launches_cli_train[k] for k in PATH_KERNELS) > 0, (
         launches_cli_train)
+    # One order a blend, for its forward and its backward.
+    assert launches_cli_train["tile_order"] == launches_cli_train[
+        "blend_forward"], launches_cli_train
     assert trained.capacity == n_116k
     assert all(bool(torch.isfinite(p).all())
                for p in trained.param_groups().values())
@@ -516,11 +773,12 @@ def main() -> int:
         prep = preprocess(scene.activated(), cam, rcfg)
         plan = binning.plan_tiers(prep, gh, gw, rcfg)
         feat, starts = sort_pack(feature_rows(prep), plan, gh * gw)
-        _, ft, nc = blend_forward_cuda(feat, starts, gh, gw, th, tw)
+        order = tile_order_cuda(starts)
+        _, ft, nc = blend_forward_cuda(feat, starts, gh, gw, th, tw, order)
         d_rgb = torch.randn((gh * gw, 3, th * tw), generator=gen, device=dev)
         d_ft = torch.randn((gh * gw, th * tw), generator=gen, device=dev)
         split["blend_backward_kernel"] = cuda_ms(lambda: blend_backward_cuda(
-            feat, starts, d_rgb, d_ft, ft, nc, gh, gw, th, tw))
+            feat, starts, d_rgb, d_ft, ft, nc, gh, gw, th, tw, order))
     split["rest_of_backward"] = split["backward"] - split[
         "blend_backward_kernel"]
     split["adam"] = cuda_ms(lambda: apply_gradients(state, tc, extent))
@@ -533,6 +791,7 @@ def main() -> int:
                for p in scene.param_groups().values())
 
     del state, scene, step, target, out, delta, loss, feat, starts, ft, nc
+    del order
     torch.cuda.empty_cache()
 
     # -- phase 11: bisection kernels against their plain versions ---------
@@ -598,10 +857,20 @@ def main() -> int:
                 res[size] = {
                     "max_abs_err": err, "rel_err": err / scale,
                     "ms": cuda_ms(lambda: [launch() for _ in range(
-                        BISECT_REPS)]) / BISECT_REPS,
+                        RAW_REPS)]) / RAW_REPS,
                     "wrapper_ms": cuda_ms(lambda: cuda_fn(*args)),
                     "plain_ms": cuda_ms(lambda: torch_fn(*args), iters=3,
                                         warmup=1)}
+            # Where every row lies in a full chunk (the full size), A and B
+            # are one PyTorch product; C and D carry a chain, no call does.
+            scale_of = {"a": 2.0, "b": torch.where(
+                torch.arange(128, device=dev) % 16 == 0, 3.0, 0.0)}
+            if name in scale_of:
+                feat_full = full["feat"]
+                assert torch.equal(torch.mul(feat_full, scale_of[name]),
+                                   cuda_fn(*bb.kernel_args(name, full)))
+                res["full"]["library_ms"] = cuda_ms(
+                    lambda: torch.mul(feat_full, scale_of[name]))
             bisect[name] = res
             print(f"phase 11 bisect_{name} script (T=4, R=64), full "
                   f"(trained_116k {WIDTH}x{HEIGHT} plan: T={t}, "
@@ -657,7 +926,7 @@ def main() -> int:
         losses = {int(m[0]): float(m[1]) for m in re.findall(
             r"step (\d+): loss=(\S+)", out)}
         assert np.all(np.isfinite(list(losses.values()))), out
-        assert min(_kernels.launch_counts[k] for k in BLEND_KERNELS) > 0, (
+        assert min(_kernels.launch_counts[k] for k in PATH_KERNELS) > 0, (
             _kernels.launch_counts)
         return st, out, losses, dict(_kernels.launch_counts)
 
@@ -693,6 +962,46 @@ def main() -> int:
             view_loss[name] = [float(rgb_loss(o.image, img, tc.ssim_weight))
                                for o, img in zip(outs, ds.images)]
             overflow[name] = [int(o.stats["overflow_tile_cap"]) for o in outs]
+    # The blend kernels at the tiles of the SfM init (32x64), on view 0,
+    # against their plain versions.
+    with torch.inference_mode():
+        gh0, gw0 = rcfg0.grid_shape(HEIGHT, WIDTH)
+        th0, tw0 = rcfg0.tile_h, rcfg0.tile_w
+        prep0 = preprocess(init.activated(), ds.cameras[0], rcfg0)
+        plan0 = binning.plan_tiers(prep0, gh0, gw0, rcfg0)
+        feat0, starts0 = sort_pack(feature_rows(prep0), plan0, gh0 * gw0)
+        fargs0 = (feat0, starts0, gh0, gw0, th0, tw0)
+        order0 = tile_order_cuda(starts0)
+        fwd0 = blend_forward_cuda(*fargs0, order0)
+        cmp_f0 = compare_blend(fwd0, blend_forward_torch(*fargs0),
+                               cfg.TRANSMITTANCE_MIN)
+        d_rgb0 = torch.randn((gh0 * gw0, 3, th0 * tw0), generator=gen,
+                             device=dev)
+        d_ft0 = torch.randn((gh0 * gw0, th0 * tw0), generator=gen, device=dev)
+        bargs0 = (feat0, starts0, d_rgb0, d_ft0, fwd0[1], fwd0[2], gh0, gw0,
+                  th0, tw0)
+        bwd0 = blend_backward_cuda(*bargs0, order0)
+        same0 = bool(torch.equal(bwd0, blend_backward_cuda(*bargs0, order0)))
+        cmp_b0 = compare_backward(bwd0, blend_backward_torch(*bargs0),
+                                  int(starts0[-1]))
+        work0 = blend_work(feat0, starts0, fwd0[2], gw0, th0, tw0)
+        ms_f0 = cuda_ms(lambda: blend_forward_cuda(*fargs0, order0))
+        ms_b0 = cuda_ms(lambda: blend_backward_cuda(*bargs0, order0))
+    print(f"phase 12 blend kernels on the SfM init, view 0, tiles "
+          f"{th0}x{tw0} isect={int(starts0[-1])}: forward {ms_f0:.3f} ms "
+          f"{json.dumps(cmp_f0)}; {work_line(work0, 'fwd', ms_f0)}; "
+          f"backward {ms_b0:.3f} ms, worst row "
+          f"{max(cmp_b0['row_rel_err']):.3g} of its scale, bitwise equal "
+          f"over two launches {same0}; {work_line(work0, 'bwd', ms_b0)}",
+          flush=True)
+    assert cmp_f0["err_rgb"] <= ATOL and cmp_f0["err_final_t"] <= ATOL
+    assert cmp_f0["nc_mismatch_share"] <= MAX_NC_MISMATCH
+    assert cmp_f0["mismatch_at_boundary"] and same0
+    assert max(cmp_b0["row_rel_err"]) <= BWD_RTOL, cmp_b0
+    assert cmp_b0["dead_abs_sum"] == 0.0
+    del prep0, plan0, feat0, starts0, fargs0, fwd0, d_rgb0, d_ft0, bargs0, bwd0
+    del order0
+
     mn, mx = (x.cpu().numpy() for x in init.bbox())
     extent = float(np.linalg.norm(mx - mn))
     st2 = init_train_state(init, tc, extent)
@@ -764,12 +1073,24 @@ def main() -> int:
     assert state.step == 10 and all_finite(state) and not stopped
 
     b116 = bwd["trained_116k"]
+    rows_full, tiles_full = int(full_starts[-1]) // 8, t
     print(json.dumps({"kernels": [{
+        "name": "tile_order", "route": "cuda",
+        "source": "gsrast_tpu_torch/csrc/tile_order.cu",
+        "replaces": "gsrast_tpu/render/pallas_blend.py:325",
+        "launches": launches_cli_train["tile_order"],
+        "max_abs_err": order_err116, "ms": order_ms["kernel"],
+        "plain_ms": order_ms["plain"],
+        **dict(zip(("bound_ms", "bound_by"), order_bound(n_tiles_116k))),
+        "library_ms": None,
+    }, {
         "name": "blend_forward", "route": "cuda",
         "source": "gsrast_tpu_torch/csrc/blend_forward.cu",
         "replaces": "gsrast_tpu/render/pallas_blend.py:181",
         "launches": launches_cli["blend_forward"],
         "max_abs_err": cmp116["max_abs_err"], "ms": ms_k, "plain_ms": ms_p,
+        "bound_ms": work116["fwd_bound_ms"],
+        "bound_by": work116["fwd_bound_by"], "library_ms": None,
     }, {
         "name": "blend_backward", "route": "cuda",
         "source": "gsrast_tpu_torch/csrc/blend_backward.cu",
@@ -777,6 +1098,8 @@ def main() -> int:
         "launches": launches_cli_train["blend_backward"],
         "max_abs_err": b116["max_abs_err"], "ms": b116["kernel_ms"],
         "plain_ms": b116["plain_ms"],
+        "bound_ms": b116["work"]["bwd_bound_ms"],
+        "bound_by": b116["work"]["bwd_bound_by"], "library_ms": None,
     }] + [{
         "name": f"bisect_{name}", "route": "cuda",
         "source": "gsrast_tpu_torch/csrc/bisect_bwd.cu",
@@ -785,6 +1108,9 @@ def main() -> int:
         "max_abs_err": bisect[name]["full"]["max_abs_err"],
         "ms": bisect[name]["full"]["ms"],
         "plain_ms": bisect[name]["full"]["plain_ms"],
+        **dict(zip(("bound_ms", "bound_by"),
+                   bisect_bound(name, rows_full, tiles_full))),
+        "library_ms": bisect[name]["full"].get("library_ms"),
     } for name, line in (("a", 48), ("b", 71), ("c", 105), ("d", 152))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

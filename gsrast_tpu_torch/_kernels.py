@@ -29,8 +29,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 # Launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else.
-launch_counts = {"blend_forward": 0, "blend_backward": 0, "bisect_a": 0,
-                 "bisect_b": 0, "bisect_c": 0, "bisect_d": 0}
+launch_counts = {"tile_order": 0, "blend_forward": 0, "blend_backward": 0,
+                 "bisect_a": 0, "bisect_b": 0, "bisect_c": 0, "bisect_d": 0}
 
 
 def reset_launch_counts() -> None:
@@ -64,7 +64,7 @@ def load() -> Library:
     """Build (if needed) and load the kernel library. Raises if nvcc fails."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):  # the headers (*.cuh) too
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     path = BUILD_DIR / f"libgsrast_kernels_{digest.hexdigest()[:16]}.so"
@@ -98,13 +98,14 @@ def load() -> Library:
     lib = ctypes.CDLL(str(path))
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
+    fn = lib.gsrast_tile_order
+    fn.argtypes = [vp, i32, vp, vp]
+    fn.restype = ctypes.c_int
     fn = lib.gsrast_blend_forward
-    fn.argtypes = [vp, i64, vp, i32, i32, i32, i32, f32, f32, f32, vp, vp, vp,
-                   vp]
+    fn.argtypes = [vp, i64, vp, vp, *[i32] * 4, f32, f32, f32, vp, vp, vp, vp]
     fn.restype = ctypes.c_int
     fn = lib.gsrast_blend_backward
-    fn.argtypes = [vp, i64, vp, i32, i32, i32, i32, f32, f32, vp, vp, vp, vp,
-                   vp, vp]
+    fn.argtypes = [vp, i64, vp, vp, *[i32] * 4, f32, f32, *[vp] * 6]
     fn.restype = ctypes.c_int
     for name in ("a", "b", "c"):
         fn = getattr(lib, f"gsrast_bisect_{name}")

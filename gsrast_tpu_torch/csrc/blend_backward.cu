@@ -15,195 +15,273 @@
 //     d B = -S(dp dx dy), d C = -1/2 S(dp dy^2), d opacity = S(d alpha exp(power)),
 //     d rgb = S(w d_rgb), with S the sum over the tile's pixels and Sx = S(dp dx).
 //
-// What bounds it on this card: the forward's per-(pixel, position) work (one expf
-// and ~15 flops) plus a division and ~25 flops, and then the sum of 9 values over
-// the tile's pixels for every position, which is a cross-thread reduction. The
-// design: one thread per pixel, grid (tiles, ceil(P / 256)) as in the forward. The
-// block walks its tile's segment in batches of 256 positions, newest batch first,
-// starting at the block's largest n_contrib (later positions carry no gradient, the
-// counterpart of the TPU kernel's dead-chunk zero-fill), with each batch's 9 feature
-// rows staged in shared memory as SoA rows. Per position each warp sums its 32
-// pixels' 9 raw sums by shuffles, skipped when no pixel of the warp blended there;
-// lane 0 adds the warp's row values into a shared per-batch accumulator; after the
-// batch one atomicAdd per (block, intersection, row) adds the block's value into the
-// zero-filled d_feat. A 2048-pixel tile runs as 8 blocks, so each value has at most
-// 8 addends in device memory; their order, and the last bits, may change between
-// runs.
+// What bounds it on this card: per (pixel, position) about 37 flops, one expf and
+// one division, and then, per position, the sum of 9 values over the tile's pixels.
+// The design (blend_common.cuh for the block and the pixel map):
+// - One block owns a tile: W warps on 2-D patches, 4 pixels a thread; block
+//   kTailBlocks + b takes tile order[b] (tile_order.cu: longest segment first).
+//   Each column's sums meet inside its block and are written
+//   with plain stores: no atomics, and every element of d_feat is written exactly
+//   once (zeros included), so the caller need not fill it.
+// - The block walks the segment newest first, in batches of 64 positions (32 with 16
+//   warps), from the block's largest n_contrib (later positions carry no gradient).
+//   Each warp starts at its own largest n_contrib. A pixel past its n_contrib, or
+//   outside the splat's box (stage_boxes), skips the position, and a 32-pixel
+//   sub-patch whose lanes all skip it does no arithmetic there.
+// - Per position a lane first adds its K pixels' 9 values, then the warp sums them
+//   by a transpose-reduce: each shuffle step halves the set of values a lane
+//   carries (9, 5, 3, 2, 1: 12 shuffles where 9 butterflies take 45), skipped when
+//   no lane of the warp blended there. The lanes left holding a row's sum store it
+//   into the warp's own slot of a per-batch buffer.
+// - After the batch one pass adds the warps' slots in warp order and stores the 9
+//   rows: the order of every sum is fixed, so two launches give identical bits.
+// - The next batch's feature rows are copied into the other half of a two-slot ring
+//   by cp.async while the current batch is computed; the first batch processed, the
+//   newest, lands in slot (nb - 1) % 2.
+// - T is replayed with one reciprocal of 1 - alpha used twice.
 //
-// Not carried from the TPU kernel: the 128-wide chunks, double-buffered DMA, psplit
-// pixel slices, the MXU suffix matmul and the read-modify-write of chunks shared by
-// two tiles. Each column here has one owning tile, and only its blocks write it.
-// Columns outside every segment, and row 9, are never written.
-//
-// Rounding: the alpha and transmittance arithmetic uses the _rn intrinsics and
-// expf, as blend_forward.cu does, so the skip test (power <= 0, alpha >= alpha_min)
-// sees the forward's alpha; which positions carry a gradient is decided by the
-// forward's n_contrib, so both backward versions share the gate.
+// Rounding: alpha uses the _rn intrinsics and expf, as blend_forward.cu does, so the
+// skip test (power <= 0, alpha >= alpha_min) sees the forward's alpha; which
+// positions carry a gradient is decided by the forward's n_contrib, so both backward
+// versions share the gate. Only the replayed T and the sums round differently.
 
-#include <cuda_runtime.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // pixels per block = positions per staged batch
-constexpr int kRows = 9;       // mx, my, conic A, B, C, opacity, r, g, b
-constexpr unsigned kFull = 0xffffffffu;
+using namespace gsrast;
 
-__device__ __forceinline__ float warp_sum(float v) {
+constexpr int kTailBlocks = 64;  // blocks that zero the columns outside every segment
+constexpr int K = 4;             // pixels a thread
+
+// v[0, N) -> v[0, H), H = (N + 1) / 2, summed with the lane `offset` away: a lane
+// with `upper` keeps the values [H, N) (0 past N), the other lane [0, H).
+template <int N>
+__device__ __forceinline__ void fold(float (&v)[kRows], int offset, bool upper) {
+  constexpr int H = (N + 1) / 2;
 #pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    v += __shfl_xor_sync(kFull, v, offset);
+  for (int i = 0; i < H; ++i) {
+    const float lo = v[i];
+    const float hi = (i + H < N) ? v[i + H] : 0.0f;
+    v[i] = (upper ? hi : lo) + __shfl_xor_sync(kFull, upper ? lo : hi, offset);
   }
-  return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int W>
+__global__ void __launch_bounds__(32 * W)
 blend_backward_kernel(const float* __restrict__ feat, long long row_stride,
-                      const int* __restrict__ tile_starts, int grid_w, int tile_h,
-                      int tile_w, float alpha_min, float alpha_max,
-                      const float* __restrict__ d_rgb,
+                      const int* __restrict__ tile_starts,
+                      const int* __restrict__ order, int num_tiles, int grid_w,
+                      int tile_h, int tile_w, int wx, float alpha_min,
+                      float alpha_max, const float* __restrict__ d_rgb,
                       const float* __restrict__ d_final_t,
                       const float* __restrict__ final_t,
                       const int* __restrict__ n_contrib, float* __restrict__ d_feat) {
-  __shared__ float stage[kRows][kThreads];
-  __shared__ float grad[kRows][kThreads];
-  __shared__ int block_nc;
+  constexpr int kThreads = 32 * W;
+  constexpr int kBatch = W <= 8 ? 64 : 32;  // positions per staged batch
+  __shared__ __align__(16) float stage[2][kBatch][kStride];
+  __shared__ float4 box[kBatch];
+  __shared__ float part[W][kRows][kBatch + 1];  // +1: rows on distinct banks
+  __shared__ int warp_live[W];
 
-  const int tile = blockIdx.x;
+  if (blockIdx.x < kTailBlocks) {
+    // Columns outside every segment: [0, tile_starts[0]) and [tile_starts[T], S).
+    const int head = tile_starts[0];
+    const int tail = tile_starts[num_tiles];
+    for (long long c = blockIdx.x * kThreads + threadIdx.x; c < row_stride;
+         c += kTailBlocks * kThreads) {
+      if (c >= head && c < tail) continue;
+#pragma unroll
+      for (int r = 0; r <= kRows; ++r) d_feat[r * row_stride + c] = 0.0f;
+    }
+    return;
+  }
+  const int tile = order[blockIdx.x - kTailBlocks];
   const int num_pix = tile_h * tile_w;
-  const int p = blockIdx.y * kThreads + threadIdx.x;
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const bool inside = p < num_pix;
-  const float px = static_cast<float>((tile % grid_w) * tile_w + p % tile_w);
-  const float py = static_cast<float>((tile / grid_w) * tile_h + p / tile_w);
   const int start = tile_starts[tile];
-  const int end = tile_starts[tile + 1];
+  const int seg = tile_starts[tile + 1] - start;
+  const int ox = (tile % grid_w) * tile_w;
+  const int oy = (tile / grid_w) * tile_h;
 
-  int nc = 0;
-  float trans = 1.0f, dr = 0.0f, dg = 0.0f, db = 0.0f, ft_dft = 0.0f;
-  if (inside) {
+  float px[K], py[K], trans[K], ft_dft[K], dr[K], dg[K], db[K], q[K];
+  int nc[K];
+  int my_nc = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int p = footprint_pixel<K>(k, wx, tile_w);
+    px[k] = static_cast<float>(ox + p % tile_w);
+    py[k] = static_cast<float>(oy + p / tile_w);
+    q[k] = 0.0f;
     const long long out = static_cast<long long>(tile) * num_pix + p;
     const long long out3 = static_cast<long long>(tile) * 3 * num_pix + p;
-    nc = n_contrib[out];
-    trans = final_t[out];
-    ft_dft = trans * d_final_t[out];
-    dr = d_rgb[out3];
-    dg = d_rgb[out3 + num_pix];
-    db = d_rgb[out3 + 2 * num_pix];
+    nc[k] = min(n_contrib[out], seg);
+    trans[k] = final_t[out];
+    ft_dft[k] = trans[k] * d_final_t[out];
+    dr[k] = d_rgb[out3];
+    dg[k] = d_rgb[out3 + num_pix];
+    db[k] = d_rgb[out3 + 2 * num_pix];
+    my_nc = max(my_nc, nc[k]);
   }
-  if (threadIdx.x == 0) block_nc = 0;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) grad[r][threadIdx.x] = 0.0f;
-  __syncthreads();
-  const int warp_nc = __reduce_max_sync(kFull, nc);
-  if (lane == 0) atomicMax(&block_nc, warp_nc);
-  __syncthreads();
-  const int live_end = start + min(block_nc, end - start);
+  const int wl = __reduce_max_sync(kFull, my_nc);  // this warp's positions [0, wl)
+  if (lane == 0) warp_live[warp] = wl;
 
-  float q = 0.0f;  // sum of u w over the positions after the current one
-  for (int batch_end = live_end; batch_end > start; batch_end -= kThreads) {
-    const int base = max(start, batch_end - kThreads);
-    const int n = batch_end - base;
-    if (threadIdx.x < n) {
+  // The gradient row whose warp sum this lane holds after the folds, and whether
+  // it stores it (one of the two lanes that hold each row).
+  int row = (lane >> 1) & 1;
+  bool owner = (lane & 1) == 0;
+  row += (lane & 4) ? 2 : 0;
+  owner = owner && row < 3;
+  row += (lane & 8) ? 3 : 0;
+  owner = owner && row < 5;
+  row += (lane & 16) ? 5 : 0;
+  owner = owner && row < kRows;
+  __syncthreads();
+  int live = 0;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        stage[r][threadIdx.x] = feat[r * row_stride + base + threadIdx.x];
-      }
-    }
+  for (int w = 0; w < W; ++w) live = max(live, warp_live[w]);
+
+  // Positions past the block's largest n_contrib carry no gradient.
+  for (int c = live + threadIdx.x; c < seg; c += kThreads) {
+#pragma unroll
+    for (int r = 0; r <= kRows; ++r) d_feat[r * row_stride + start + c] = 0.0f;
+  }
+
+  const int nb = (live + kBatch - 1) / kBatch;
+  if (nb > 0) {
+    const int base = (nb - 1) * kBatch;
+    stage_batch<kThreads, kBatch>(stage[(nb - 1) & 1], feat, row_stride, start + base,
+                                  live - base);
+  }
+  for (int b = nb - 1; b >= 0; --b) {
+    __pipeline_wait_prior(0);
+    // Batch b has landed for every thread, and the previous batch's pass over
+    // `part` and its stage slot, (b + 1) % 2 = (b - 1) % 2, is done.
     __syncthreads();
-    // Block-uniform loop: every lane of every warp reaches the shuffles.
-    for (int j = n - 1; j >= 0; --j) {
-      float sx = 0.0f, sy = 0.0f, sxx = 0.0f, sxy = 0.0f, syy = 0.0f;
-      float sop = 0.0f, sr = 0.0f, sg = 0.0f, sb = 0.0f;
+    if (b > 0) {
+      stage_batch<kThreads, kBatch>(stage[(b - 1) & 1], feat, row_stride,
+                                    start + (b - 1) * kBatch, kBatch);
+    }
+    const float(*s)[kStride] = stage[b & 1];
+    const int lo = b * kBatch;
+    const int hi = min(live, lo + kBatch);
+    stage_boxes<kThreads>(box, s, hi - lo, alpha_min);
+    __syncthreads();
+    for (int i = min(hi, wl) - 1; i >= lo; --i) {
+      const int j = i - lo;
+      const float4 bx = box[j];
+      const Features f = load_features(s, j);
+      float v[kRows] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
       bool blended = false;
-      if (base + j - start < nc) {
-        const float dx = __fsub_rn(stage[0][j], px);
-        const float dy = __fsub_rn(stage[1][j], py);
-        const float quad = __fadd_rn(__fmul_rn(stage[2][j], __fmul_rn(dx, dx)),
-                                     __fmul_rn(stage[4][j], __fmul_rn(dy, dy)));
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (i >= nc[k] || outside(bx, px[k], py[k])) continue;
+        const float dx = __fsub_rn(f.mx, px[k]);
+        const float dy = __fsub_rn(f.my, py[k]);
+        const float quad = __fadd_rn(__fmul_rn(f.ca, __fmul_rn(dx, dx)),
+                                     __fmul_rn(f.cc, __fmul_rn(dy, dy)));
         const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
-                                      __fmul_rn(stage[3][j], __fmul_rn(dx, dy)));
+                                      __fmul_rn(f.cb, __fmul_rn(dx, dy)));
         const float gauss = expf(power);
-        const float og = __fmul_rn(stage[5][j], gauss);
+        const float og = __fmul_rn(f.op, gauss);
         const float alpha = fminf(alpha_max, og);
-        if (power <= 0.0f && alpha >= alpha_min) {
-          blended = true;
-          const float om = __fsub_rn(1.0f, alpha);
-          const float t_before = __fdiv_rn(trans, om);
-          const float w = __fmul_rn(alpha, t_before);
-          const float u = dr * stage[6][j] + dg * stage[7][j] + db * stage[8][j];
-          const float dalpha = t_before * u - (q + ft_dft) / om;
-          q += u * w;
-          trans = t_before;
-          sr = w * dr;
-          sg = w * dg;
-          sb = w * db;
-          if (og < alpha_max) {
-            const float dpower = dalpha * og;
-            sx = dpower * dx;
-            sy = dpower * dy;
-            sxx = sx * dx;
-            sxy = sx * dy;
-            syy = sy * dy;
-            sop = dalpha * gauss;
+        if (!(power <= 0.0f && alpha >= alpha_min)) continue;
+        blended = true;
+        const float inv = __frcp_rn(__fsub_rn(1.0f, alpha));
+        const float t_before = trans[k] * inv;
+        const float w = alpha * t_before;
+        const float u = dr[k] * f.r + dg[k] * f.g + db[k] * f.b;
+        const float dalpha = t_before * u - (q[k] + ft_dft[k]) * inv;
+        q[k] += u * w;
+        trans[k] = t_before;
+        v[6] += w * dr[k];
+        v[7] += w * dg[k];
+        v[8] += w * db[k];
+        if (og < alpha_max) {
+          const float dpx = dalpha * og * dx;
+          const float dpy = dalpha * og * dy;
+          v[0] += dpx;
+          v[1] += dpy;
+          v[2] += dpx * dx;
+          v[3] += dpx * dy;
+          v[4] += dpy * dy;
+          v[5] += dalpha * gauss;
+        }
+      }
+      float sum = 0.0f;
+      if (__any_sync(kFull, blended)) {
+        fold<9>(v, 16, lane & 16);
+        fold<5>(v, 8, lane & 8);
+        fold<3>(v, 4, lane & 4);
+        fold<2>(v, 2, lane & 2);
+        sum = v[0] + __shfl_xor_sync(kFull, v[0], 1);
+      }
+      if (owner) part[warp][row][j] = sum;
+    }
+    __syncthreads();  // every warp's slots of this batch are written
+    // Raw sums S(dp dx), S(dp dy), S(dp dx^2), S(dp dx dy), S(dp dy^2),
+    // S(d alpha G), S(w dr), S(w dg), S(w db) -> rows, warps added in warp order.
+    const int n = hi - lo;
+    for (int it = threadIdx.x; it < (kRows + 1) * kBatch; it += kThreads) {
+      const int r = it / kBatch, j = it % kBatch;
+      if (j >= n) continue;
+      const int i = lo + j;
+      float out = 0.0f;  // row 9 (tile id) stays 0
+      if (r < kRows) {
+        const int other = r < 2 ? 1 - r : r;
+        float a = 0.0f, c = 0.0f;
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          if (i < warp_live[w]) {
+            a += part[w][r][j];
+            c += part[w][other][j];
           }
         }
+        const Features f = load_features(s, j);
+        if (r == 0) out = -(f.ca * a + f.cb * c);
+        else if (r == 1) out = -(f.cc * a + f.cb * c);
+        else if (r == 2 || r == 4) out = -0.5f * a;
+        else if (r == 3) out = -a;
+        else out = a;
       }
-      if (__any_sync(kFull, blended)) {
-        sx = warp_sum(sx);
-        sy = warp_sum(sy);
-        sxx = warp_sum(sxx);
-        sxy = warp_sum(sxy);
-        syy = warp_sum(syy);
-        sop = warp_sum(sop);
-        sr = warp_sum(sr);
-        sg = warp_sum(sg);
-        sb = warp_sum(sb);
-        if (lane == 0) {
-          const float ca = stage[2][j], cb = stage[3][j], cc = stage[4][j];
-          atomicAdd(&grad[0][j], -(ca * sx + cb * sy));
-          atomicAdd(&grad[1][j], -(cc * sy + cb * sx));
-          atomicAdd(&grad[2][j], -0.5f * sxx);
-          atomicAdd(&grad[3][j], -sxy);
-          atomicAdd(&grad[4][j], -0.5f * syy);
-          atomicAdd(&grad[5][j], sop);
-          atomicAdd(&grad[6][j], sr);
-          atomicAdd(&grad[7][j], sg);
-          atomicAdd(&grad[8][j], sb);
-        }
-      }
+      d_feat[r * row_stride + start + i] = out;
     }
-    __syncthreads();
-    if (threadIdx.x < n) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float v = grad[r][threadIdx.x];
-        if (v != 0.0f) atomicAdd(&d_feat[r * row_stride + base + threadIdx.x], v);
-        grad[r][threadIdx.x] = 0.0f;
-      }
-    }
-    // Keeps this batch's readers of stage/grad ahead of the next batch's writes.
-    __syncthreads();
   }
 }
 
 }  // namespace
 
-// feat: (>= 9, row_stride) float32 rows in (tile, depth) order; tile_starts:
-// (num_tiles + 1,) int32; d_rgb (num_tiles, 3, P), d_final_t, final_t (num_tiles, P)
-// float32; n_contrib (num_tiles, P) int32. d_feat: (>= 9, row_stride) float32,
-// zero-filled by the caller; rows 0:9 of the blended columns are added to. Runs on
-// `stream` and does not synchronise; returns cudaGetLastError() after the launch.
+// feat: (>= 10, row_stride) float32 rows in (tile, depth) order; tile_starts:
+// (num_tiles + 1,) int32; order: (num_tiles,) int32, the tile of each block
+// (tile_order.cu); d_rgb (num_tiles, 3, P), d_final_t, final_t (num_tiles, P)
+// float32; n_contrib (num_tiles, P) int32. d_feat: (>= 10, row_stride) float32, every
+// element of rows 0:10 written (0 outside the blended positions). Runs on `stream`
+// and does not synchronise; returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a tile shape the kernel does not take (blend_common.cuh).
 extern "C" int gsrast_blend_backward(const float* feat, long long row_stride,
-                                     const int* tile_starts, int num_tiles,
-                                     int grid_w, int tile_h, int tile_w,
+                                     const int* tile_starts, const int* order,
+                                     int num_tiles, int grid_w, int tile_h, int tile_w,
                                      float alpha_min, float alpha_max,
                                      const float* d_rgb, const float* d_final_t,
                                      const float* final_t, const int* n_contrib,
                                      float* d_feat, void* stream) {
-  if (num_tiles == 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid(num_tiles, (tile_h * tile_w + kThreads - 1) / kThreads);
-  blend_backward_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      feat, row_stride, tile_starts, grid_w, tile_h, tile_w, alpha_min, alpha_max,
-      d_rgb, d_final_t, final_t, n_contrib, d_feat);
+  if (tile_h % 8 != 0 || tile_w % (4 * K) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int wx = tile_w / (4 * K);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (tile_h * tile_w / (32 * K)) {  // warps a block
+#define GSRAST_LAUNCH(W)                                                             \
+  case W:                                                                            \
+    blend_backward_kernel<W><<<num_tiles + kTailBlocks, 32 * W, 0, s>>>(             \
+        feat, row_stride, tile_starts, order, num_tiles, grid_w, tile_h, tile_w, wx, \
+        alpha_min, alpha_max, d_rgb, d_final_t, final_t, n_contrib, d_feat);         \
+    break;
+    GSRAST_LAUNCH(2) GSRAST_LAUNCH(4) GSRAST_LAUNCH(8) GSRAST_LAUNCH(16)
+#undef GSRAST_LAUNCH
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

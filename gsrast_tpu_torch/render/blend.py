@@ -34,15 +34,17 @@ sort-pack gather's backward adds every column into a real Gaussian.
 
 Each direction has two versions: the hand-written kernels of
 `csrc/blend_forward.cu` and `csrc/blend_backward.cu` (`*_cuda`, CUDA tensors
-only), and the plain closed-form versions (`*_torch`: cumulative products
-and sums along each tile's segment) that the CPU runs and that the kernels
-are checked against. `BlendFunction` pairs the forward with its backward for
-autograd.
+only; their blocks take the tiles in the order `tile_order_cuda` gives, from
+`csrc/tile_order.cu`), and the plain closed-form versions (`*_torch`:
+cumulative products and sums along each tile's segment) that the CPU runs
+and that the kernels are checked against. `BlendFunction` pairs the forward
+with its backward for autograd.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+import functools
+from typing import Iterator, NamedTuple, Tuple
 
 import torch
 
@@ -52,12 +54,112 @@ from .. import config as cfg
 FEATURE_ROWS = 10
 F_MX, F_MY, F_CA, F_CB, F_CC, F_OP, F_R, F_G, F_B, F_TID = range(FEATURE_ROWS)
 
+# The kernels' block and pixel map (csrc/blend_common.cuh): k pixels a
+# thread on P / 32k warps, each warp an 8 x 4k patch of k sub-patches of
+# 4 x 8 pixels. The backward sums each position over a warp's lanes once for
+# all of its pixels, so it takes more pixels a thread.
+PIXELS_PER_THREAD = {"forward": 2, "backward": 4}
+TILE_PIXELS = (256, 512, 1024, 2048)
+# `tile_order`'s buckets (csrc/tile_order.cu).
+ORDER_BUCKETS = 256
+ORDER_BUCKET_POSITIONS = 32
+
 # Elements of one (tiles, positions, pixels) intermediate of the plain
 # version: 2^24 float32 is 64 MiB, and about a dozen are live at once, so a
 # chunk stays under 1 GiB.
 PLAIN_CHUNK_ELEMENTS = 1 << 24
 
 BlendOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+class Footprint(NamedTuple):
+    """A blend kernel's block and its map from threads to pixels: warp w
+    owns the 8 x 4k patch at (w // wx, w % wx) of the grid of patches that
+    tiles the tile; lane l's pixel i is (l // 8, l % 8) of the patch's
+    4 x 8 sub-patch i, sub-patches row-major, k // 2 across."""
+    k: int      # pixels a thread
+    warps: int  # warps a block
+    wx: int     # patches across the tile
+
+
+def kernel_footprint(kernel: str, tile_h: int, tile_w: int) -> Footprint:
+    """The footprint the 'forward' or 'backward' kernel launches with on a
+    tile. The kernels take tiles of 256 to 2048 pixels whose height is a
+    multiple of 8 and width a multiple of 4k; others raise."""
+    k = PIXELS_PER_THREAD[kernel]
+    p = tile_h * tile_w
+    if p not in TILE_PIXELS or tile_h % 8 or tile_w % (4 * k):
+        raise ValueError(
+            f"the blend {kernel} kernel takes tiles of {TILE_PIXELS} pixels "
+            f"whose height is a multiple of 8 and width a multiple of "
+            f"{4 * k}, got {tile_h}x{tile_w}")
+    return Footprint(k, p // (32 * k), tile_w // (4 * k))
+
+
+def footprint_pixels(fp: Footprint, tile_w: int) -> torch.Tensor:
+    """(warps, k, 32) int64: the tile pixel (row-major) of warp w's pixel i
+    at lane l; `footprint_pixel` of csrc/blend_common.cuh."""
+    w = torch.arange(fp.warps)[:, None, None]
+    i = torch.arange(fp.k)[None, :, None]
+    lane = torch.arange(32)
+    across = fp.k // 2
+    y = (w // fp.wx) * 8 + (i // across) * 4 + lane // 8
+    x = (w % fp.wx) * 4 * fp.k + (i % across) * 8 + lane % 8
+    return y * tile_w + x
+
+
+def tile_order(tile_starts: torch.Tensor) -> torch.Tensor:
+    """(T,) int32: the tiles by segment length, longest first, in buckets of
+    ORDER_BUCKET_POSITIONS positions (the last of ORDER_BUCKETS buckets takes
+    every longer segment), ties in tile order. The plain version of
+    `tile_order_cuda`, whose kernel leaves the tiles of one bucket in no
+    fixed order."""
+    lengths = tile_starts[1:] - tile_starts[:-1]
+    bucket = torch.clamp(lengths // ORDER_BUCKET_POSITIONS,
+                         max=ORDER_BUCKETS - 1)
+    return torch.sort(bucket, descending=True, stable=True).indices.to(
+        torch.int32)
+
+
+def tile_order_cuda(tile_starts: torch.Tensor) -> torch.Tensor:
+    """The order in which the blend kernels' blocks take the tiles, by the
+    hand-written kernel (`csrc/tile_order.cu`) on a CUDA tensor: (T,) int32,
+    longest segment first (`tile_order`). Runs on the current stream
+    without synchronising."""
+    if tile_starts.device.type != "cuda" or tile_starts.dtype != (
+            torch.int32) or tile_starts.dim() != 1:
+        raise ValueError(f"tile_order_cuda needs (T+1,) int32 CUDA "
+                         f"tile_starts, got {tuple(tile_starts.shape)} "
+                         f"{tile_starts.dtype} on {tile_starts.device}")
+    num_tiles = tile_starts.shape[0] - 1
+    order = torch.empty((num_tiles,), dtype=torch.int32,
+                        device=tile_starts.device)
+    if num_tiles == 0:
+        return order
+    tile_starts = tile_starts.contiguous()
+    fn = _kernels.load().lib.gsrast_tile_order
+    with torch.cuda.device(tile_starts.device):
+        stream = torch.cuda.current_stream(tile_starts.device).cuda_stream
+        code = fn(tile_starts.data_ptr(), num_tiles, order.data_ptr(), stream)
+    _kernels.launch_counts["tile_order"] += 1
+    if code != 0:
+        raise RuntimeError(f"tile_order kernel launch failed: CUDA error "
+                           f"{code}")
+    return order
+
+
+def _launch_order(order, tile_starts: torch.Tensor,
+                  num_tiles: int) -> torch.Tensor:
+    """`order` checked as the kernels' launch order, or `tile_order_cuda`'s
+    where it is None."""
+    if order is None:
+        return tile_order_cuda(tile_starts)
+    if order.dtype != torch.int32 or tuple(order.shape) != (num_tiles,) or (
+            order.device != tile_starts.device):
+        raise ValueError(f"order must be ({num_tiles},) int32 on "
+                         f"{tile_starts.device}, got {tuple(order.shape)} "
+                         f"{order.dtype} on {order.device}")
+    return order.contiguous()
 
 
 def _check_inputs(feat: torch.Tensor, tile_starts: torch.Tensor,
@@ -99,10 +201,12 @@ def _dispatch(backend: str, device: torch.device, cuda_fn, torch_fn):
 
 
 def blend_forward(feat: torch.Tensor, tile_starts: torch.Tensor, grid_h: int,
-                  grid_w: int, tile_h: int, tile_w: int,
-                  backend: str = "cuda") -> BlendOut:
-    """Blend every tile with the kernel or the plain version (`_dispatch`)."""
-    fn = _dispatch(backend, feat.device, blend_forward_cuda,
+                  grid_w: int, tile_h: int, tile_w: int, backend: str = "cuda",
+                  order=None) -> BlendOut:
+    """Blend every tile with the kernel or the plain version (`_dispatch`);
+    `order` is the kernel's launch order (`blend_forward_cuda`)."""
+    fn = _dispatch(backend, feat.device,
+                   functools.partial(blend_forward_cuda, order=order),
                    blend_forward_torch)
     return fn(feat, tile_starts, grid_h, grid_w, tile_h, tile_w)
 
@@ -111,9 +215,11 @@ def blend_backward(feat: torch.Tensor, tile_starts: torch.Tensor,
                    d_rgb: torch.Tensor, d_final_t: torch.Tensor,
                    final_t: torch.Tensor, n_contrib: torch.Tensor,
                    grid_h: int, grid_w: int, tile_h: int, tile_w: int,
-                   backend: str = "cuda") -> torch.Tensor:
-    """d_feat (10, S) with the kernel or the plain version (`_dispatch`)."""
-    fn = _dispatch(backend, feat.device, blend_backward_cuda,
+                   backend: str = "cuda", order=None) -> torch.Tensor:
+    """d_feat (10, S) with the kernel or the plain version (`_dispatch`);
+    `order` is the kernel's launch order (`blend_backward_cuda`)."""
+    fn = _dispatch(backend, feat.device,
+                   functools.partial(blend_backward_cuda, order=order),
                    blend_backward_torch)
     return fn(feat, tile_starts, d_rgb, d_final_t, final_t, n_contrib,
               grid_h, grid_w, tile_h, tile_w)
@@ -125,31 +231,38 @@ class BlendFunction(torch.autograd.Function):
     runs the same backend's backward on the saved final_t and n_contrib, so
     its gate is the forward's; n_contrib is not differentiable. Autograd
     hands an output the loss does not use a zero cotangent (materialized
-    grads, the default)."""
+    grads, the default). On the kernels, the tiles' launch order is made
+    once and serves both directions."""
 
     @staticmethod
     def forward(ctx, feat, tile_starts, grid_h, grid_w, tile_h, tile_w,
                 backend):
+        order = None
+        if backend == "cuda" and tile_starts.device.type == "cuda":
+            order = tile_order_cuda(tile_starts)
         rgb, final_t, n_contrib = blend_forward(
-            feat, tile_starts, grid_h, grid_w, tile_h, tile_w, backend)
+            feat, tile_starts, grid_h, grid_w, tile_h, tile_w, backend, order)
         ctx.save_for_backward(feat, tile_starts, final_t, n_contrib)
         ctx.mark_non_differentiable(n_contrib)
         ctx.geometry = (grid_h, grid_w, tile_h, tile_w, backend)
+        ctx.order = order
         return rgb, final_t, n_contrib
 
     @staticmethod
     def backward(ctx, d_rgb, d_final_t, _d_n_contrib):
         feat, tile_starts, final_t, n_contrib = ctx.saved_tensors
         d_feat = blend_backward(feat, tile_starts, d_rgb, d_final_t, final_t,
-                                n_contrib, *ctx.geometry)
+                                n_contrib, *ctx.geometry, order=ctx.order)
         return d_feat, None, None, None, None, None, None
 
 
 def blend_forward_cuda(feat: torch.Tensor, tile_starts: torch.Tensor,
-                       grid_h: int, grid_w: int, tile_h: int,
-                       tile_w: int) -> BlendOut:
-    """The hand-written kernel (`csrc/blend_forward.cu`) on CUDA tensors.
-    Runs on the current stream without synchronising."""
+                       grid_h: int, grid_w: int, tile_h: int, tile_w: int,
+                       order=None) -> BlendOut:
+    """The hand-written kernel (`csrc/blend_forward.cu`) on CUDA tensors,
+    its blocks taking the tiles in `order` ((T,) int32; `tile_order_cuda`
+    where None), which changes no output. Runs on the current stream
+    without synchronising."""
     num_tiles, p = grid_h * grid_w, tile_h * tile_w
     _check_inputs(feat, tile_starts, num_tiles)
     if feat.device.type != "cuda":
@@ -158,8 +271,10 @@ def blend_forward_cuda(feat: torch.Tensor, tile_starts: torch.Tensor,
     if feat.shape[1] >= 2**31:
         raise ValueError(
             f"{feat.shape[1]} intersections exceed int32 indexing")
+    kernel_footprint("forward", tile_h, tile_w)  # raises for other tiles
     feat = feat.contiguous()
     tile_starts = tile_starts.contiguous()
+    order = _launch_order(order, tile_starts, num_tiles)
     dev = feat.device
     rgb = torch.empty((num_tiles, 3, p), dtype=torch.float32, device=dev)
     final_t = torch.empty((num_tiles, p), dtype=torch.float32, device=dev)
@@ -168,9 +283,10 @@ def blend_forward_cuda(feat: torch.Tensor, tile_starts: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(feat.data_ptr(), feat.shape[1], tile_starts.data_ptr(),
-                  num_tiles, grid_w, tile_h, tile_w, cfg.ALPHA_MIN,
-                  cfg.ALPHA_MAX, cfg.TRANSMITTANCE_MIN, rgb.data_ptr(),
-                  final_t.data_ptr(), n_contrib.data_ptr(), stream)
+                  order.data_ptr(), num_tiles, grid_w, tile_h, tile_w,
+                  cfg.ALPHA_MIN, cfg.ALPHA_MAX, cfg.TRANSMITTANCE_MIN,
+                  rgb.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
+                  stream)
     _kernels.launch_counts["blend_forward"] += 1
     if code != 0:
         raise RuntimeError(f"blend_forward kernel launch failed: CUDA error "
@@ -261,12 +377,14 @@ def blend_forward_torch(feat: torch.Tensor, tile_starts: torch.Tensor,
 def blend_backward_cuda(feat: torch.Tensor, tile_starts: torch.Tensor,
                         d_rgb: torch.Tensor, d_final_t: torch.Tensor,
                         final_t: torch.Tensor, n_contrib: torch.Tensor,
-                        grid_h: int, grid_w: int, tile_h: int,
-                        tile_w: int) -> torch.Tensor:
+                        grid_h: int, grid_w: int, tile_h: int, tile_w: int,
+                        order=None) -> torch.Tensor:
     """The hand-written kernel (`csrc/blend_backward.cu`) on CUDA tensors:
-    d_feat (10, S), zero outside the applied positions. Runs on the current
-    stream without synchronising; its atomic sums may change in the last
-    bits from run to run."""
+    d_feat (10, S), zero outside the applied positions, every element
+    written by the kernel, its blocks taking the tiles in `order` as in
+    `blend_forward_cuda`. Runs on the current stream without
+    synchronising; its sums run in a fixed order, so two launches on the
+    same inputs give identical bits, whatever the order."""
     num_tiles, p = grid_h * grid_w, tile_h * tile_w
     _check_inputs(feat, tile_starts, num_tiles)
     _check_pixel_inputs(num_tiles, p, d_rgb=d_rgb, d_final_t=d_final_t,
@@ -279,17 +397,19 @@ def blend_backward_cuda(feat: torch.Tensor, tile_starts: torch.Tensor,
     if feat.shape[1] >= 2**31:
         raise ValueError(
             f"{feat.shape[1]} intersections exceed int32 indexing")
+    kernel_footprint("backward", tile_h, tile_w)  # raises for other tiles
     feat, tile_starts, d_rgb, d_final_t, final_t, n_contrib = (
         x.contiguous() for x in tensors)
-    d_feat = torch.zeros_like(feat)
+    order = _launch_order(order, tile_starts, num_tiles)
+    d_feat = torch.empty_like(feat)
     fn = _kernels.load().lib.gsrast_blend_backward
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream(feat.device).cuda_stream
         code = fn(feat.data_ptr(), feat.shape[1], tile_starts.data_ptr(),
-                  num_tiles, grid_w, tile_h, tile_w, cfg.ALPHA_MIN,
-                  cfg.ALPHA_MAX, d_rgb.data_ptr(), d_final_t.data_ptr(),
-                  final_t.data_ptr(), n_contrib.data_ptr(), d_feat.data_ptr(),
-                  stream)
+                  order.data_ptr(), num_tiles, grid_w, tile_h, tile_w,
+                  cfg.ALPHA_MIN, cfg.ALPHA_MAX, d_rgb.data_ptr(),
+                  d_final_t.data_ptr(), final_t.data_ptr(),
+                  n_contrib.data_ptr(), d_feat.data_ptr(), stream)
     _kernels.launch_counts["blend_backward"] += 1
     if code != 0:
         raise RuntimeError(f"blend_backward kernel launch failed: CUDA error "

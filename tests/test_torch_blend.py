@@ -13,9 +13,10 @@ from gsrast_tpu_torch.render.blend import (blend_forward, blend_forward_cuda,
                                            blend_forward_torch)
 
 from torch_parity import BLEND_CASES as CASES
+from torch_parity import LONG_SEGMENT, long_segment_case
 from torch_parity import packed_port as _packed_port
 from torch_parity import packed_reference as _packed
-from torch_parity import t2n
+from torch_parity import t2n, to_reference_layout
 
 torch.set_num_threads(2)
 
@@ -61,6 +62,25 @@ def test_plain_blend_small_budget_carries_transmittance():
     np.testing.assert_array_equal(t2n(blocked[2]), t2n(full[2]))
 
 
+def test_plain_blend_long_segment_matches_pallas():
+    """The long-segment case (tile 0's pixels saturate after 950-1,350 of
+    its 2,000 positions, tile 1 empty, dead columns past the end) through
+    the plain version and the reference kernel."""
+    from gsrast_tpu.render import pallas_blend as pb
+
+    feat, starts, gh, gw, th, tw = long_segment_case()
+    out = np.asarray(pb.blend_forward(*to_reference_layout(feat, starts), gh,
+                                      gw, th, tw, interpret=True))
+    rgb, ft, nc = blend_forward_torch(feat, starts, gh, gw, th, tw)
+    np.testing.assert_allclose(t2n(rgb), out[:, pb.OC_R:pb.OC_B + 1],
+                               atol=ATOL)
+    np.testing.assert_allclose(t2n(ft), out[:, pb.OC_FT], atol=ATOL)
+    np.testing.assert_array_equal(t2n(nc), out[:, pb.OC_NC].astype(np.int32))
+    assert int((nc[0] > 4 * 256).sum()) > th * tw // 2  # past 4 batches
+    assert int(nc[0].max()) < LONG_SEGMENT  # all saturate inside it
+    assert int(nc[1].max()) == 0 and float(ft[1].min()) == 1.0  # empty
+
+
 def test_backend_device_mismatch_raises():
     """The 'cuda' backend on CPU tensors raises: nothing falls back to the
     plain version."""
@@ -97,3 +117,20 @@ def test_cuda_kernel_matches_plain(case):
                  ) <= 1e-5
     assert float(torch.where(agree, ft - ft_p, 0.0).abs().max()) <= 1e-5
     assert int(nc.max()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_long_segment_and_empty_tile():
+    """The kernel against the plain version where a segment spans more than
+    four staged batches and a tile is empty: n_contrib equal, rgb and
+    final_t within 1e-5; the empty tile blends nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    args = long_segment_case(torch.device("cuda"))
+    rgb, ft, nc = blend_forward_cuda(*args)
+    rgb_p, ft_p, nc_p = blend_forward_torch(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(nc, nc_p) and int(nc[0].max()) > 4 * 256
+    assert float((rgb - rgb_p).abs().max()) <= 1e-5
+    assert float((ft - ft_p).abs().max()) <= 1e-5
+    assert int(nc[1].max()) == 0 and float(rgb[1].abs().max()) == 0.0

@@ -16,7 +16,8 @@ from gsrast_tpu_torch.render.blend import (BlendFunction, blend_backward,
                                            blend_backward_torch,
                                            blend_forward_torch)
 
-from torch_parity import BLEND_CASES, packed_port, packed_reference, t2n
+from torch_parity import (BLEND_CASES, long_segment_case, packed_port,
+                          packed_reference, t2n, to_reference_layout)
 
 torch.set_num_threads(2)
 
@@ -94,6 +95,34 @@ def test_plain_backward_matches_autograd(case):
                                   leaf)
     assert_rows_close(t2n(d_feat), t2n(grad))
     assert float(grad[9].abs().max()) == 0.0
+
+
+def test_plain_backward_long_segment_matches_pallas():
+    """The long-segment case (2,000 positions in tile 0, an empty tile,
+    dead columns) through the plain backward and the reference kernel, on
+    the reference forward's final_T and n_contrib; the dead columns and
+    row 9 stay 0."""
+    import jax.numpy as jnp
+    from gsrast_tpu.render import pallas_blend as pb
+
+    feat, starts, gh, gw, th, tw = long_segment_case()
+    packed, jstarts = to_reference_layout(feat, starts)
+    out = pb.blend_forward(packed, jstarts, gh, gw, th, tw, interpret=True)
+    ft, nc = out[:, pb.OC_FT], out[:, pb.OC_NC]
+    num_tiles, p = gh * gw, th * tw
+    d_rgb, d_ft = cotangents(num_tiles, p, seed=2)
+    aux = jnp.concatenate(
+        [jnp.asarray(t2n(d_rgb)), jnp.asarray(t2n(d_ft))[:, None],
+         ft[:, None], nc[:, None], jnp.zeros((num_tiles, 2, p))], axis=1)
+    ref = np.asarray(pb.blend_backward(packed, jstarts, aux, gh, gw, th, tw,
+                                       interpret=True))
+    d_feat = blend_backward_torch(
+        feat, starts, d_rgb, d_ft, torch.from_numpy(np.array(ft)),
+        torch.from_numpy(np.array(nc).astype(np.int32)), gh, gw, th, tw)
+    live = int(starts[-1])
+    assert_rows_close(t2n(d_feat)[:, :live], ref[:, :live])
+    assert float(d_feat[:, live:].abs().max()) == 0.0
+    assert float(d_feat[9].abs().max()) == 0.0
 
 
 def test_plain_backward_small_budget_carries_suffix():
@@ -206,3 +235,49 @@ def test_cuda_backward_matches_plain(case):
     live = int(starts[-1])
     assert float(kernel[:, live:].abs().sum()) == 0.0
     assert float(kernel[9].abs().max()) == 0.0
+
+
+def _cuda_backward_args(case):
+    """The kernel forward's outputs and seeded cotangents of a case, on the
+    card: the backward's inputs."""
+    dev = torch.device("cuda")
+    if case == "long_segment":
+        feat, starts, gh, gw, th, tw = long_segment_case(dev)
+    else:
+        feat, starts, gh, gw, th, tw = packed_port(case, dev)
+    _, ft, nc = blend.blend_forward_cuda(feat, starts, gh, gw, th, tw)
+    d_rgb, d_ft = cotangents(gh * gw, th * tw, device=dev)
+    return (feat, starts, d_rgb, d_ft, ft, nc, gh, gw, th, tw)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_long_segment_and_empty_tile():
+    """The kernel against the plain backward where a segment spans more
+    than four staged batches and a tile is empty: rows within 1e-4 of
+    their scale; the empty tile, row 9 and the dead columns exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    args = _cuda_backward_args("long_segment")
+    kernel = blend_backward_cuda(*args)
+    plain = blend_backward_torch(*args)
+    torch.cuda.synchronize()
+    assert int(args[5][0].max()) > 4 * 64
+    assert_rows_close(t2n(kernel), t2n(plain), atol=1e-4)
+    live = int(args[1][-1])
+    assert float(kernel[:, live:].abs().sum()) == 0.0
+    assert float(kernel[9].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BLEND_CASES + ("long_segment",))
+def test_cuda_backward_is_deterministic(case):
+    """Two launches on the same inputs give identical bits: every sum runs
+    in a fixed order and nothing is added atomically."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    args = _cuda_backward_args(case)
+    first = blend_backward_cuda(*args)
+    second = blend_backward_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert float(first[:9].abs().max()) > 0

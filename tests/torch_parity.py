@@ -153,6 +153,54 @@ def packed_reference(case):
     return feat, starts, gh, gw, th, tw
 
 
+# A packed blend input built directly (no scene): tile 0 of a 1x3 grid of
+# 8x32 tiles holds LONG_SEGMENT faint splats, and its pixels saturate
+# after 950-1350 positions, most of them past four staged batches of
+# either kernel (256 positions a batch in the forward, 64 in the
+# backward); tile 1 is empty; tile 2 holds 300 near-opaque splats that
+# saturate early; and 77 dead columns past tile_starts[-1] carry features
+# too.
+LONG_SEGMENT = 2000
+
+
+def long_segment_case(device="cpu", seed=5):
+    """(feat (10, S), tile_starts, grid_h, grid_w, tile_h, tile_w)."""
+    rng = np.random.default_rng(seed)
+    th, tw, counts, dead = 8, 32, (LONG_SEGMENT, 0, 300), 77
+    cols = []
+    for t, (n, op) in enumerate(zip(counts, ((0.05, 0.1), None,
+                                             (0.3, 0.9)))):
+        if n == 0:
+            continue
+        sx, sy = rng.uniform(1.5, 6.0, n), rng.uniform(1.5, 6.0, n)
+        rho = rng.uniform(-0.5, 0.5, n)
+        det = 1.0 - rho * rho
+        cols.append(np.stack([
+            t * tw + rng.uniform(-4.0, tw + 4.0, n),
+            rng.uniform(-4.0, th + 4.0, n),
+            1.0 / (sx * sx * det), -rho / (sx * sy * det),
+            1.0 / (sy * sy * det), rng.uniform(*op, n),
+            *rng.uniform(0.0, 1.0, (3, n)), np.full(n, t)]))
+    cols.append(np.concatenate([rng.uniform(0.0, 1.0, (9, dead)),
+                                np.full((1, dead), len(counts))]))
+    feat = torch.from_numpy(np.concatenate(cols, axis=1).astype(np.float32))
+    starts = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                          dtype=torch.int32)
+    return feat.to(device), starts.to(device), 1, len(counts), th, tw
+
+
+def to_reference_layout(feat, starts):
+    """A port-packed (10, S) input as the reference kernels take it: (16, C)
+    float32 with rows 10-15 zero and C a whole number of 128-column chunks
+    with one chunk to spare, as JAX arrays."""
+    import jax.numpy as jnp
+
+    s = feat.shape[1]
+    packed = np.zeros((16, -(-s // 128) * 128 + 128), np.float32)
+    packed[:10, :s] = t2n(feat)
+    return jnp.asarray(packed), jnp.asarray(t2n(starts))
+
+
 def packed_port(case, device):
     """The same case packed by the port alone, on `device`."""
     arrays, (w, h), (th, tw) = _case_setup(case)
