@@ -19,7 +19,11 @@ and against their plain versions at the script's shapes and at the size of
 trained_116k's 1080p plan, training from data through the CLI (a COLMAP
 scene of eight 1080p views of trained_116k with its means as SfM points,
 whose 32x64 tiles the blend kernels are also held at, a cameras.json
-directory, a target PNG), and a NaN rollback at 1080p; and
+directory, a target PNG), a NaN rollback at 1080p, and the viewer (the
+CLI's point-cloud and ellipsoid modes on trained_116k at 1080p, the point
+cloud at 1M, the three new renderers on the card against the CPU, a saved
+pose rendered back bit for bit, `info`, the four apps, the native .ply
+reader against numpy); and
 checks that each path went through the kernels. Each phase prints one line
 before the next begins; the line before the last is the per-kernel JSON
 record, and the last is {"ok": true, "device": {...}}. Any failure raises
@@ -364,6 +368,179 @@ def event_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
+def image_stats(img, background=(0.0, 0.0, 0.0)) -> dict:
+    """Mean per channel, range, and the share of pixels not equal to the
+    background, of an (H, W, 3) image; asserts it is finite."""
+    assert bool(torch.isfinite(img).all()), "non-finite image"
+    bg = torch.tensor(background, device=img.device)
+    return {"mean_rgb": [round(float(v), 5) for v in img.mean((0, 1))],
+            "min": float(img.min()), "max": float(img.max()),
+            "drawn_share": float((img != bg).any(-1).float().mean())}
+
+
+def run_main(main, argv) -> tuple:
+    """(CUDA-event ms of the whole call main(argv), its return value, its
+    stdout)."""
+    held, log = {}, io.StringIO()
+    with contextlib.redirect_stdout(log):
+        ms = event_ms(lambda: held.setdefault("out", main(argv)))
+    return ms, held["out"], log.getvalue().strip()
+
+
+def phase_viewer(dev) -> dict:
+    """Phase 14: the viewer on the card. The CLI's point-cloud and ellipsoid
+    modes on trained_116k at 1080p and the point cloud at 1M; the three new
+    renderers on the card against the CPU on trained_small at 128x128; a
+    pose saved and rendered back bit for bit; `info`; the four apps; the
+    native .ply reader against numpy. Returns the checks."""
+    from gsrast_tpu_torch import _kernels, cli
+    from gsrast_tpu_torch.apps import basic, fbtest, render_app, spheretrace
+    from gsrast_tpu_torch.camera import auto_frame, look_at, make_camera
+    from gsrast_tpu_torch.config import RenderConfig
+    from gsrast_tpu_torch.render.api import render
+    from gsrast_tpu_torch.scene import native
+    from gsrast_tpu_torch.scene.gaussians import random_scene
+    from gsrast_tpu_torch.scene.ply import load_ply, read_ply_raw
+    from gsrast_tpu_torch.viz.ellipsoids import render_ellipsoids
+    from gsrast_tpu_torch.viz.pointcloud import render_pointcloud
+    import numpy as np
+
+    res = {}
+    size = ["--width", str(WIDTH), "--height", str(HEIGHT)]
+    for mode in ("pointcloud", "ellipsoids"):
+        png = os.path.join(OUT_DIR, f"chip_smoke_116k_{mode}.png")
+        ms, img, out = run_main(cli.main, ["render", FIXTURE_116K, "--mode",
+                                           mode, *size, "--out", png])
+        stats = image_stats(img)
+        render_s = float(re.search(r" in (\S+)s ", out).group(1))
+        res[mode] = {"cli_ms": ms, "render_ms": 1e3 * render_s, **stats}
+        print(f"phase 14 cli render --mode {mode} trained_116k {WIDTH}x"
+              f"{HEIGHT}: {ms:.1f} ms for the call (CUDA events: load, "
+              f"frame, render, PNG), render {1e3 * render_s:.1f} ms; "
+              f"{json.dumps(stats)}", flush=True)
+        assert img.device == dev and img.shape == (HEIGHT, WIDTH, 3)
+        assert stats["drawn_share"] > 0.05, stats
+    with torch.inference_mode():
+        scene = load_ply(FIXTURE_116K, device=dev)
+        cam = auto_frame(*scene.bbox(), WIDTH, HEIGHT, device=dev)
+        act = scene.activated()
+        res["pointcloud"]["ms"] = cuda_ms(lambda: render_pointcloud(act,
+                                                                    cam))
+        res["ellipsoids"]["ms"] = cuda_ms(
+            lambda: render_ellipsoids(act, cam), iters=3, warmup=1)
+        big = random_scene(N_NORTH_STAR, np.random.default_rng(0),
+                           sh_degree=3, scale_range=(0.002, 0.008),
+                           device=dev)
+        cam1m = make_camera(look_at([0.0, 0.0, -2.5], [0.0, 0.0, 0.0],
+                                    device=dev), 1.2, 1.0, WIDTH, HEIGHT,
+                            device=dev)
+        act1m = big.activated()
+        img = render_pointcloud(act1m, cam1m)
+        res["pointcloud_1m"] = {"ms": cuda_ms(lambda: render_pointcloud(
+            act1m, cam1m)), **image_stats(img)}
+        del big, act1m, img
+    print(f"phase 14 renderers alone (CUDA events): pointcloud "
+          f"trained_116k {res['pointcloud']['ms']:.3f} ms (median of 10), "
+          f"ellipsoids trained_116k {res['ellipsoids']['ms']:.3f} ms "
+          f"(median of 3), pointcloud 1M SH3 (median of 10) "
+          f"{json.dumps(res['pointcloud_1m'])}", flush=True)
+    assert res["pointcloud_1m"]["drawn_share"] > 0.05
+
+    # The card against the CPU on the same small input.
+    small = load_ply(FIXTURE_SMALL)
+    cam_s = auto_frame(*small.bbox(), 128, 128)
+    small_dev, cam_sd = load_ply(FIXTURE_SMALL, device=dev), cam_s.to(dev)
+    dense_cfg = RenderConfig(backend="dense", background=BACKGROUND)
+    draws = {
+        "pointcloud": lambda s, c: render_pointcloud(s.activated(), c),
+        "ellipsoids": lambda s, c: render_ellipsoids(s.activated(), c),
+        "dense": lambda s, c: render(s, c, dense_cfg).image}
+    vs_cpu = {}
+    with torch.inference_mode():
+        for name, draw in draws.items():
+            ref, got = draw(small, cam_s), draw(small_dev, cam_sd)
+            err = (got.cpu() - ref).abs()
+            vs_cpu[name] = {"pixels_differ": int((err > 0).any(-1).sum()),
+                            "pixels_differ_1e-5": int((err > 1e-5).any(-1)
+                                                      .sum()),
+                            "max_abs_err": float(err.max()),
+                            "ms": cuda_ms(lambda: draw(small_dev, cam_sd))}
+    res["vs_cpu"] = vs_cpu
+    print(f"phase 14 card vs CPU, trained_small 128x128 (ms: the card, "
+          f"CUDA events): {json.dumps(vs_cpu)}", flush=True)
+    for name in ("pointcloud", "ellipsoids"):
+        assert vs_cpu[name]["pixels_differ"] <= 16, vs_cpu
+    assert vs_cpu["dense"]["max_abs_err"] <= 1e-5, vs_cpu
+
+    # A saved pose renders the auto-framed image bit for bit.
+    store = os.path.join(OUT_DIR, "poses.json")
+    if os.path.exists(store):
+        os.remove(store)
+    run_main(cli.main, ["pose", "save", "home", "--scene", FIXTURE_116K,
+                        *size, "--store", store])
+    names = run_main(cli.main, ["pose", "list", "--store", store])[1]
+    _, framed, _ = run_main(cli.main, [
+        "render", FIXTURE_116K, *size, "--out",
+        os.path.join(OUT_DIR, "framed.png")])
+    _kernels.reset_launch_counts()
+    ms, posed, _ = run_main(cli.main, [
+        "render", FIXTURE_116K, *size, "--pose", "home", "--store", store,
+        "--out", os.path.join(OUT_DIR, "posed.png")])
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launch_counts)
+    res["pose_bits_equal"] = bool(torch.equal(framed, posed))
+    _, report, _ = run_main(cli.main, ["info", FIXTURE_116K, "--gaussian",
+                                       "0", *size])
+    peek = report["gaussian"]
+    print(f"phase 14 pose save/list {names}, render --pose home: {ms:.1f} "
+          f"ms, bitwise equal to the auto-framed render "
+          f"{res['pose_bits_equal']}, launches={launches}; info --gaussian "
+          f"0: num_active {report['scene']['num_active']}, bytes "
+          f"{report['scene']['bytes']['total']}, depth {peek['depth']:.4f}, "
+          f"radius {peek['radius']}, tiles {peek['tiles_touched']}",
+          flush=True)
+    assert names == ["home"] and min(launches[k] for k in PATH_KERNELS[:2])
+    assert report["scene"]["num_active"] == scene.capacity
+
+    # The four apps, in this process.
+    apps = {}
+    for name, fn, argv in (
+            ("render_app", render_app.main,
+             [FIXTURE_116K, "--frames", "4", *size, "--outdir",
+              os.path.join(OUT_DIR, "frames")]),
+            ("spheretrace", spheretrace.main,
+             ["--out", os.path.join(OUT_DIR, "spheretrace.png")]),
+            ("fbtest", fbtest.main, [os.path.join(OUT_DIR, "fbtest.png")]),
+            ("basic", basic.main, [os.path.join(OUT_DIR, "basic.png")])):
+        _kernels.reset_launch_counts()
+        ms, out, log = run_main(fn, argv)
+        torch.cuda.synchronize()
+        apps[name] = {"ms": ms, "launches": dict(_kernels.launch_counts),
+                      "last_line": log.splitlines()[-1]}
+        if name != "spheretrace":
+            assert apps[name]["launches"]["blend_forward"] > 0, apps[name]
+    print(f"phase 14 apps (CUDA events per call): {json.dumps(apps)}",
+          flush=True)
+    assert apps["render_app"]["last_line"].startswith("frames: {'frames': 4")
+
+    # The native .ply reader against numpy's, on trained_116k.
+    t0 = time.perf_counter()
+    cols = native.read_ply_columns(FIXTURE_116K)
+    native_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    with open(FIXTURE_116K, "rb") as f:
+        ref_cols = read_ply_raw(f.read())
+    numpy_ms = 1e3 * (time.perf_counter() - t0)
+    same = list(cols) == list(ref_cols) and all(
+        cols[k].tobytes() == v.tobytes() for k, v in ref_cols.items())
+    print(f"phase 14 native .ply reader trained_116k ({len(cols)} columns "
+          f"of {len(cols['x'])}): {native_ms:.1f} ms, numpy "
+          f"{numpy_ms:.1f} ms (host), columns byte-equal {same}", flush=True)
+    assert same
+    res.update(apps=apps, native_ms=native_ms, numpy_ms=numpy_ms)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -401,6 +578,7 @@ def main() -> int:
                                                    read_heartbeat,
                                                    run_resilient)
     from gsrast_tpu_torch.utils.image import load_png, save_png
+    from gsrast_tpu_torch.utils.profiling import device_memory_report
     import numpy as np
 
     dev = torch.device(DEVICE)
@@ -1071,6 +1249,16 @@ def main() -> int:
     assert rollback_log == ["step 6: NON-FINITE state detected; rolling back "
                             "to checkpoint step 4 (1/3)"], rollback_log
     assert state.step == 10 and all_finite(state) and not stopped
+    del state, step, views, photos, base
+    torch.cuda.empty_cache()
+
+    # -- phase 14: the viewer ----------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    viewer = phase_viewer(dev)
+    print(f"phase 14 took {time.perf_counter() - t0:.1f} s; memory since "
+          f"its start: {json.dumps(device_memory_report())}", flush=True)
+    assert viewer["pose_bits_equal"]
 
     b116 = bwd["trained_116k"]
     rows_full, tiles_full = int(full_starts[-1]) // 8, t

@@ -13,6 +13,7 @@ TF32 path a CUDA matmul may take.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -25,6 +26,22 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b for a (..., K) or (..., M, K) and b (K, J), in float32 without
     the tensor cores."""
     return (a.unsqueeze(-1) * b).sum(-2)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Turn TF32 off for cuDNN convolutions and cuBLAS float32 products
+    inside the block, and restore the flags afterwards: in TF32 a CUDA
+    float32 product keeps about three decimal digits."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -75,6 +92,11 @@ class Camera:
         rot = self.view[:3, :3]
         t = self.view[:3, 3]
         return -matmul_f32(t, rot)  # rot.T @ t
+
+    @property
+    def front(self) -> torch.Tensor:
+        """World-space forward (the +z camera row)."""
+        return self.view[2, :3]
 
     def projection(self) -> torch.Tensor:
         return perspective(self.fov_x, self.fov_y, self.znear, self.zfar)
@@ -133,6 +155,98 @@ def look_at(eye, target, up=(0.0, -1.0, 0.0), device="cpu") -> torch.Tensor:
     return view
 
 
+def _yaw_pitch_front(yaw: torch.Tensor, pitch: torch.Tensor) -> torch.Tensor:
+    """Unit forward vector; yaw = 0 looks down +x."""
+    return torch.stack([torch.cos(yaw) * torch.cos(pitch), torch.sin(pitch),
+                        torch.sin(yaw) * torch.cos(pitch)])
+
+
+_PITCH_LIMIT = cfg.PI / 2.0 - 0.05
+
+
+def from_yaw_pitch(eye, yaw, pitch, up=(0.0, -1.0, 0.0),
+                   device="cpu") -> torch.Tensor:
+    """First-person view matrix from yaw/pitch, pitch clamped to
+    +-(pi/2 - 0.05)."""
+    yaw, pitch = _f32(yaw, device), _f32(pitch, device)
+    pitch = torch.clamp(pitch, -_PITCH_LIMIT, _PITCH_LIMIT)
+    eye = _f32(eye, device)
+    return look_at(eye, eye + _yaw_pitch_front(yaw, pitch), up, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class FirstPersonState:
+    """The first-person controller's state: WASD motion scaled by speed *
+    dt, mouse-look yaw/pitch with the pitch clamp, speed doubling and
+    halving, and the invert-up flip for Y-down trained scenes."""
+
+    eye: torch.Tensor    # (3,) world position
+    yaw: torch.Tensor    # ()
+    pitch: torch.Tensor  # ()
+    speed: torch.Tensor  # () units per second
+    invert_up: bool = True
+
+    @property
+    def up(self) -> tuple:
+        return (0.0, -1.0, 0.0) if self.invert_up else (0.0, 1.0, 0.0)
+
+    def replace(self, **kw) -> "FirstPersonState":
+        return dataclasses.replace(self, **kw)
+
+
+def fp_init(eye, yaw=0.0, pitch=0.0, speed=1.0, invert_up: bool = True,
+            device="cpu") -> FirstPersonState:
+    return FirstPersonState(eye=_f32(eye, device), yaw=_f32(yaw, device),
+                            pitch=_f32(pitch, device),
+                            speed=_f32(speed, device), invert_up=invert_up)
+
+
+def _fp_basis(state: FirstPersonState):
+    """(front, right, up) of the controller."""
+    front = _yaw_pitch_front(state.yaw, state.pitch)
+    up = _f32(state.up, state.eye.device)
+    right = torch.linalg.cross(front, up)
+    right = right / (_norm(right) + 1e-12)
+    return front, right, up
+
+
+def fp_move(state: FirstPersonState, forward: float = 0.0,
+            strafe: float = 0.0, dt: float = 1.0 / 60.0) -> FirstPersonState:
+    """WASD step: forward/strafe in {-1, 0, 1}, speed * dt along front and
+    right."""
+    front, right, _ = _fp_basis(state)
+    delta = (front * forward + right * strafe) * state.speed * dt
+    return state.replace(eye=state.eye + delta)
+
+
+def fp_look(state: FirstPersonState, dyaw: float, dpitch: float,
+            sensitivity: float = 0.005) -> FirstPersonState:
+    """Mouse-look: yaw/pitch deltas with the +-(pi/2 - 0.05) pitch clamp."""
+    dev = state.eye.device
+    return state.replace(
+        yaw=state.yaw + _f32(dyaw, dev) * sensitivity,
+        pitch=torch.clamp(state.pitch + _f32(dpitch, dev) * sensitivity,
+                          -_PITCH_LIMIT, _PITCH_LIMIT))
+
+
+def fp_speed(state: FirstPersonState, factor: float) -> FirstPersonState:
+    """Speed times `factor` (x2 / /2 on the up/down keys)."""
+    return state.replace(speed=state.speed * _f32(factor, state.eye.device))
+
+
+def fp_camera(state: FirstPersonState, width: int, height: int,
+              fov_deg: float = cfg.DEFAULT_FOV_DEG) -> Camera:
+    """The camera of the controller state, rebuilt each frame."""
+    dev = state.eye.device
+    view = from_yaw_pitch(state.eye, state.yaw, state.pitch, state.up,
+                          device=dev)
+    fov = _f32(fov_deg * cfg.PI / 180.0, dev)
+    return Camera(view=view, fov_x=fov * (width / height), fov_y=fov,
+                  znear=_f32(cfg.DEFAULT_NEAR, dev),
+                  zfar=_f32(cfg.DEFAULT_FAR, dev), width=width,
+                  height=height)
+
+
 def auto_frame(bbox_min, bbox_max, width: int, height: int,
                fov_deg: float = cfg.DEFAULT_FOV_DEG, device="cpu") -> Camera:
     """Frame a scene bbox: step back from its center by the bbox span along
@@ -148,3 +262,46 @@ def auto_frame(bbox_min, bbox_max, width: int, height: int,
     return make_camera(look_at(eye, center, device=device), fov_x, fov_y,
                        width, height, zfar=max(cfg.DEFAULT_FAR, 4.0 * span),
                        device=device)
+
+
+def camera_rays(camera: Camera):
+    """Per-pixel world-space ray origins and unit directions, each
+    (H, W, 3), for the ellipsoid ray trace."""
+    h, w, dev = camera.height, camera.width, camera.device
+    xs, ys = ((torch.arange(n, dtype=torch.float32, device=dev) + 0.5) / n
+              * 2.0 - 1.0 for n in (w, h))
+    py, px = torch.meshgrid(ys, xs, indexing="ij")  # (h, w)
+    dir_cam = torch.stack([px * camera.tan_fov_x, py * camera.tan_fov_y,
+                           torch.ones_like(px)], dim=-1)
+    dir_world = matmul_f32(dir_cam, camera.view[:3, :3])  # R^T on each dir
+    dir_world = dir_world / _norm(dir_world)
+    return camera.position.expand(h, w, 3), dir_world
+
+
+def debug_camera(width: int = 979, height: int = 546, device="cpu") -> Camera:
+    """A frozen pose for numerical A/B comparisons: every run sees the
+    identical camera."""
+    return make_camera(look_at([1.25, -0.75, -2.0], [0.0, 0.0, 0.0],
+                               device=device), 1.222, 0.733, width, height,
+                       device=device)
+
+
+# Pose (de)serialization: the pose store's JSON record of a camera.
+
+def pose_to_dict(camera: Camera) -> dict:
+    return {
+        "view": camera.view.detach().cpu().numpy().tolist(),
+        "fov_x": float(camera.fov_x),
+        "fov_y": float(camera.fov_y),
+        "znear": float(camera.znear),
+        "zfar": float(camera.zfar),
+        "width": camera.width,
+        "height": camera.height,
+    }
+
+
+def pose_from_dict(d: dict, device="cpu") -> Camera:
+    return make_camera(d["view"], d["fov_x"], d["fov_y"], int(d["width"]),
+                       int(d["height"]),
+                       znear=d.get("znear", cfg.DEFAULT_NEAR),
+                       zfar=d.get("zfar", cfg.DEFAULT_FAR), device=device)

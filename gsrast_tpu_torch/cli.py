@@ -1,18 +1,21 @@
-"""Command-line entry points: `python -m gsrast_tpu_torch render scene.ply`,
-`python -m gsrast_tpu_torch train --scene scene.ply [--data DIR | --target
-PNG]` and `python -m gsrast_tpu_torch make-dataset scene.ply --out DIR`.
+"""Command-line entry points: `python -m gsrast_tpu_torch <command>` with
+the commands `render`, `info`, `pose`, `train` and `make-dataset` of the
+reference CLI (`python -m gsrast_tpu`).
 
-`render --mode gaussians`, `train` (on a COLMAP or cameras.json dataset, a
-target image, or the scene's own render) and `make-dataset` are ported; the
-other commands, modes and `train` options of the reference CLI
-(`python -m gsrast_tpu`) exit with an error. Every command runs on
-`--device cuda` unless `--device cpu` is passed; without a card, cuda
-exits with an error rather than running on the CPU.
+`render` draws a .ply in the three modes (`--mode gaussians|ellipsoids|
+pointcloud`, and `--backend dense` for the tile-free oracle), `info` prints
+the scene and camera reports (and one Gaussian's render state), `pose`
+keeps named cameras in the pose store, which `render`, `info` and `train`
+read with `--pose NAME [--store PATH]`. `bench` and `train --dist` exit
+with an error. Every command runs on `--device cuda` unless `--device cpu`
+is passed; without a card, cuda exits with an error rather than running on
+the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -20,11 +23,11 @@ import torch
 
 from . import config as cfg
 
-PORTED = ("render", "train", "make-dataset")
-NOT_PORTED = ("info", "pose", "bench")
-# Reference `train` options this port does not serve yet: named poses from
-# the pose store, multi-host runs.
-TRAIN_NOT_PORTED = ("--pose", "--store", "--dist")
+PORTED = ("render", "info", "pose", "train", "make-dataset")
+NOT_PORTED = ("bench",)
+# Reference `train` options this port does not serve yet: multi-host runs.
+TRAIN_NOT_PORTED = ("--dist",)
+MODES = ("gaussians", "ellipsoids", "pointcloud")
 
 
 def _device(name: str) -> torch.device:
@@ -42,6 +45,18 @@ def _add_device(ap: argparse.ArgumentParser) -> None:
                          "kernels' plain PyTorch versions)")
 
 
+def _add_view(ap: argparse.ArgumentParser, width=None, height=None) -> None:
+    """The camera options: image size, a named pose, the store."""
+    ap.add_argument("--width", type=int, default=width)
+    ap.add_argument("--height", type=int, default=height)
+    ap.add_argument("--sh-degree", type=int, default=3)
+    ap.add_argument("--pose", default=None,
+                    help="named pose from the pose store (default: frame "
+                         "the scene's bbox)")
+    ap.add_argument("--store", default="gsrast_store.json",
+                    help="pose-store path")
+
+
 def _load_scene(spec: str, device):
     """A .ply path, or 'random:N' (the port's seeded random scene)."""
     import numpy as np
@@ -55,36 +70,68 @@ def _load_scene(spec: str, device):
     return load_ply(spec, device=device)
 
 
+def _camera(args, scene, device):
+    """The pose `--pose` from the store at `--width` x `--height` (exits if
+    it is not there), else the scene's bbox framed at that size."""
+    from .camera import auto_frame
+    from .utils.posedb import PoseDB
+
+    width = args.width or cfg.DEFAULT_WIDTH
+    height = args.height or cfg.DEFAULT_HEIGHT
+    if args.pose:
+        cam = PoseDB(path=args.store).load(args.pose, device=device)
+        if cam is None:
+            sys.exit(f"pose {args.pose!r} not found in {args.store}")
+        return cam.replace(width=width, height=height)
+    return auto_frame(*scene.bbox(), width, height, device=device)
+
+
+def _render_cfg(args, scene, camera) -> cfg.RenderConfig:
+    """`--backend dense`: the oracle's config; otherwise the product
+    default (`auto_render_config`), whose backend follows the device unless
+    `--backend` names one."""
+    from .render.api import auto_render_config
+
+    sh_degree = min(args.sh_degree, scene.sh_degree)
+    if args.backend == "dense":
+        return cfg.RenderConfig(backend="dense", sh_degree=sh_degree)
+    rcfg = auto_render_config(scene, camera)
+    if args.backend:
+        rcfg = rcfg.replace(backend=args.backend)
+    return rcfg.replace(sh_degree=sh_degree)
+
+
 def cmd_render(argv) -> torch.Tensor:
-    """Render a .ply to PNG; returns the (H, W, 3) image."""
+    """Render a .ply (or 'random:N') to PNG in one of the three modes;
+    returns the (H, W, 3) image."""
     ap = argparse.ArgumentParser(prog="gsrast_tpu_torch render")
     ap.add_argument("scene")
     ap.add_argument("--out", default="render.png")
-    ap.add_argument("--mode", default="gaussians",
-                    choices=["gaussians", "ellipsoids", "pointcloud"])
-    ap.add_argument("--width", type=int, default=cfg.DEFAULT_WIDTH)
-    ap.add_argument("--height", type=int, default=cfg.DEFAULT_HEIGHT)
-    ap.add_argument("--sh-degree", type=int, default=3)
+    ap.add_argument("--mode", default="gaussians", choices=MODES)
+    ap.add_argument("--backend", default=None, choices=cfg.BACKENDS,
+                    help="gaussians mode: 'dense' renders by brute force; "
+                         "default: 'cuda' on a CUDA device, else 'torch'")
+    _add_view(ap, cfg.DEFAULT_WIDTH, cfg.DEFAULT_HEIGHT)
     _add_device(ap)
     args = ap.parse_args(argv)
-    if args.mode != "gaussians":
-        sys.exit(f"render --mode {args.mode} is not ported yet; "
-                 "use --mode gaussians")
     device = _device(args.device)
 
-    from .camera import auto_frame
-    from .render.api import auto_render_config, render
-    from .scene.ply import load_ply
+    from .render.api import render
     from .utils.image import save_png
+    from .viz.ellipsoids import render_ellipsoids
+    from .viz.pointcloud import render_pointcloud
 
     with torch.inference_mode():
-        scene = load_ply(args.scene, device=device)
-        camera = auto_frame(*scene.bbox(), args.width, args.height,
-                            device=device)
+        scene = _load_scene(args.scene, device)
+        camera = _camera(args, scene, device)
         t0 = time.perf_counter()
-        rcfg = auto_render_config(scene, camera)
-        rcfg = rcfg.replace(sh_degree=min(args.sh_degree, scene.sh_degree))
-        img = render(scene, camera, rcfg).image
+        if args.mode == "gaussians":
+            img = render(scene, camera, _render_cfg(args, scene,
+                                                    camera)).image
+        elif args.mode == "ellipsoids":
+            img = render_ellipsoids(scene.activated(), camera)
+        else:
+            img = render_pointcloud(scene.activated(), camera)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
@@ -96,10 +143,72 @@ def cmd_render(argv) -> torch.Tensor:
     return img
 
 
+def cmd_info(argv) -> dict:
+    """Print the scene and camera reports as JSON, with `--gaussian i` also
+    that Gaussian's render state; returns the report."""
+    ap = argparse.ArgumentParser(prog="gsrast_tpu_torch info")
+    ap.add_argument("scene")
+    ap.add_argument("--gaussian", type=int, default=None,
+                    help="one Gaussian's screen-space render state")
+    _add_view(ap)
+    _add_device(ap)
+    args = ap.parse_args(argv)
+    device = _device(args.device)
+
+    from .utils.inspector import camera_report, peek_gaussian, scene_report
+
+    scene = _load_scene(args.scene, device)
+    camera = _camera(args, scene, device)
+    report = {"scene": scene_report(scene), "camera": camera_report(camera)}
+    if args.gaussian is not None:
+        report["gaussian"] = peek_gaussian(scene, camera, args.gaussian)
+    print(json.dumps(report, indent=2, default=str))
+    return report
+
+
+def cmd_pose(argv):
+    """Pose store: `list` (returns the names), `show NAME` (the pose's
+    record, or None), `delete NAME` (whether it was there), `save NAME
+    --scene PLY` (the scene framed, or `--pose`, at `--width` x `--height`;
+    returns the camera)."""
+    ap = argparse.ArgumentParser(prog="gsrast_tpu_torch pose")
+    ap.add_argument("action", choices=["list", "save", "delete", "show"])
+    ap.add_argument("name", nargs="?")
+    ap.add_argument("--scene", default=None,
+                    help="scene to frame when saving")
+    _add_view(ap)
+    _add_device(ap)
+    args = ap.parse_args(argv)
+    device = _device(args.device)
+    if args.action != "list" and not args.name:
+        sys.exit(f"pose {args.action} requires a NAME")
+
+    from .camera import pose_to_dict
+    from .utils.posedb import PoseDB
+
+    db = PoseDB(path=args.store)
+    if args.action == "list":
+        out = db.names()
+        print(json.dumps(out))
+    elif args.action == "show":
+        cam = db.load(args.name, device=device)
+        out = pose_to_dict(cam) if cam else None
+        print(json.dumps(out, indent=2))
+    elif args.action == "delete":
+        out = db.delete(args.name)
+        print(out)
+    else:
+        if not args.scene:
+            sys.exit("pose save requires --scene to derive the framing")
+        out = _camera(args, _load_scene(args.scene, device), device)
+        db.save(args.name, out)
+        print(f"saved {args.name!r}")
+    return out
+
+
 def _train_frames(args, scene, device):
     """(scene, frames, render config) of a `train` run: frames are
     (camera, target image) pairs, visited round robin."""
-    from .camera import auto_frame
     from .render.api import auto_render_config, render
     from .utils.image import load_png
 
@@ -131,8 +240,7 @@ def _train_frames(args, scene, device):
         print(f"dataset: {ds.num_frames} views {ds.cameras[0].width}x"
               f"{ds.cameras[0].height} from {args.data}")
         return scene, frames, auto_cfg(frames[0][0])
-    camera = auto_frame(*scene.bbox(), args.width or cfg.DEFAULT_WIDTH,
-                        args.height or cfg.DEFAULT_HEIGHT, device=device)
+    camera = _camera(args, scene, device)
     if args.target:
         target = torch.from_numpy(load_png(args.target)).to(device)
         camera = camera.replace(width=target.shape[1], height=target.shape[0])
@@ -146,9 +254,10 @@ def _train_frames(args, scene, device):
 def cmd_train(argv):
     """Train a scene: on a multi-view dataset (`--data`: COLMAP, with
     `--scene colmap` initializing from its SfM points, or a cameras.json
-    directory), on one target image (`--target`), or on its own render.
-    Render config from the first view with margin 1.5, L1 + D-SSIM,
-    per-group Adam, the densify schedule, views round robin; the loop runs
+    directory), on one target image (`--target`), or on its own render
+    (from the bbox framing, or from `--pose` in the store). Render config
+    from the first view with margin 1.5, L1 + D-SSIM, per-group Adam, the
+    densify schedule, views round robin; the loop runs
     under `run_resilient` (a checkpoint at the start, every `--ckpt-every`
     steps and at the end; NaN rollback; SIGTERM checkpoint; heartbeat
     `<ckpt-dir>/heartbeat.json`). `--steps` counts from 0, so a resumed run
@@ -173,9 +282,7 @@ def cmd_train(argv):
                     help="write the trained scene as .ply when done")
     ap.add_argument("--capacity", type=int, default=None,
                     help="scene capacity (free slots for densification)")
-    ap.add_argument("--width", type=int, default=None)
-    ap.add_argument("--height", type=int, default=None)
-    ap.add_argument("--sh-degree", type=int, default=3)
+    _add_view(ap)
     _add_device(ap)
     for flag in TRAIN_NOT_PORTED:
         ap.add_argument(flag, default=None, help="not ported yet")
@@ -263,21 +370,29 @@ def cmd_make_dataset(argv):
     return cams
 
 
-COMMANDS = {"render": cmd_render, "train": cmd_train,
-            "make-dataset": cmd_make_dataset}
+COMMANDS = {"render": cmd_render, "info": cmd_info, "pose": cmd_pose,
+            "train": cmd_train, "make-dataset": cmd_make_dataset}
 
 
 def main(argv=None):
     """Run one command; returns what it returns (`render`: the image;
-    `train`: the final TrainState; `make-dataset`: the cameras)."""
+    `info`: the report; `pose`: see `cmd_pose`; `train`: the final
+    TrainState; `make-dataset`: the cameras)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv or argv[0] in ("-h", "--help"):
+        view = "[--width W] [--height H] [--pose NAME [--store PATH]]"
         print("usage: python -m gsrast_tpu_torch render scene.ply "
-              "[--out PNG] [--width W] [--height H] [--device DEV]\n"
+              f"[--out PNG] [--mode {{{','.join(MODES)}}}] [--backend "
+              f"{{{','.join(cfg.BACKENDS)}}}] {view} [--device DEV]\n"
+              "       python -m gsrast_tpu_torch info scene.ply "
+              f"[--gaussian I] {view} [--device DEV]\n"
+              "       python -m gsrast_tpu_torch pose "
+              "{list|save|delete|show} [NAME] [--scene PLY] [--store PATH] "
+              "[--width W] [--height H] [--device DEV]\n"
               "       python -m gsrast_tpu_torch train --scene "
               "{scene.ply|random:N|colmap} [--data DIR [--downscale K] | "
-              "--target PNG] [--steps N] [--ckpt-dir DIR] [--resume] "
-              "[--save-ply PLY] [--device DEV]\n"
+              f"--target PNG] [--steps N] [--ckpt-dir DIR] [--resume] "
+              f"[--save-ply PLY] {view} [--device DEV]\n"
               "       python -m gsrast_tpu_torch make-dataset scene.ply "
               "--out DIR [--views N] [--width W] [--height H] "
               "[--device DEV]")

@@ -40,7 +40,7 @@ NEAR_CULL_DEPTH = 0.2
 # Gaussian extent cap: 3 sigma.
 GAUSSIAN_EXTENT_SIGMA = 3.0
 
-BACKENDS = ("cuda", "torch")
+BACKENDS = ("cuda", "torch", "dense")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,8 +56,9 @@ class RenderConfig:
       tiers: multi-tier slot plan, ((k_j, budget_frac_j), ...) with k
         ascending; see `ops.binning.plan_tiers`. Must be non-empty to render
         (`render.api.auto_render_config` derives it from the scene).
-      backend: 'cuda' (the hand-written blend kernel, CUDA tensors only) or
-        'torch' (the plain PyTorch blend, CPU tensors only).
+      backend: 'cuda' (the hand-written blend kernel, CUDA tensors only),
+        'torch' (the plain PyTorch blend, CPU tensors only) or 'dense' (the
+        tile-free oracle, `render.dense`, any device; it ignores `tiers`).
       sh_degree: highest SH degree evaluated.
       background: RGB composited behind the splats with the residual
         transmittance.

@@ -12,6 +12,7 @@ from ..camera import Camera
 from ..ops import binning
 from ..ops.preprocess import preprocess
 from ..scene.gaussians import ActivatedGaussians, GaussianScene
+from .dense import render_dense
 from .pipeline import render_tiled
 from .tiled import RenderOutput
 
@@ -59,10 +60,15 @@ def auto_render_config(scene, camera: Camera,
 def render(scene: Union[GaussianScene, ActivatedGaussians], camera: Camera,
            render_cfg: cfg.RenderConfig,
            mean2d_delta: torch.Tensor | None = None) -> RenderOutput:
-    """Render `scene` from `camera`, differentiably. `render_cfg.tiers` must
-    be set (see `auto_render_config`). `mean2d_delta`: see
+    """Render `scene` from `camera`, differentiably. The tiled backends
+    need `render_cfg.tiers` (see `auto_render_config`); 'dense' renders by
+    brute force and takes no `mean2d_delta`. `mean2d_delta`: see
     `ops.preprocess.preprocess`."""
     if render_cfg.backend not in cfg.BACKENDS:
         raise ValueError(f"unknown backend {render_cfg.backend!r}; expected "
                          f"one of {cfg.BACKENDS}")
+    if render_cfg.backend == "dense":
+        if mean2d_delta is not None:
+            raise ValueError("the dense backend takes no mean2d_delta")
+        return render_dense(_activated(scene), camera, render_cfg)
     return render_tiled(_activated(scene), camera, render_cfg, mean2d_delta)

@@ -98,6 +98,12 @@ class GaussianScene(nn.Module):
         mx = torch.amax(torch.where(live, means, -big), dim=0)
         return mn, mx
 
+    def center(self) -> torch.Tensor:
+        """Mean of the live Gaussians' positions (no gradient)."""
+        live = self.mask[:, None].to(self.means.dtype)
+        return (torch.sum(self.means.detach() * live, dim=0)
+                / torch.clamp(torch.sum(live), min=1.0))
+
 
 def from_numpy(arrays: dict, device="cpu") -> GaussianScene:
     """A scene from host arrays keyed by field name: the five parameter

@@ -1,4 +1,4 @@
-"""Trained-scene .ply import and export (numpy only).
+"""Trained-scene .ply import and export.
 
 Parses the vertex element of a trained 3DGS .ply by property name (robust to
 SH-degree variants) into the raw-parameter `GaussianScene`; activations stay
@@ -25,6 +25,7 @@ _PLY_DTYPES = {
     "uint": np.uint32, "uint32": np.uint32,
     "int": np.int32, "int32": np.int32,
 }
+_HEADER_BYTES = 1 << 16  # a vertex header of a few hundred properties fits
 
 
 def _parse_header(data: bytes) -> Tuple[int, List[Tuple[str, np.dtype]], int, str]:
@@ -60,10 +61,21 @@ def _parse_header(data: bytes) -> Tuple[int, List[Tuple[str, np.dtype]], int, st
 
 
 def read_ply_raw(path_or_bytes) -> Dict[str, np.ndarray]:
-    """Read a PLY vertex element into {property_name: (N,) array}."""
+    """Read a PLY vertex element into {property_name: (N,) array}.
+
+    A binary little-endian file goes through the native codec
+    (`scene/native.py`), which returns every column as float32; bytes, ascii
+    and big-endian input are read here with numpy, each column in its own
+    type."""
     if isinstance(path_or_bytes, (bytes, bytearray)):
         data = bytes(path_or_bytes)
     else:
+        with open(path_or_bytes, "rb") as f:
+            head = f.read(_HEADER_BYTES)
+        if _parse_header(head)[3] == "binary_little_endian":
+            from . import native
+
+            return native.read_ply_columns(str(path_or_bytes))
         with open(path_or_bytes, "rb") as f:
             data = f.read()
     count, props, body, fmt = _parse_header(data)

@@ -10,12 +10,13 @@ convolutions only and restores the flags afterwards.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..camera import no_tf32
 
 
 @functools.lru_cache()
@@ -26,24 +27,11 @@ def _gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
     return np.outer(g, g).astype(np.float32)
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
-
-
 def _conv(x: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
     """Depthwise "same" correlation of (1, C, H, W) with an odd window."""
     c = x.shape[1]
     kernel = window.expand(c, 1, *window.shape)
-    with _no_tf32():
+    with no_tf32():
         return F.conv2d(x, kernel, padding=window.shape[-1] // 2, groups=c)
 
 

@@ -1,7 +1,9 @@
-"""PNG output and input with zlib, struct and numpy only (no PIL)."""
+"""PNG output and input with zlib, struct and numpy only (no PIL), and
+timestamped screenshots."""
 
 from __future__ import annotations
 
+import datetime
 import os
 import struct
 import zlib
@@ -40,6 +42,12 @@ def save_png(img, path: str) -> str:
     with open(path, "wb") as f:
         f.write(png)
     return path
+
+
+def screenshot(img, directory: str = ".", prefix: str = "screenshot") -> str:
+    """Save `img` as `<directory>/<prefix>_<YYYYmmdd_HHMMSS>.png`."""
+    stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
+    return save_png(img, os.path.join(directory, f"{prefix}_{stamp}.png"))
 
 
 # Colour type -> channels, for the 8-bit non-interlaced PNGs `load_png` reads.

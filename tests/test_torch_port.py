@@ -40,7 +40,8 @@ def test_render_config_defaults_equal_reference():
             continue  # 'cuda'/'torch' here, 'xla'/'pallas'/'dense' there
         assert getattr(port, field.name) == getattr(ref, field.name), (
             field.name)
-    assert port.backend == "cuda" and tcfg.BACKENDS == ("cuda", "torch")
+    assert port.backend == "cuda"
+    assert tcfg.BACKENDS == ("cuda", "torch", "dense")
     for hw in ((1080, 1920), (128, 128), (7, 300)):
         assert port.grid_shape(*hw) == ref.grid_shape(*hw)
 
@@ -53,7 +54,15 @@ def test_import_leaves_jax_out():
             "gsrast_tpu_torch.train.checkpoint, "
             "gsrast_tpu_torch.train.resilience, "
             "gsrast_tpu_torch.scene.colmap, gsrast_tpu_torch.scene.dataset, "
-            "gsrast_tpu_torch.diag.bisect_bwd; "
+            "gsrast_tpu_torch.diag.bisect_bwd, "
+            "gsrast_tpu_torch.render.dense, gsrast_tpu_torch.viz.pointcloud, "
+            "gsrast_tpu_torch.viz.ellipsoids, gsrast_tpu_torch.utils.posedb, "
+            "gsrast_tpu_torch.utils.inspector, "
+            "gsrast_tpu_torch.utils.compositor, "
+            "gsrast_tpu_torch.utils.profiling, gsrast_tpu_torch.scene.native, "
+            "gsrast_tpu_torch.apps.basic, gsrast_tpu_torch.apps.fbtest, "
+            "gsrast_tpu_torch.apps.spheretrace, "
+            "gsrast_tpu_torch.apps.render_app; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'gsrast_tpu.')) or m == 'gsrast_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -76,10 +85,9 @@ def test_cli_render_writes_png(tmp_path, capsys):
     assert img.max() > 0.1
 
 
-@pytest.mark.parametrize("argv", [["render", TRAINED_SMALL, "--mode",
-                                   "pointcloud"],
+@pytest.mark.parametrize("argv", [["bench", "--n", "1000"],
                                   ["train", "--scene", TRAINED_SMALL,
-                                   "--pose", "home"]])
+                                   "--dist", "localhost:1234,2,0"]])
 def test_cli_unported_exits(argv):
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(argv)
@@ -88,7 +96,11 @@ def test_cli_unported_exits(argv):
 @pytest.mark.parametrize("argv", [["render", TRAINED_SMALL],
                                   ["train", "--scene", TRAINED_SMALL],
                                   ["make-dataset", TRAINED_SMALL, "--out",
-                                   "ds"]])
+                                   "ds"],
+                                  ["render", TRAINED_SMALL, "--mode",
+                                   "ellipsoids"],
+                                  ["info", TRAINED_SMALL],
+                                  ["pose", "list"]])
 def test_cli_without_a_card_exits_unless_cpu(argv, monkeypatch):
     """--device defaults to cuda: with no card the command exits with a
     clear error instead of running on the CPU."""
