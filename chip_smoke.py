@@ -23,11 +23,15 @@ directory, a target PNG), a NaN rollback at 1080p, and the viewer (the
 CLI's point-cloud and ellipsoid modes on trained_116k at 1080p, the point
 cloud at 1M, the three new renderers on the card against the CPU, a saved
 pose rendered back bit for bit, `info`, the four apps, the native .ply
-reader against numpy); and
-checks that each path went through the kernels. Each phase prints one line
-before the next begins; the line before the last is the per-kernel JSON
-record, and the last is {"ok": true, "device": {...}}. Any failure raises
-and exits nonzero. It imports no JAX.
+reader against numpy), and the benchmark through `bench` (the 1M scene
+fwd+bwd with its stage table and forward only, `--small`, trained_116k,
+`--backend torch` on the card, the scene statistics, the tile sweep, and a
+trained fixture made from a random scene); and
+checks that each path went through the kernels. Each phase prints its
+lines before the next begins; the line before the last is the per-kernel
+JSON record, and the last is {"ok": true, "device": {...}}. Any failure
+raises and exits nonzero, as does a run without a card or without the
+package beside the script. It imports no JAX.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -541,13 +546,127 @@ def phase_viewer(dev) -> dict:
     return res
 
 
+def captured(fn, argv) -> tuple:
+    """(fn(argv), its stdout lines, host seconds); on a failure the
+    captured lines go to stderr before the exception."""
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            out = fn(argv)
+        torch.cuda.synchronize()
+    except BaseException:
+        print(log.getvalue(), file=sys.stderr)
+        raise
+    return out, log.getvalue().strip().splitlines(), time.perf_counter() - t0
+
+
+def phase_bench(dev) -> dict:
+    """Phase 15: the benchmark on the card through `cli.main(["bench",
+    ...])` at 1920x1080: the 1M SH-3 scene fwd+bwd with the stage table and
+    forward only, `--small`, trained_116k, the plain versions on the card
+    (`--backend torch`) on trained_small at 128x128 with their image held
+    against the kernels', the scene statistics and the tile sweep at 1M,
+    and a trained fixture made from a random scene, benched with its 5x
+    copy. Each bench prints its JSON line after a `phase 15` prefix.
+    Returns the results by label."""
+    from gsrast_tpu_torch import _kernels, benchmark, cli
+    from gsrast_tpu_torch.camera import auto_frame
+    from gsrast_tpu_torch.config import TRANSMITTANCE_MIN
+    from gsrast_tpu_torch.diag import (make_trained_fixture, scene_stats,
+                                       tile_sweep)
+    from gsrast_tpu_torch.render.api import render
+    from gsrast_tpu_torch.scene.ply import load_ply
+
+    size = ["--width", str(WIDTH), "--height", str(HEIGHT)]
+    res = {}
+
+    def bench(label, argv, kernels=True):
+        _kernels.reset_launch_counts()
+        out, lines, sec = captured(cli.main, ["bench", *argv])
+        launches = {k: _kernels.launch_counts[k] for k in PATH_KERNELS}
+        print(f"phase 15 bench {label} ({sec:.1f} s, launches "
+              f"{json.dumps(launches)}): {' | '.join(lines[:-1])}",
+              flush=True)
+        print(f"phase 15 {lines[-1]}", flush=True)
+        assert json.loads(lines[-1]) == out
+        assert math.isfinite(out["value"]) and out["value"] > 0, out
+        if kernels:
+            need = PATH_KERNELS if out["mode"] == "fwd+bwd" else (
+                PATH_KERNELS[:2])
+            assert min(launches[k] for k in need) > 0, launches
+        else:
+            assert not any(_kernels.launch_counts.values()), launches
+        res[label] = dict(out, launches=launches, seconds=sec)
+
+    bench("1M fwd+bwd", size)
+    bench("1M fwd", ["--fwd-only", "--no-stages", *size])
+    bench("--small", ["--small"])
+    bench("trained_116k", ["--scene", FIXTURE_116K, *size])
+    small = ["--scene", FIXTURE_SMALL, "--width", "128", "--height", "128"]
+    bench("torch backend trained_small",
+          ["--backend", "torch", "--no-stages", "--iters", "1", *small],
+          kernels=False)
+    # The plain versions' image on the card against the kernels'.
+    scene = load_ply(FIXTURE_SMALL, device=dev)
+    cam = auto_frame(*scene.bbox(), 128, 128, device=dev)
+    rcfg = benchmark.bench_render_config(scene, cam, "torch")
+    with torch.no_grad():
+        outs = [render(scene, cam, rcfg.replace(backend=b))
+                for b in ("torch", "cuda")]
+    tiles = [(o.image.permute(2, 0, 1).reshape(1, 3, -1),
+              o.final_t.reshape(1, -1), o.n_contrib.reshape(1, -1))
+             for o in outs]
+    cmp_torch = compare_blend(tiles[1], tiles[0], TRANSMITTANCE_MIN)
+    print(f"phase 15 --backend torch image against --backend cuda, "
+          f"trained_small 128x128 on the card: {json.dumps(cmp_torch)}",
+          flush=True)
+    assert cmp_torch["err_rgb"] <= ATOL and cmp_torch["err_final_t"] <= ATOL
+    assert cmp_torch["nc_mismatch_share"] <= MAX_NC_MISMATCH
+    assert cmp_torch["mismatch_at_boundary"], cmp_torch
+    res["torch_vs_cuda"] = cmp_torch
+
+    stats, lines, sec = captured(scene_stats.main, size)
+    print(f"phase 15 scene_stats 1M SH3 {WIDTH}x{HEIGHT} ({sec:.1f} s): "
+          f"{' | '.join(lines)}", flush=True)
+    assert stats["overflow_tile_cap"] == 0 and stats["total_isect"] > 0
+    _kernels.reset_launch_counts()
+    rows, lines, sec = captured(tile_sweep.main, [*size, "--iters", "3"])
+    print(f"phase 15 tile_sweep 1M SH3 {WIDTH}x{HEIGHT} fwd+bwd, best and "
+          f"median of 3 ({sec:.1f} s, launches "
+          f"{json.dumps(dict(_kernels.launch_counts))}): "
+          f"{json.dumps(rows)}", flush=True)
+    assert all(row["status"] == "ok" for shape, row in rows.items()
+               if tile_sweep.kernels_take(*map(int, shape.split("x")))), rows
+    res.update(scene_stats=stats, tile_sweep=rows)
+
+    out_dir = os.path.join(OUT_DIR, "fixtures")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    made, lines, sec = captured(make_trained_fixture.main, [
+        "--small", "--steps", "30", "--out", out_dir])
+    sizes = {k: load_ply(v).capacity for k, v in made.items()}
+    print(f"phase 15 make_trained_fixture --small --steps 30 ({sec:.1f} s): "
+          f"Gaussians {json.dumps(sizes)}; {' | '.join(lines)}", flush=True)
+    assert sizes["stats_5m"] == 5 * sizes["trained"] > 0
+    res["fixture"] = {"seconds": sec, "gaussians": sizes}
+    bench("trained fixture", ["--scene", made["trained"], "--no-stages",
+                              *size])
+    bench("trained fixture 5x", ["--scene", made["stats_5m"], "--no-stages",
+                                 *size])
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
+    if not os.path.isdir(os.path.join(ROOT, "gsrast_tpu_torch")):
+        print(f"chip_smoke: no gsrast_tpu_torch package beside {ROOT}; run "
+              "it from a checkout of the repository", file=sys.stderr)
+        return 1
     sys.path.insert(0, ROOT)
-    from gsrast_tpu_torch import _kernels, cli
+    from gsrast_tpu_torch import _kernels, benchmark, cli
     from gsrast_tpu_torch import config as cfg
     from gsrast_tpu_torch.camera import auto_frame, look_at, make_camera
     from gsrast_tpu_torch.ops import binning
@@ -927,12 +1046,10 @@ def main() -> int:
     train_ms = cuda_ms(lambda: step(state, cam, target))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    def fwd_bwd():  # the reference benchmark's step: grad of mean(img^2)
-        state.optimizer.zero_grad(set_to_none=True)
-        img = render(scene, cam, rcfg).image
-        torch.mean(img * img).backward()
-
-    fwd_bwd_ms = cuda_ms(fwd_bwd)
+    # The reference benchmark's step (grad of mean(img^2)), timed by the
+    # benchmark's own definition, the one `bench` prints.
+    fwd_bwd_best, fwd_bwd_ms, fwd_bwd_mpix = benchmark.run_bench(
+        scene, cam, rcfg, iters=10)
     delta = torch.zeros((scene.capacity, 2), device=dev, requires_grad=True)
     split = {"forward": cuda_ms(lambda: render(scene, cam, rcfg,
                                                mean2d_delta=delta))}
@@ -961,8 +1078,9 @@ def main() -> int:
         "blend_backward_kernel"]
     split["adam"] = cuda_ms(lambda: apply_gradients(state, tc, extent))
     print(f"phase 10 north-star 1M SH3 {WIDTH}x{HEIGHT} tiles {th}x{tw}: "
-          f"train step {train_ms:.3f} ms; fwd+bwd {fwd_bwd_ms:.3f} ms = "
-          f"{WIDTH * HEIGHT / fwd_bwd_ms / 1e3:.3f} Mpix/s; split ms "
+          f"train step {train_ms:.3f} ms; fwd+bwd best of 10 "
+          f"{fwd_bwd_best:.3f} ms = {fwd_bwd_mpix:.3f} Mpix/s, median "
+          f"{fwd_bwd_ms:.3f} ms (benchmark.run_bench, as bench); split ms "
           f"{json.dumps({k: round(v, 3) for k, v in split.items()})}; "
           f"peak allocated {peak_gib:.2f} GiB (train step)", flush=True)
     assert all(bool(torch.isfinite(p.grad).all())
@@ -1259,6 +1377,12 @@ def main() -> int:
     print(f"phase 14 took {time.perf_counter() - t0:.1f} s; memory since "
           f"its start: {json.dumps(device_memory_report())}", flush=True)
     assert viewer["pose_bits_equal"]
+
+    # -- phase 15: the benchmark -------------------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_bench(dev)
+    print(f"phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     b116 = bwd["trained_116k"]
     rows_full, tiles_full = int(full_starts[-1]) // 8, t

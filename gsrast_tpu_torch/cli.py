@@ -1,15 +1,16 @@
 """Command-line entry points: `python -m gsrast_tpu_torch <command>` with
-the commands `render`, `info`, `pose`, `train` and `make-dataset` of the
-reference CLI (`python -m gsrast_tpu`).
+the commands `render`, `info`, `pose`, `train`, `make-dataset` and `bench`
+of the reference CLI (`python -m gsrast_tpu`).
 
 `render` draws a .ply in the three modes (`--mode gaussians|ellipsoids|
 pointcloud`, and `--backend dense` for the tile-free oracle), `info` prints
 the scene and camera reports (and one Gaussian's render state), `pose`
 keeps named cameras in the pose store, which `render`, `info` and `train`
-read with `--pose NAME [--store PATH]`. `bench` and `train --dist` exit
-with an error. Every command runs on `--device cuda` unless `--device cpu`
-is passed; without a card, cuda exits with an error rather than running on
-the CPU.
+read with `--pose NAME [--store PATH]`. `bench` times the benchmark step
+(`benchmark.py`) and prints its scene statistics, its stage table and one
+JSON line. `train --dist` exits with an error. Every command runs on
+`--device cuda` unless `--device cpu` is passed; without a card, cuda
+exits with an error rather than running on the CPU.
 """
 
 from __future__ import annotations
@@ -23,8 +24,7 @@ import torch
 
 from . import config as cfg
 
-PORTED = ("render", "info", "pose", "train", "make-dataset")
-NOT_PORTED = ("bench",)
+PORTED = ("render", "info", "pose", "train", "make-dataset", "bench")
 # Reference `train` options this port does not serve yet: multi-host runs.
 TRAIN_NOT_PORTED = ("--dist",)
 MODES = ("gaussians", "ellipsoids", "pointcloud")
@@ -109,7 +109,9 @@ def cmd_render(argv) -> torch.Tensor:
     ap.add_argument("--out", default="render.png")
     ap.add_argument("--mode", default="gaussians", choices=MODES)
     ap.add_argument("--backend", default=None, choices=cfg.BACKENDS,
-                    help="gaussians mode: 'dense' renders by brute force; "
+                    help="gaussians mode: 'cuda' the blend kernels (CUDA "
+                         "devices only), 'torch' their plain PyTorch "
+                         "versions on any device, 'dense' brute force; "
                          "default: 'cuda' on a CUDA device, else 'torch'")
     _add_view(ap, cfg.DEFAULT_WIDTH, cfg.DEFAULT_HEIGHT)
     _add_device(ap)
@@ -370,14 +372,82 @@ def cmd_make_dataset(argv):
     return cams
 
 
+def cmd_bench(argv) -> dict:
+    """The benchmark (`benchmark.py`, the one definition of the step that
+    `chip_smoke.py` and the diag scripts time too): on the bench scene, or
+    `--scene` framed by its bbox, print the scene statistics of its tile
+    plan, the stage table unless `--no-stages`, and as the last line one
+    JSON object, which it returns."""
+    ap = argparse.ArgumentParser(prog="gsrast_tpu_torch bench")
+    ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--scene", default=None,
+                    help="bench a .ply (or 'random:N') framed by its bbox "
+                         "instead of the bench scene; n is its capacity")
+    ap.add_argument("--backend", default=None, choices=("cuda", "torch"),
+                    help="'cuda' the blend kernels, 'torch' their plain "
+                         "versions; default: 'cuda' on a CUDA device, else "
+                         "'torch'")
+    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--no-stages", action="store_true",
+                    help="skip the per-stage table (headline only)")
+    ap.add_argument("--small", action="store_true",
+                    help="100k Gaussians at 800x800 (BASELINE config 2)")
+    ap.add_argument("--fwd-only", action="store_true",
+                    help="time the forward render alone")
+    _add_device(ap)
+    args = ap.parse_args(argv)
+    device = _device(args.device)
+
+    from . import benchmark
+    from .camera import auto_frame
+
+    backend = args.backend or ("cuda" if device.type == "cuda" else "torch")
+    if args.small:
+        args.n, args.width, args.height = 100_000, 800, 800
+    if args.scene:
+        scene = _load_scene(args.scene, device)
+        camera = auto_frame(*scene.bbox(), args.width, args.height,
+                            device=device)
+        args.n = scene.capacity
+    else:
+        scene, camera = benchmark.bench_scene_camera(
+            args.n, args.width, args.height, device=device)
+    rcfg = benchmark.bench_render_config(scene, camera, backend)
+    gh, gw = rcfg.grid_shape(args.height, args.width)
+    stats = benchmark.scene_stats(scene, camera, rcfg)
+    print(f"scene stats: tile {rcfg.tile_h}x{rcfg.tile_w} grid {gh}x{gw} "
+          f"tiers={rcfg.tiers} {json.dumps(stats)}")
+    if not args.no_stages:
+        stages = benchmark.stage_table(scene, camera, rcfg, iters=args.iters)
+        print(benchmark.format_stage_table(stages, args.width, args.height))
+    best_ms, median_ms, mpix_s = benchmark.run_bench(
+        scene, camera, rcfg, fwd_only=args.fwd_only, iters=args.iters)
+    mode = "fwd" if args.fwd_only else "fwd+bwd"
+    result = {
+        "metric": ("mpixels_per_s_per_chip_fwd" if args.fwd_only
+                   else "mpixels_per_s_per_chip_fwd_bwd"),
+        "n": args.n, "width": args.width, "height": args.height,
+        "scene": args.scene, "backend": backend, "best_ms": best_ms,
+        "value": mpix_s, "unit": "Mpixels/s/chip", "median_ms": median_ms,
+        "iters": args.iters, "mode": mode,
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+    }
+    print(json.dumps(result))
+    return result
+
+
 COMMANDS = {"render": cmd_render, "info": cmd_info, "pose": cmd_pose,
-            "train": cmd_train, "make-dataset": cmd_make_dataset}
+            "train": cmd_train, "make-dataset": cmd_make_dataset,
+            "bench": cmd_bench}
 
 
 def main(argv=None):
     """Run one command; returns what it returns (`render`: the image;
     `info`: the report; `pose`: see `cmd_pose`; `train`: the final
-    TrainState; `make-dataset`: the cameras)."""
+    TrainState; `make-dataset`: the cameras; `bench`: its JSON object)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv or argv[0] in ("-h", "--help"):
         view = "[--width W] [--height H] [--pose NAME [--store PATH]]"
@@ -395,11 +465,13 @@ def main(argv=None):
               f"[--save-ply PLY] {view} [--device DEV]\n"
               "       python -m gsrast_tpu_torch make-dataset scene.ply "
               "--out DIR [--views N] [--width W] [--height H] "
+              "[--device DEV]\n"
+              "       python -m gsrast_tpu_torch bench [--n N] [--width W] "
+              "[--height H] [--scene PLY|random:N] [--backend {cuda,torch}] "
+              "[--iters K] [--no-stages] [--small] [--fwd-only] "
               "[--device DEV]")
         return
     cmd = argv[0]
-    if cmd in NOT_PORTED:
-        sys.exit(f"command {cmd!r} is not ported yet; ported: {list(PORTED)}")
     if cmd not in COMMANDS:
         sys.exit(f"unknown command {cmd!r}; expected one of {list(PORTED)}")
     return COMMANDS[cmd](argv[1:])

@@ -57,7 +57,7 @@ class RenderConfig:
         ascending; see `ops.binning.plan_tiers`. Must be non-empty to render
         (`render.api.auto_render_config` derives it from the scene).
       backend: 'cuda' (the hand-written blend kernel, CUDA tensors only),
-        'torch' (the plain PyTorch blend, CPU tensors only) or 'dense' (the
+        'torch' (the plain PyTorch blend, any device) or 'dense' (the
         tile-free oracle, `render.dense`, any device; it ignores `tiers`).
       sh_degree: highest SH degree evaluated.
       background: RGB composited behind the splats with the residual

@@ -31,23 +31,32 @@ def scene_tile_counts(scene, camera: Camera,
 
 
 def auto_render_config(scene, camera: Camera,
-                       margin: float = 1.12) -> cfg.RenderConfig:
+                       base: cfg.RenderConfig | None = None,
+                       margin: float = 1.12,
+                       auto_tile_w: bool = True) -> cfg.RenderConfig:
     """The product-default RenderConfig for (scene, camera): the tier plan
     derived from the scene's own tile-count distribution, and the tile shape
-    of the reference's big-splat rule: start from 16x32 and double the tile
-    area, up to P = 2048, while the mean tiles per Gaussian is above 8. The
-    backend follows the camera's device: 'cuda' on a CUDA device, else
-    'torch'. `margin` is the tier budgets' headroom (`auto_tiers`); training
-    passes a larger one, since densification reshapes the count
-    distribution.
+    of the reference's big-splat rule: start from `base`'s tile and, where
+    `auto_tile_w`, double the tile area, up to P = 2048, while the mean
+    tiles per Gaussian is above 8. `base` defaults to 16x32 with backend
+    'cuda' where the scene or the camera lies on a CUDA device, else
+    'torch' (so make the config from the tensors it will render). A given
+    `base` keeps its backend and every other field. `margin` is the tier
+    budgets' headroom (`auto_tiers`); training passes a larger one, since
+    densification reshapes the count distribution.
 
     The 16x32 base and the P <= 2048 cap were tuned on the TPU and are kept
-    for parity with the reference; they are still to be tuned on the GPU."""
-    backend = "cuda" if camera.device.type == "cuda" else "torch"
-    rcfg = cfg.RenderConfig(tile_h=16, tile_w=32, backend=backend)
+    for parity with the reference; `diag/tile_sweep.py` times the tile
+    shapes on the card."""
+    if base is None:
+        on_card = "cuda" in (scene.means.device.type, camera.device.type)
+        backend = "cuda" if on_card else "torch"
+        base = cfg.RenderConfig(tile_h=16, tile_w=32, backend=backend)
+    rcfg = base
     counts = scene_tile_counts(scene, camera, rcfg)
     mean_c = float(counts.mean()) if counts.size else 0.0
-    while mean_c > 8.0 and rcfg.tile_h * rcfg.tile_w < 2048:
+    while (auto_tile_w and mean_c > 8.0
+           and rcfg.tile_h * rcfg.tile_w < 2048):
         if rcfg.tile_w <= rcfg.tile_h * 2:
             rcfg = rcfg.replace(tile_w=rcfg.tile_w * 2)
         else:

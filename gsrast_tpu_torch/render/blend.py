@@ -189,15 +189,16 @@ def _check_pixel_inputs(num_tiles: int, p: int, **tensors) -> None:
 
 def _dispatch(backend: str, device: torch.device, cuda_fn, torch_fn):
     """backend 'cuda' launches the kernel and needs CUDA tensors; backend
-    'torch' runs the plain version and needs CPU tensors. Any other pairing
-    raises: nothing falls back."""
+    'torch' runs the plain version on tensors of any device, as the
+    caller's explicit choice. 'cuda' on other tensors raises: nothing falls
+    back."""
     if backend == "cuda" and device.type == "cuda":
         return cuda_fn
-    if backend == "torch" and device.type == "cpu":
+    if backend == "torch":
         return torch_fn
     raise ValueError(
-        f"blend backend {backend!r} cannot run on {device} tensors: "
-        "'cuda' needs CUDA tensors, 'torch' needs CPU tensors")
+        f"blend backend {backend!r} cannot run on {device} tensors: 'cuda' "
+        "needs CUDA tensors ('torch' runs the plain version anywhere)")
 
 
 def blend_forward(feat: torch.Tensor, tile_starts: torch.Tensor, grid_h: int,

@@ -8,7 +8,7 @@ plus the photographs:
     sparse/0/cameras.bin   intrinsics  (camera_id -> model, W, H, params)
     sparse/0/images.bin    extrinsics  (qvec, tvec, camera_id, file name)
     sparse/0/points3D.bin  SfM points  (xyz, rgb): the scene initializer
-    images/                the photographs (PNG; see `utils.image.load_png`)
+    images/                the photographs (JPEG, PNG, ...: `utils.image.load_png`)
 
 The binary layout is COLMAP's (little-endian; counts are uint64; qvec is
 (w, x, y, z)); the world->camera transform is X_cam = R(qvec) X_world + tvec

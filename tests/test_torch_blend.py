@@ -1,19 +1,22 @@
 """The tile blend of `gsrast_tpu_torch` against the reference's Pallas blend
 kernel (`gsrast_tpu.render.pallas_blend.blend_forward`, run in interpret mode
-on the CPU), on the same packed features; and the hand-written CUDA kernel
-against the plain version on the card (`-m cuda`, which imports only the
-port, so it also runs where the reference's dependencies are missing)."""
+on the CPU), on the same packed features; the backends' dispatch; and on the
+card the hand-written CUDA kernel against the plain version, and the plain
+version's render against the CPU's (`-m cuda`, which imports only the port,
+so it also runs where the reference's dependencies are missing)."""
 
 import numpy as np
 import pytest
 import torch
 
-from gsrast_tpu_torch import _kernels
-from gsrast_tpu_torch.render.blend import (blend_forward, blend_forward_cuda,
+import gsrast_tpu_torch as gt
+from gsrast_tpu_torch import _kernels, cli
+from gsrast_tpu_torch.render.blend import (_dispatch, blend_forward,
+                                           blend_forward_cuda,
                                            blend_forward_torch)
 
 from torch_parity import BLEND_CASES as CASES
-from torch_parity import LONG_SEGMENT, long_segment_case
+from torch_parity import LONG_SEGMENT, TRAINED_SMALL, long_segment_case
 from torch_parity import packed_port as _packed_port
 from torch_parity import packed_reference as _packed
 from torch_parity import t2n, to_reference_layout
@@ -95,6 +98,60 @@ def test_backend_device_mismatch_raises():
     assert _kernels.launch_counts == before
     assert rgb.shape == (4, 3, 128) and float(ft.min()) == 1.0
     assert int(nc.max()) == 0
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda", "meta"])
+def test_torch_backend_runs_on_any_device(device):
+    """'torch' is the caller's explicit choice of the plain version, on
+    tensors of any device; 'cuda' takes only CUDA tensors."""
+    def cuda_fn():
+        pass
+
+    def torch_fn():
+        pass
+
+    assert _dispatch("torch", torch.device(device), cuda_fn,
+                     torch_fn) is torch_fn
+    if device != "cuda":
+        with pytest.raises(ValueError, match="cannot run"):
+            _dispatch("cuda", torch.device(device), cuda_fn, torch_fn)
+    else:
+        assert _dispatch("cuda", torch.device(device), cuda_fn,
+                         torch_fn) is cuda_fn
+    with pytest.raises(ValueError, match="cannot run"):
+        _dispatch("dense", torch.device(device), cuda_fn, torch_fn)
+
+
+@pytest.mark.cuda
+def test_cuda_torch_backend_matches_cpu(tmp_path):
+    """`render --backend torch` on the card runs the plain version (no
+    kernel launch), and its image is the CPU's: within 1e-5 where
+    n_contrib agrees, n_contrib differing at no more than 0.1% of pixels
+    (transmittance within rounding of T_min)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _kernels.reset_launch_counts()
+    img = cli.main(["render", TRAINED_SMALL, "--backend", "torch", "--width",
+                    "128", "--height", "128", "--out",
+                    str(tmp_path / "torch.png")])
+    torch.cuda.synchronize()
+    assert not any(_kernels.launch_counts.values()), _kernels.launch_counts
+    assert img.device.type == "cuda" and img.shape == (128, 128, 3)
+    scene = gt.load_ply(TRAINED_SMALL)
+    card_scene = gt.load_ply(TRAINED_SMALL, device="cuda")
+    cam = gt.auto_frame(*scene.bbox(), 128, 128)
+    card_cam = cam.to("cuda")
+    # On the card the default is the kernels; 'torch' is asked for.
+    assert gt.auto_render_config(card_scene, card_cam).backend == "cuda"
+    rcfg = gt.auto_render_config(scene, cam).replace(backend="torch")
+    with torch.no_grad():
+        cpu = gt.render(scene, cam, rcfg)
+        card = gt.render(card_scene, card_cam, rcfg)
+    agree = card.n_contrib.cpu() == cpu.n_contrib
+    assert float((~agree).float().mean()) <= 1e-3
+    err = torch.where(agree[..., None], card.image.cpu() - cpu.image, 0.0)
+    assert float(err.abs().max()) <= 1e-5
+    assert float(cpu.image.max()) > 0.1
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
 """COLMAP ingestion of `gsrast_tpu_torch` against the reference's
 `gsrast_tpu.scene.colmap`: a scene written by the reference (its PNGs by
 PIL, with adaptive scanline filters) reads the same in both packages; the
-SfM-point initialization matches; the port's writer is the reference's
-byte for byte; and a port-loaded camera renders the fixture's views."""
+SfM-point initialization matches; JPEG photographs read as in the
+reference; the port's writer is the reference's byte for byte; and a
+port-loaded camera renders the fixture's views."""
 
 import os
 
@@ -65,6 +66,17 @@ def test_load_colmap_matches_reference(fixture, downscale):
     np.testing.assert_array_equal(t2n(ds.images), ref.images)
     np.testing.assert_array_equal(xyz, rxyz)
     np.testing.assert_array_equal(rgb, rrgb)
+
+
+def test_load_colmap_jpeg_matches_reference(tmp_path):
+    """A capture whose photographs are JPEG loads as in the reference (the
+    port sends them to PIL, as the reference reads every image)."""
+    reference_colmap_fixture(tmp_path, n_views=2, ext=".jpg")
+    ds, _, _ = colmap.load_colmap(str(tmp_path), downscale=2)
+    ref, _, _ = jax_colmap.load_colmap(str(tmp_path), downscale=2)
+    assert sorted(os.listdir(tmp_path / "images")) == ["v00.jpg", "v01.jpg"]
+    assert ds.images.shape == (2, 32, 48, 3)
+    np.testing.assert_array_equal(t2n(ds.images), ref.images)
 
 
 @pytest.mark.parametrize("n", [300, 5000])

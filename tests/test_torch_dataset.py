@@ -1,22 +1,26 @@
 """Multi-view datasets and PNG input of `gsrast_tpu_torch` against the
 reference: cameras.json directories written by either package load in the
 other, the orbit rig matches `gsrast_tpu.scene.dataset.orbit_cameras`, the
-zlib/numpy PNG reader matches PIL, and the `make-dataset` command."""
+PNG, JPEG, palette and 16-bit files read as the reference reads them
+(through PIL), and the `make-dataset` command."""
 
 import json
 import os
+import re
 import struct
+import sys
 import zlib
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from PIL import Image
+from PIL import Image, UnidentifiedImageError
 
 import gsrast_tpu_torch as gt
 from gsrast_tpu.camera import Camera as JaxCamera
 from gsrast_tpu.scene import dataset as jax_dataset
+from gsrast_tpu.utils.image import load_png as jax_load_png
 from gsrast_tpu_torch import cli
 from gsrast_tpu_torch.scene import dataset
 from gsrast_tpu_torch.utils.image import load_png, save_png
@@ -83,11 +87,9 @@ def test_cameras_json_loads_in_both_packages(tmp_path, writer):
         assert (cam.width, cam.height) == (40, 24)
 
 
-def _write_png(path, arr: np.ndarray, color: int, filters,
-               interlace: int = 0) -> None:
+def _write_png(path, arr: np.ndarray, color: int, filters) -> None:
     """An 8-bit PNG whose scanline y uses filter filters[y % len] (PNG spec
-    section 9), so every filter's decoding is exercised. `interlace` only
-    sets the header's flag."""
+    section 9), so every filter's decoding is exercised."""
     h, w = arr.shape[:2]
     bpp = arr.shape[2] if arr.ndim == 3 else 1
     rows = arr.reshape(h, w * bpp).astype(np.int32)
@@ -120,7 +122,7 @@ def _write_png(path, arr: np.ndarray, color: int, filters,
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n"
                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0,
-                                             0, interlace))
+                                             0, 0))
                 + chunk(b"IDAT", zlib.compress(bytes(raw)))
                 + chunk(b"IEND", b""))
 
@@ -152,17 +154,55 @@ def test_load_png_reads_the_ports_own_png(tmp_path):
     np.testing.assert_array_equal(load_png(path), _pil_rgb(path))
 
 
+# Formats beside 8-bit PNG, written by PIL.
+PIL_FORMATS = {
+    "photo.jpg": lambda arr, p: Image.fromarray(arr).save(p, "JPEG"),
+    "palette.png": lambda arr, p: Image.fromarray(arr).convert("P").save(p),
+    "gray16.png": lambda arr, p: Image.fromarray(
+        arr[..., 0].astype(np.uint16) * 257).save(p),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PIL_FORMATS))
+def test_load_png_reads_other_formats_like_the_reference(tmp_path, name):
+    """A JPEG, a palette PNG and a 16-bit PNG load through PIL equal to the
+    reference's `load_png`."""
+    arr = (_images(1, 29, 37)[0] * 255).astype(np.uint8)
+    path = str(tmp_path / name)
+    PIL_FORMATS[name](arr, path)
+    got = load_png(path)
+    assert got.dtype == np.float32 and got.shape == (29, 37, 3)
+    np.testing.assert_array_equal(got, jax_load_png(path))
+    assert float(got.max()) > 0.5
+
+
 def test_load_png_rejects_what_it_does_not_read(tmp_path):
-    arr = np.zeros((4, 5, 3), np.uint8)
-    cases = {"p.png": lambda p: Image.fromarray(arr).convert("P").save(p),
-             "i16.png": lambda p: Image.fromarray(
-                 np.zeros((4, 5), np.uint16)).save(p),
-             "inter.png": lambda p: _write_png(p, arr, 2, [0], interlace=1),
-             "j.jpg": lambda p: Image.fromarray(arr).save(p, "JPEG")}
-    for name, write in cases.items():
-        path = str(tmp_path / name)
-        write(path)
-        with pytest.raises(ValueError, match="not read|not a PNG"):
+    """A damaged PNG and a file that is no image raise what the reference
+    raises (PIL's errors)."""
+    good = str(tmp_path / "good.png")
+    save_png(torch.zeros((4, 5, 3)), good)
+    data = bytearray(open(good, "rb").read())
+    data[45] ^= 0xFF  # inside the IDAT chunk: the zlib stream is broken
+    bad = tmp_path / "bad.png"
+    bad.write_bytes(bytes(data))
+    text = tmp_path / "notes.png"
+    text.write_text("not an image")
+    for path, err in ((bad, OSError), (text, UnidentifiedImageError)):
+        for loader in (load_png, jax_load_png):
+            with pytest.raises(err):
+                loader(str(path))
+
+
+def test_load_png_without_pil_names_the_file(tmp_path, monkeypatch):
+    """Without PIL every file, PNG or JPEG, raises ImportError naming it."""
+    arr = (_images(1, 8, 6)[0] * 255).astype(np.uint8)
+    jpeg, png = str(tmp_path / "j.jpg"), str(tmp_path / "p.png")
+    Image.fromarray(arr).save(jpeg, "JPEG")
+    save_png(torch.from_numpy(arr / np.float32(255.0)), png)
+    monkeypatch.setitem(sys.modules, "PIL", None)  # import PIL fails
+    for path in (jpeg, png):
+        with pytest.raises(ImportError,
+                           match=re.escape(f"reading {path} needs PIL")):
             load_png(path)
 
 

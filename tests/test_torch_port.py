@@ -62,7 +62,10 @@ def test_import_leaves_jax_out():
             "gsrast_tpu_torch.utils.profiling, gsrast_tpu_torch.scene.native, "
             "gsrast_tpu_torch.apps.basic, gsrast_tpu_torch.apps.fbtest, "
             "gsrast_tpu_torch.apps.spheretrace, "
-            "gsrast_tpu_torch.apps.render_app; "
+            "gsrast_tpu_torch.apps.render_app, gsrast_tpu_torch.benchmark, "
+            "gsrast_tpu_torch.diag.scene_stats, "
+            "gsrast_tpu_torch.diag.tile_sweep, "
+            "gsrast_tpu_torch.diag.make_trained_fixture; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'gsrast_tpu.')) or m == 'gsrast_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -85,8 +88,7 @@ def test_cli_render_writes_png(tmp_path, capsys):
     assert img.max() > 0.1
 
 
-@pytest.mark.parametrize("argv", [["bench", "--n", "1000"],
-                                  ["train", "--scene", TRAINED_SMALL,
+@pytest.mark.parametrize("argv", [["train", "--scene", TRAINED_SMALL,
                                    "--dist", "localhost:1234,2,0"]])
 def test_cli_unported_exits(argv):
     with pytest.raises(SystemExit, match="not ported yet"):
@@ -100,7 +102,8 @@ def test_cli_unported_exits(argv):
                                   ["render", TRAINED_SMALL, "--mode",
                                    "ellipsoids"],
                                   ["info", TRAINED_SMALL],
-                                  ["pose", "list"]])
+                                  ["pose", "list"],
+                                  ["bench", "--n", "1000"]])
 def test_cli_without_a_card_exits_unless_cpu(argv, monkeypatch):
     """--device defaults to cuda: with no card the command exits with a
     clear error instead of running on the CPU."""

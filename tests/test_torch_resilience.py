@@ -221,6 +221,20 @@ def test_cli_train_on_colmap(tmp_path, capsys):
         "step_00000000", "step_00000003"]
 
 
+def test_cli_train_on_jpeg_colmap(tmp_path, capsys):
+    """`train --data` on a COLMAP capture of JPEG photographs, 2 steps."""
+    reference_colmap_fixture(tmp_path / "scene", n_views=2, wh=(64, 48),
+                             ext=".jpg")
+    state = cli.main(["train", "--scene", "colmap", "--data",
+                      str(tmp_path / "scene"), "--steps", "2", "--device",
+                      "cpu", "--ckpt-dir", str(tmp_path / "ck")])
+    out = capsys.readouterr().out
+    assert "dataset: 2 views 64x48" in out
+    losses = _losses(out)
+    assert len(losses) == 2 and np.all(np.isfinite(losses)), out
+    assert state.step == 2
+
+
 def test_cli_train_on_dataset_and_target(tmp_path, capsys):
     """`train --data <cameras.json dir>` and `train --target PNG`, 2 steps
     each from trained_small at 32x24 on the CPU."""

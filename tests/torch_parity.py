@@ -280,12 +280,14 @@ def _orbit_pose(theta: float, radius: float = 2.5):
     return q, view[:3, 3], view
 
 
-def reference_colmap_fixture(path, n_views: int = 3, wh=(96, 64)) -> dict:
+def reference_colmap_fixture(path, n_views: int = 3, wh=(96, 64),
+                             ext: str = ".png") -> dict:
     """Render a 400-Gaussian SH-1 scene with the reference (XLA backend)
     from `n_views` orbit poses, and write it with the reference's own
-    `save_png` (PIL, adaptive scanline filters) and `write_colmap_bin`
-    (PINHOLE, fx = fy = 80, the first 200 means as SfM points in grey).
-    Returns the scene's arrays."""
+    `save_png` (PIL, adaptive scanline filters; `ext` ".jpg" makes PIL
+    write JPEG photographs) and `write_colmap_bin` (PINHOLE, fx = fy = 80,
+    the first 200 means as SfM points in grey). Returns the scene's
+    arrays."""
     import jax
     import jax.numpy as jnp
     from gsrast_tpu import config as jcfg
@@ -307,7 +309,7 @@ def reference_colmap_fixture(path, n_views: int = 3, wh=(96, 64)) -> dict:
                         fov_x=jnp.float32(2 * np.arctan(w / (2 * fx))),
                         fov_y=jnp.float32(2 * np.arctan(h / (2 * fy))),
                         width=w, height=h)
-        name = f"v{i:02d}.png"
+        name = f"v{i:02d}{ext}"
         jax_save_png(jax_render(scene.activated(), cam, rcfg).image,
                      os.path.join(path, "images", name))
         images.append(jax_colmap.ColmapImage(name, q, t, 1))
