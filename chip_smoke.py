@@ -26,7 +26,12 @@ pose rendered back bit for bit, `info`, the four apps, the native .ply
 reader against numpy), and the benchmark through `bench` (the 1M scene
 fwd+bwd with its stage table and forward only, `--small`, trained_116k,
 `--backend torch` on the card, the scene statistics, the tile sweep, and a
-trained fixture made from a random scene); and
+trained fixture made from a random scene), and the sharded path (phase 16:
+both blend kernels on a rank's local tile rows against their plain
+versions; 2 and 4 gloo ranks sharing the card, spawned by
+torch.multiprocessing, rendering the 1M scene tile- and primitive-sharded
+against `render`; the data x tile train step on a (2, 2) mesh; one NCCL
+rank; the multihost smoke through --dist); and
 checks that each path went through the kernels. Each phase prints its
 lines before the next begins; the line before the last is the per-kernel
 JSON record, and the last is {"ok": true, "device": {...}}. Any failure
@@ -153,12 +158,14 @@ def compare_backward(kernel, plain, live: int) -> dict:
 
 
 def blended_pairs(feat, tile_starts, n_contrib, grid_w: int, tile_h: int,
-                  tile_w: int, budget: int = 1 << 24) -> tuple:
+                  tile_w: int, budget: int = 1 << 24,
+                  tile_map=(0, 1)) -> tuple:
     """(forward, backward): the needed (pixel, position) pairs at which the
     splat blends, power <= 0 and alpha >= ALPHA_MIN as the plain version
     computes them, among the positions below min(n_contrib + 1, segment)
     and below n_contrib. Runs of tiles of at most `budget` (tile, position,
-    pixel) elements, on the inputs' device."""
+    pixel) elements, on the inputs' device; local tiles placed by
+    `tile_map` (row0, row step) as the blend places them."""
     from gsrast_tpu_torch import config as cfg
 
     dev = feat.device
@@ -181,7 +188,8 @@ def blended_pairs(feat, tile_starts, n_contrib, grid_w: int, tile_h: int,
                 max=feat.shape[1] - 1)
             f = feat[:, take]  # (10, tiles, kmax, 1)
             dx = f[0] - ((tid % grid_w) * tile_w + pix % tile_w).float()
-            dy = f[1] - ((tid // grid_w) * tile_h + pix // tile_w).float()
+            dy = f[1] - ((tile_map[0] + (tid // grid_w) * tile_map[1])
+                         * tile_h + pix // tile_w).float()
             power = (-0.5 * (f[2] * (dx * dx) + f[4] * (dy * dy))
                      - f[3] * (dx * dy))
             alpha = torch.clamp(f[5] * torch.exp(power), max=cfg.ALPHA_MAX)
@@ -193,7 +201,7 @@ def blended_pairs(feat, tile_starts, n_contrib, grid_w: int, tile_h: int,
 
 
 def blend_work(feat, tile_starts, n_contrib, grid_w: int, tile_h: int,
-               tile_w: int) -> dict:
+               tile_w: int, tile_map=(0, 1)) -> dict:
     """The blend kernels' work on these inputs, counted from the features,
     tile_starts, n_contrib and the tile shape.
 
@@ -226,7 +234,8 @@ def blend_work(feat, tile_starts, n_contrib, grid_w: int, tile_h: int,
 
     live = int(starts[-1])
     fwd_blended, bwd_blended = blended_pairs(feat, tile_starts, n_contrib,
-                                             grid_w, tile_h, tile_w)
+                                             grid_w, tile_h, tile_w,
+                                             tile_map=tile_map)
     work = {
         "fwd_pairs": int(stop.sum()), "bwd_pairs": int(nc.sum()),
         "fwd_blended": fwd_blended, "bwd_blended": bwd_blended,
@@ -653,6 +662,545 @@ def phase_bench(dev) -> dict:
                               *size])
     bench("trained fixture 5x", ["--scene", made["stats_5m"], "--no-stages",
                                  *size])
+    return res
+
+
+# -- phase 16: the sharded path -------------------------------------------
+# The ranks are processes of torch.multiprocessing (spawn), all on cuda:0:
+# NCCL takes one rank per GPU, so ranks that share the card take gloo and
+# one rank alone takes NCCL. Each rank writes its results as JSON under
+# SHARD_DIR; the first failure of any rank fails the phase.
+SHARD_DIR = os.path.join(OUT_DIR, "phase16")
+RANK_TIMEOUT = 240.0  # seconds a group of ranks may take
+# Sharded against single-device results on the card: images as the
+# reference's sharded tests hold them (2e-5). Gradients of sum(image): the
+# reference tests' elementwise 2e-4 + 1e-4 |g| is counted and printed, but
+# at 1M/1080p the gradients reach ~1e4 and each is a float32 sum of
+# thousands of atomically added terms, so where they cancel the order of
+# the adds alone moves a gradient by ~1e-3 (`render` against itself shows
+# it, printed beside); the bound held is 1e-6 of each gradient's largest
+# magnitude.
+SHARD_IMAGE_ATOL = 2e-5
+SHARD_GRAD_TOL = dict(atol=2e-4, rtol=1e-4)
+SHARD_GRAD_SCALE_RTOL = 1e-6
+# The tier spec of the reference's sharded tests (test_sharded_fused.py).
+# The bench's auto-derived tiers are not kept for the sharded renders:
+# `shard_tiers` divides their widths by D, but on this scene most rects
+# span one tile row, so an interleaved rank owns all of a rect's tiles and
+# the scaled budgets drop tiles (counted; phase 16 prints how many).
+SHARD_TIERS = ((2, 1.0), (4, 1.0), (8, 0.5), (32, 0.25))
+TRAIN_VIEWS, TRAIN_STEPS = 4, 10
+
+
+def tie_free_bench_scene(device):
+    """The bench scene and camera with every Gaussian at its own depth.
+
+    Two splats at the same float32 depth in one tile blend in slot order,
+    which depends on the tile plan (the reference's too), so a sharded
+    render may take them in the other order than a single-device one; on
+    the 1M bench scene, whose depths z + 2.5 round to 2^-22 steps, many
+    do. Here z is a shuffled uniform grid over [-1, 1] (steps of 2e-6,
+    some 8 ulps of the depth), the scene otherwise the bench scene."""
+    import numpy as np
+    from gsrast_tpu_torch import benchmark
+
+    scene, cam = benchmark.bench_scene_camera(N_NORTH_STAR, WIDTH, HEIGHT,
+                                              device=device)
+    grid = (np.arange(N_NORTH_STAR) + 0.5) / N_NORTH_STAR * 2.0 - 1.0
+    z = np.random.default_rng(16).permutation(grid).astype(np.float32)
+    from gsrast_tpu_torch.ops.projection import to_camera
+
+    with torch.no_grad():
+        scene.means[:, 2] = torch.from_numpy(z).to(device)
+        depth = to_camera(scene.means, cam.view)[:, 2]
+    assert len(torch.unique(depth)) == N_NORTH_STAR, "depth ties"
+    return scene, cam
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(fn, world: int, *args) -> list:
+    """fn(rank, world, port, *args) on `world` spawned processes; returns
+    the JSON each wrote to SHARD_DIR/<fn>_<rank>.json. Raises if a rank
+    fails, or kills them all past RANK_TIMEOUT."""
+    import torch.multiprocessing as mp
+
+    port = free_port()
+    ctx = mp.start_processes(fn, args=(world, port, *args), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + RANK_TIMEOUT
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise RuntimeError(f"{fn.__name__}: ranks past {RANK_TIMEOUT} s")
+    out = []
+    for r in range(world):
+        with open(os.path.join(SHARD_DIR, f"{fn.__name__}_{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _rank_setup(rank: int, world: int, port: int, backend=None):
+    """The rank's bootstrap: the port's `initialize_distributed` (gloo for
+    ranks that share the card), or an explicit backend for one rank."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+    from gsrast_tpu_torch.parallel.mesh import initialize_distributed
+
+    torch.cuda.set_device(0)
+    if world > 1:
+        initialize_distributed(f"localhost:{port}", world, rank,
+                               backend=backend, device="cuda")
+    else:
+        dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                                world_size=1, rank=0)
+    return torch.device("cuda", 0), dist.get_backend()
+
+
+def _rank_write(name: str, rank: int, result: dict) -> None:
+    """The rank's results, then the process group's end."""
+    import torch.distributed as dist
+
+    with open(os.path.join(SHARD_DIR, f"{name}_{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+
+
+class _PlainCounts:
+    """Counts calls of the blend's plain versions (torch backend), which
+    a run on the kernels must not make."""
+
+    def __init__(self):
+        from gsrast_tpu_torch.render import blend
+
+        self.counts = {"blend_forward_torch": 0, "blend_backward_torch": 0}
+        for name in self.counts:
+            setattr(blend, name, self._wrap(name, getattr(blend, name)))
+
+    def _wrap(self, name, fn):
+        def counted(*args, **kw):
+            self.counts[name] += 1
+            return fn(*args, **kw)
+        return counted
+
+    def reset(self):
+        for name in self.counts:
+            self.counts[name] = 0
+
+
+def _grad_compare(got, ref) -> dict:
+    """Gradients against the single-device ones: the largest error, the
+    elements outside the elementwise tolerance, and whether the largest
+    error is within SHARD_GRAD_SCALE_RTOL of the largest magnitude."""
+    err = (got - ref).abs()
+    outside = int((err > SHARD_GRAD_TOL["atol"]
+                   + SHARD_GRAD_TOL["rtol"] * ref.abs()).sum())
+    scale = float(ref.abs().max())
+    return {"max_abs_err": float(err.max()), "scale": scale,
+            "outside_elementwise_tol": outside,
+            "within_tol": float(err.max()) <= SHARD_GRAD_SCALE_RTOL * scale}
+
+
+def _sharded_case(run, act, ref_image, ref_grad, plain, rows=None) -> dict:
+    """One sharded fwd+bwd on this rank, 1 warm-up and 3 timed: its image
+    and gradient of sum(image) against the single-device ones, its stats,
+    its kernel launches and plain-version calls (of the last call). `run`
+    maps Gaussians to a RenderOutput; `rows` the rank's shard of them
+    (primitive sharding) or None (all)."""
+    import dataclasses
+
+    from gsrast_tpu_torch import _kernels
+
+    if rows is not None:
+        act = dataclasses.replace(act, **{
+            f.name: getattr(act, f.name)[rows]
+            for f in dataclasses.fields(act)})
+        ref_grad = ref_grad[rows]
+    ms = []
+    for _ in range(4):
+        means = act.means.detach().clone().requires_grad_(True)
+        _kernels.reset_launch_counts()
+        plain.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(dataclasses.replace(act, means=means))
+        out.image.sum().backward()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {
+        "step_ms": ms[1:],
+        "image_err": float((out.image.detach() - ref_image).abs().max()),
+        "grad": _grad_compare(means.grad, ref_grad),
+        "stats": {k: int(v) for k, v in out.stats.items()},
+        "launches": dict(_kernels.launch_counts),
+        "plain_calls": dict(plain.counts)}
+
+
+def _single_device_reference(scene, cam, rcfg):
+    """(the detached activated Gaussians, the means leaf, render's output)
+    with sum(image)'s gradient in the leaf's .grad, and `render`'s second
+    gradient against it (the atomic adds' own spread)."""
+    import dataclasses
+
+    from gsrast_tpu_torch.render.api import render
+
+    act = scene.activated()
+    act = dataclasses.replace(act, **{f.name: getattr(act, f.name).detach()
+                                      for f in dataclasses.fields(act)})
+    grads = []
+    for _ in range(2):
+        means = act.means.clone().requires_grad_(True)
+        ref = render(dataclasses.replace(act, means=means), cam, rcfg)
+        ref.image.sum().backward()
+        grads.append(means.grad)
+    return act, means, ref, _grad_compare(grads[0], grads[1])
+
+
+def phase16_sharded_rank(rank: int, world: int, port: int) -> None:
+    """D gloo ranks on the card: the tile-sharded render, interleaved and
+    contiguous, and the primitive-sharded render of the 1M SH-3 scene at
+    1080p (`tie_free_bench_scene`), fwd+bwd, each against `render` on the
+    same card; the bench scene's ties, printed; with 4 ranks then the
+    data x tile train step on a (2, 2) mesh."""
+    dev, backend = _rank_setup(rank, world, port)
+    from gsrast_tpu_torch import benchmark
+    from gsrast_tpu_torch.parallel import (comm, make_mesh,
+                                           render_primitive_sharded,
+                                           render_tile_sharded)
+
+    plain = _PlainCounts()
+    mesh = make_mesh((1, world))
+    res = {"backend": backend}
+    # The bench scene itself, interleaved: depth ties taken in another
+    # order than `render` takes them (printed, not held to a tolerance).
+    scene, cam = benchmark.bench_scene_camera(N_NORTH_STAR, WIDTH, HEIGHT,
+                                              device=dev)
+    rcfg = benchmark.bench_render_config(scene, cam, "cuda").replace(
+        tiers=SHARD_TIERS)
+    act, means, ref, _ = _single_device_reference(scene, cam, rcfg)
+    case = _sharded_case(lambda g: render_tile_sharded(g, cam, rcfg, mesh),
+                         act, ref.image.detach(), means.grad, plain)
+    res["bench_scene_ties"] = {k: case[k] for k in ("image_err", "grad")}
+    del scene, act, means, ref
+
+    scene, cam = tie_free_bench_scene(dev)
+    act, means, ref, res["render_vs_render"] = _single_device_reference(
+        scene, cam, rcfg)
+    ref_image, ref_grad = ref.image.detach(), means.grad
+    total = int(ref.stats["num_intersections"])
+    nl = N_NORTH_STAR // world
+    # Primitive sharding: a source's intersections to one destination are
+    # at most its shard's, ~total / D.
+    send_capacity = int(1.05 * total / world)
+    runs = {
+        "tile_interleaved": lambda g: render_tile_sharded(g, cam, rcfg, mesh),
+        "tile_contiguous": lambda g: render_tile_sharded(
+            g, cam, rcfg, mesh, interleave=False),
+        "primitive": lambda g: render_primitive_sharded(
+            g, cam, rcfg, mesh, send_capacity=send_capacity)}
+    res.update(tiles=f"{rcfg.tile_h}x{rcfg.tile_w}",
+               single_device_isect=total, send_capacity=send_capacity)
+    for name, run in runs.items():
+        rows = slice(rank * nl, (rank + 1) * nl) if name == "primitive" \
+            else None
+        res[name] = _sharded_case(run, act, ref_image, ref_grad, plain, rows)
+    res["transports"] = dict(comm.transports)
+    del ref, ref_image, ref_grad, scene, act, means
+    torch.cuda.empty_cache()
+    if world == 4:
+        res["train"] = _train_2x2(rank, dev, plain)
+    _rank_write("phase16_sharded_rank", rank, res)
+
+
+def _train_2x2(rank: int, dev, plain) -> dict:
+    """The data x tile train step on a (2, 2) mesh of the 4 ranks:
+    trained_116k perturbed as in phase 8, its renders from TRAIN_VIEWS orbit
+    views at 1080p as targets, 2 views a data rank, TRAIN_STEPS steps of the
+    port's Adam. Returns the losses and step times."""
+    import numpy as np
+    from gsrast_tpu_torch import _kernels
+    from gsrast_tpu_torch.parallel import make_mesh, make_sharded_train_step
+    from gsrast_tpu_torch.render.api import auto_render_config, render
+    from gsrast_tpu_torch.scene.dataset import Dataset, orbit_cameras
+    from gsrast_tpu_torch.scene.gaussians import from_numpy
+    from gsrast_tpu_torch.scene.ply import load_ply
+    from gsrast_tpu_torch.train.trainer import TrainConfig, make_optimizer
+
+    base = load_ply(FIXTURE_116K, device=dev)
+    mn, mx = (x.cpu().numpy() for x in base.bbox())
+    extent = float(np.linalg.norm(mx - mn))
+    fov_y = 1.0
+    fov_x = float(2.0 * np.arctan(np.tan(fov_y / 2) * WIDTH / HEIGHT))
+    views = orbit_cameras((mn + mx) / 2, extent * 1.1, WIDTH, HEIGHT,
+                          TRAIN_VIEWS, fov_x=fov_x, fov_y=fov_y, device=dev)
+    with torch.no_grad():
+        rcfg_gt = auto_render_config(base, views[0])
+        data = Dataset(cameras=views, images=torch.stack(
+            [render(base, c, rcfg_gt).image for c in views]))
+    arrays = {f: p.detach().cpu().numpy()
+              for f, p in base.param_groups().items()}
+    arrays["means"] = arrays["means"] + 0.03 * 0.5 * extent * (
+        np.random.default_rng(2).standard_normal(arrays["means"].shape))
+    arrays["opacity_logits"] = arrays["opacity_logits"] - 0.5
+    scene = from_numpy(arrays, device=dev)
+    rcfg = auto_render_config(scene, views[0], margin=1.5)
+    mesh = make_mesh((2, 2))
+    step = make_sharded_train_step(
+        rcfg, mesh, HEIGHT, WIDTH, cameras_per_device=TRAIN_VIEWS // 2,
+        optimizer=make_optimizer(scene, TrainConfig(), extent))
+    idx = list(range(TRAIN_VIEWS))
+    cams, targets = data.batch_cameras(idx), data.batch_images(idx)
+    losses, ms = [], []
+    _kernels.reset_launch_counts()
+    plain.reset()
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = step(scene, cams, targets)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"losses": losses, "step_ms": ms,
+            "tiles": f"{rcfg.tile_h}x{rcfg.tile_w}",
+            "launches": dict(_kernels.launch_counts),
+            "plain_calls": dict(plain.counts)}
+
+
+def phase16_nccl_rank(rank: int, world: int, port: int) -> None:
+    """One rank over NCCL on the card: the tile-sharded render of the 1M
+    scene at 1080p against `render` (the same launches: bit for bit) with
+    its gradient, an all_reduce over NCCL, and the train step against the
+    single-device step."""
+    dev, backend = _rank_setup(rank, world, port, backend="nccl")
+    from gsrast_tpu_torch import benchmark
+    from gsrast_tpu_torch.parallel import (comm, make_mesh,
+                                           make_sharded_train_step,
+                                           render_tile_sharded)
+    from gsrast_tpu_torch.render.api import render
+    from gsrast_tpu_torch.scene.dataset import Dataset
+    from gsrast_tpu_torch.train.loss import rgb_loss
+
+    plain = _PlainCounts()
+    scene, cam = benchmark.bench_scene_camera(N_NORTH_STAR, WIDTH, HEIGHT,
+                                              device=dev)
+    rcfg = benchmark.bench_render_config(scene, cam, "cuda").replace(
+        tiers=SHARD_TIERS)
+    mesh = make_mesh((1, 1))
+    one = comm._all_reduce_raw(torch.ones(4, device=dev),
+                               mesh.get_group("tiles"))
+    assert float(one.sum()) == 4.0
+    act, means, ref, spread = _single_device_reference(scene, cam, rcfg)
+    res = {"backend": backend, "transports": dict(comm.transports),
+           "render_vs_render": spread}
+    res["tile"] = _sharded_case(
+        lambda g: render_tile_sharded(g, cam, rcfg, mesh), act,
+        ref.image.detach(), means.grad, plain)
+    with torch.no_grad():
+        out = render_tile_sharded(act, cam, rcfg, mesh)
+        res["image_bit_equal"] = bool(torch.equal(out.image, ref.image))
+
+    target = torch.full((HEIGHT, WIDTH, 3), 0.25, device=dev)
+    data = Dataset(cameras=[cam], images=target[None])
+    step = make_sharded_train_step(rcfg, mesh, HEIGHT, WIDTH)
+    t0 = time.perf_counter()
+    loss, grads = step(scene, data.batch_cameras([0]), data.batch_images([0]))
+    torch.cuda.synchronize()
+    res["train_step_ms"] = (time.perf_counter() - t0) * 1e3
+    grads = {k: v.clone() for k, v in grads.items()}
+    for p in scene.param_groups().values():
+        p.grad = None
+    ref_loss = rgb_loss(render(scene, cam, rcfg).image, target)
+    ref_loss.backward()
+    res["train_loss"] = [float(loss), float(ref_loss.detach())]
+    res["train_grads"] = {k: _grad_compare(grads[k], p.grad)
+                          for k, p in scene.param_groups().items()}
+    _rank_write("phase16_nccl_rank", rank, res)
+
+
+def phase_sharded(dev) -> dict:
+    """Phase 16: the sharded path. The blend kernels alone on local tiles
+    (`phase_sharded_kernels`), then its ranks (`phase_sharded_ranks`).
+    Returns both's results."""
+    return {"local_tiles": phase_sharded_kernels(dev),
+            **phase_sharded_ranks()}
+
+
+def phase_sharded_kernels(dev) -> dict:
+    """Both blend kernels on local tiles, the 1M plan's rows {1, 5, ...}
+    (D = 4) at 1080p, against their plain versions by phases 3 and 6's
+    rules, the backward twice bit for bit, with their work and bound.
+    Returns their numbers by kernel."""
+    from gsrast_tpu_torch import benchmark
+    from gsrast_tpu_torch import config as cfg
+    from gsrast_tpu_torch.ops import binning
+    from gsrast_tpu_torch.ops.preprocess import preprocess
+    from gsrast_tpu_torch.render.blend import (blend_backward_cuda,
+                                               blend_backward_torch,
+                                               blend_forward_cuda,
+                                               blend_forward_torch,
+                                               tile_order_cuda)
+    from gsrast_tpu_torch.render.pipeline import feature_rows, sort_pack
+
+    n_dev, row0 = 4, 1
+    with torch.inference_mode():
+        scene, cam = benchmark.bench_scene_camera(N_NORTH_STAR, WIDTH,
+                                                  HEIGHT, device=dev)
+        rcfg = benchmark.bench_render_config(scene, cam, "cuda")
+        gh, gw = rcfg.grid_shape(HEIGHT, WIDTH)
+        th, tw = rcfg.tile_h, rcfg.tile_w
+        prep = preprocess(scene.activated(), cam, rcfg)
+        # The bench's own tiers under shard_tiers, interleaved: the tiles
+        # the ranks' plans drop.
+        dropped = {}
+        for d_count in (2, 4):
+            rows = -(-gh // d_count)
+            cfg_d = rcfg.replace(tiers=binning.shard_tiers(rcfg.tiers,
+                                                           d_count))
+            dropped[f"D={d_count}"] = sum(int(binning.plan_tiers(
+                prep, gh, gw, cfg_d, num_local_rows=rows, row0=d,
+                row_stride=d_count).overflow_tile_cap)
+                for d in range(d_count))
+        whole = int(binning.plan_tiers(prep, gh, gw, rcfg).overflow_tile_cap)
+        depths = len(torch.unique(prep.depth))
+        print(f"phase 16 the bench's tiers {rcfg.tiers} under shard_tiers, "
+              f"interleaved rows: tiles dropped over the ranks "
+              f"{json.dumps(dropped)} (the whole grid's plan: {whole}); the "
+              f"sharded renders take {SHARD_TIERS}; the bench scene's "
+              f"{N_NORTH_STAR} Gaussians lie at {depths} distinct depths",
+              flush=True)
+        rpd = -(-gh // n_dev)
+        tmap = (row0, n_dev)
+        cfg_d = rcfg.replace(tiers=binning.shard_tiers(SHARD_TIERS, n_dev))
+        plan = binning.plan_tiers(prep, gh, gw, cfg_d, num_local_rows=rpd,
+                                  row0=row0, row_stride=n_dev)
+        assert int(plan.overflow_tile_cap) == 0
+        feat, starts = sort_pack(feature_rows(prep), plan, rpd * gw)
+        local = dict(num_tiles=rpd * gw, tile_map=tmap)
+        order = tile_order_cuda(starts)
+        fwd = blend_forward_cuda(feat, starts, gh, gw, th, tw, order, **local)
+        cmp_f = compare_blend(fwd, blend_forward_torch(feat, starts, gh, gw,
+                                                       th, tw, **local),
+                              cfg.TRANSMITTANCE_MIN)
+        gen = torch.Generator(device=dev).manual_seed(16)
+        d_rgb = torch.randn((rpd * gw, 3, th * tw), generator=gen, device=dev)
+        d_ft = torch.randn((rpd * gw, th * tw), generator=gen, device=dev)
+        bargs = (feat, starts, d_rgb, d_ft, fwd[1], fwd[2], gh, gw, th, tw)
+        bwd = blend_backward_cuda(*bargs, order, **local)
+        same = bool(torch.equal(bwd, blend_backward_cuda(*bargs, order,
+                                                         **local)))
+        cmp_b = compare_backward(bwd, blend_backward_torch(*bargs, **local),
+                                 int(starts[-1]))
+        work = blend_work(feat, starts, fwd[2], gw, th, tw, tile_map=tmap)
+        ms_f = cuda_ms(lambda: blend_forward_cuda(feat, starts, gh, gw, th,
+                                                  tw, order, **local))
+        ms_b = cuda_ms(lambda: blend_backward_cuda(*bargs, order, **local))
+        ms_fp = cuda_ms(lambda: blend_forward_torch(feat, starts, gh, gw, th,
+                                                    tw, **local), iters=3)
+        ms_bp = cuda_ms(lambda: blend_backward_torch(*bargs, **local),
+                        iters=3)
+    print(f"phase 16 blend kernels on local tiles: 1M SH3 {WIDTH}x{HEIGHT} "
+          f"tiles {th}x{tw}, rows {row0} + {n_dev} r of {gh} ({rpd * gw} "
+          f"tiles, isect={int(starts[-1])}): forward {ms_f:.3f} ms (plain "
+          f"{ms_fp:.3f} ms) {json.dumps(cmp_f)}; {work_line(work, 'fwd', ms_f)}"
+          f"; backward {ms_b:.3f} ms (plain {ms_bp:.3f} ms), rows "
+          f"{json.dumps(cmp_b['row_rel_err'])} of their scale, bitwise equal "
+          f"over two launches {same}; {work_line(work, 'bwd', ms_b)}",
+          flush=True)
+    assert cmp_f["err_rgb"] <= ATOL and cmp_f["err_final_t"] <= ATOL
+    assert cmp_f["nc_mismatch_share"] <= MAX_NC_MISMATCH
+    assert cmp_f["mismatch_at_boundary"] and same
+    assert max(cmp_b["row_rel_err"]) <= BWD_RTOL and (
+        cmp_b["dead_abs_sum"] == 0.0), cmp_b
+    res = {
+        "blend_forward": {"ms": ms_f, "plain_ms": ms_fp,
+                          "max_abs_err": cmp_f["max_abs_err"],
+                          "bound_ms": work["fwd_bound_ms"],
+                          "bound_by": work["fwd_bound_by"],
+                          "tile_map": list(tmap), "num_tiles": rpd * gw},
+        "blend_backward": {"ms": ms_b, "plain_ms": ms_bp,
+                           "max_abs_err": cmp_b["max_abs_err"],
+                           "bound_ms": work["bwd_bound_ms"],
+                           "bound_by": work["bwd_bound_by"],
+                           "bitwise_equal_over_two_launches": same,
+                           "tile_map": list(tmap), "num_tiles": rpd * gw}}
+    del scene, prep, plan, feat, starts, fwd, bwd, bargs, d_rgb, d_ft, order
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_sharded_ranks() -> dict:
+    """2 and 4 gloo ranks on the card (`phase16_sharded_rank`), with the
+    (2, 2) train step on the 4; one NCCL rank (`phase16_nccl_rank`); the
+    multihost smoke as 2 processes through --dist. Returns the ranks'
+    results."""
+    os.makedirs(SHARD_DIR, exist_ok=True)
+    res = {}
+    for world in (2, 4):
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(phase16_sharded_rank, world)
+        sec = time.perf_counter() - t0
+        for r, out in enumerate(ranks):
+            shown = {k: v for k, v in out.items() if k != "train"}
+            print(f"phase 16 D={world} rank {r} ({sec:.1f} s for the "
+                  f"group): {json.dumps(shown)}", flush=True)
+            assert out["backend"] == "gloo", out["backend"]
+            for name in ("tile_interleaved", "tile_contiguous", "primitive"):
+                case = out[name]
+                assert not any(v for k, v in case["stats"].items()
+                               if k.startswith("overflow")), (name, case)
+                assert case["image_err"] <= SHARD_IMAGE_ATOL, (name, case)
+                assert case["grad"]["within_tol"], (name, case)
+                assert min(case["launches"][k] for k in PATH_KERNELS) > 0, (
+                    name, case)
+                assert not any(case["plain_calls"].values()), (name, case)
+        res[f"D{world}"] = ranks
+    train = [out["train"] for out in res["D4"]]
+    for r, out in enumerate(train):
+        print(f"phase 16 (2, 2) train step trained_116k {WIDTH}x{HEIGHT}, "
+              f"{TRAIN_VIEWS} orbit views, 2 a data rank, rank {r}: "
+              f"{json.dumps(out)}", flush=True)
+        assert out["losses"] == train[0]["losses"], "ranks disagree"
+        assert out["losses"][-1] < out["losses"][0], out["losses"]
+        assert min(out["launches"][k] for k in PATH_KERNELS) > 0, out
+        assert not any(out["plain_calls"].values()), out
+
+    t0 = time.perf_counter()
+    (nccl,) = spawn_ranks(phase16_nccl_rank, 1)
+    print(f"phase 16 one NCCL rank ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(nccl)}", flush=True)
+    assert nccl["backend"] == "nccl" and nccl["image_bit_equal"]
+    assert nccl["tile"]["grad"]["within_tol"], nccl["tile"]
+    assert min(nccl["tile"]["launches"][k] for k in PATH_KERNELS) > 0
+    assert math.isclose(*nccl["train_loss"], rel_tol=1e-6), nccl
+    assert all(g["within_tol"] for g in nccl["train_grads"].values()), nccl
+    res["nccl"] = nccl
+
+    coord = f"localhost:{free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "gsrast_tpu_torch.diag.multihost_smoke",
+         "--coord", coord, "--nprocs", "2", "--rank", str(r)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT) for r in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=RANK_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    sums = [line for out in outs for line in out.splitlines()
+            if line.startswith("MULTIHOST_OK")]
+    print(f"phase 16 multihost_smoke, 2 processes through --dist "
+          f"({time.perf_counter() - t0:.1f} s): "
+          f"{' | '.join(ln for out in outs for ln in out.splitlines())}",
+          flush=True)
+    assert all(p.returncode == 0 for p in procs), outs
+    assert len(sums) == 2 and sums[0] == sums[1], sums
     return res
 
 
@@ -1384,6 +1932,12 @@ def main() -> int:
     phase_bench(dev)
     print(f"phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- phase 16: the sharded path ----------------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sharded = phase_sharded(dev)
+    print(f"phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     b116 = bwd["trained_116k"]
     rows_full, tiles_full = int(full_starts[-1]) // 8, t
     print(json.dumps({"kernels": [{
@@ -1403,6 +1957,7 @@ def main() -> int:
         "max_abs_err": cmp116["max_abs_err"], "ms": ms_k, "plain_ms": ms_p,
         "bound_ms": work116["fwd_bound_ms"],
         "bound_by": work116["fwd_bound_by"], "library_ms": None,
+        "local_tiles": sharded["local_tiles"]["blend_forward"],
     }, {
         "name": "blend_backward", "route": "cuda",
         "source": "gsrast_tpu_torch/csrc/blend_backward.cu",
@@ -1412,6 +1967,7 @@ def main() -> int:
         "plain_ms": b116["plain_ms"],
         "bound_ms": b116["work"]["bwd_bound_ms"],
         "bound_by": b116["work"]["bwd_bound_by"], "library_ms": None,
+        "local_tiles": sharded["local_tiles"]["blend_backward"],
     }] + [{
         "name": f"bisect_{name}", "route": "cuda",
         "source": "gsrast_tpu_torch/csrc/bisect_bwd.cu",

@@ -102,10 +102,10 @@ def load() -> Library:
     fn.argtypes = [vp, i32, vp, vp]
     fn.restype = ctypes.c_int
     fn = lib.gsrast_blend_forward
-    fn.argtypes = [vp, i64, vp, vp, *[i32] * 4, f32, f32, f32, vp, vp, vp, vp]
+    fn.argtypes = [vp, i64, vp, vp, *[i32] * 6, f32, f32, f32, vp, vp, vp, vp]
     fn.restype = ctypes.c_int
     fn = lib.gsrast_blend_backward
-    fn.argtypes = [vp, i64, vp, vp, *[i32] * 4, f32, f32, *[vp] * 6]
+    fn.argtypes = [vp, i64, vp, vp, *[i32] * 6, f32, f32, *[vp] * 6]
     fn.restype = ctypes.c_int
     for name in ("a", "b", "c"):
         fn = getattr(lib, f"gsrast_bisect_{name}")

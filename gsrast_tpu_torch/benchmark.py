@@ -38,8 +38,10 @@ def bench_config(backend: str) -> cfg.RenderConfig:
     """The benchmark's base RenderConfig: 16x32 tiles, the reference's pick
     from its sweep on the TPU (`diag/tile_sweep.py` sweeps the card). The
     tier plan is not fixed here: every bench derives it from the scene with
-    `auto_render_config`, as `render` and `train` do."""
-    return cfg.RenderConfig(backend=backend, tile_h=16, tile_w=32)
+    `auto_render_config`, as `render` and `train` do. Its
+    intersect_capacity_factor is the reference bench's, 5.0."""
+    return cfg.RenderConfig(backend=backend, tile_h=16, tile_w=32,
+                            intersect_capacity_factor=5.0)
 
 
 def bench_scene_camera(n: int, width: int, height: int, sh: int = 3,

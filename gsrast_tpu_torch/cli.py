@@ -8,9 +8,12 @@ the scene and camera reports (and one Gaussian's render state), `pose`
 keeps named cameras in the pose store, which `render`, `info` and `train`
 read with `--pose NAME [--store PATH]`. `bench` times the benchmark step
 (`benchmark.py`) and prints its scene statistics, its stage table and one
-JSON line. `train --dist` exits with an error. Every command runs on
-`--device cuda` unless `--device cpu` is passed; without a card, cuda
-exits with an error rather than running on the CPU.
+JSON line. Every command runs on `--device cuda` unless `--device cpu` is
+passed; without a card, cuda exits with an error rather than running on the
+CPU. `--dist COORD:PORT,NPROCS,RANK` on every command joins a multi-process
+run before anything else (`parallel.mesh.initialize_distributed`); as in
+the reference it only bootstraps: the commands do not shard by themselves
+(`parallel.sharded` does, and `diag/multihost_smoke.py` drives it).
 """
 
 from __future__ import annotations
@@ -25,8 +28,6 @@ import torch
 from . import config as cfg
 
 PORTED = ("render", "info", "pose", "train", "make-dataset", "bench")
-# Reference `train` options this port does not serve yet: multi-host runs.
-TRAIN_NOT_PORTED = ("--dist",)
 MODES = ("gaussians", "ellipsoids", "pointcloud")
 
 
@@ -43,6 +44,31 @@ def _add_device(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda; cpu runs the "
                          "kernels' plain PyTorch versions)")
+
+
+def _add_dist(ap: argparse.ArgumentParser) -> None:
+    """--dist, the multi-process bootstrap of every command."""
+    ap.add_argument("--dist", default=None, metavar="COORD:PORT,NPROCS,RANK",
+                    help="join a multi-process run (torch.distributed): "
+                         "rank 0's address, the process count, this rank")
+
+
+def _maybe_distributed(args, backend=None):
+    """The multi-process bootstrap of `--dist`, before the first use of the
+    device: the process-group backend is `backend`, or where None the one
+    `initialize_distributed` chooses for `--device`. Returns it (None
+    without --dist or for one process)."""
+    if not getattr(args, "dist", None):
+        return None
+    from .parallel.mesh import initialize_distributed
+
+    try:
+        coord, nprocs, rank = args.dist.rsplit(",", 2)
+        nprocs, rank = int(nprocs), int(rank)
+    except ValueError:
+        sys.exit(f"--dist {args.dist!r}: expected COORD:PORT,NPROCS,RANK")
+    return initialize_distributed(coord, nprocs, rank, backend=backend,
+                                  device=args.device)
 
 
 def _add_view(ap: argparse.ArgumentParser, width=None, height=None) -> None:
@@ -115,8 +141,10 @@ def cmd_render(argv) -> torch.Tensor:
                          "default: 'cuda' on a CUDA device, else 'torch'")
     _add_view(ap, cfg.DEFAULT_WIDTH, cfg.DEFAULT_HEIGHT)
     _add_device(ap)
+    _add_dist(ap)
     args = ap.parse_args(argv)
     device = _device(args.device)
+    _maybe_distributed(args)
 
     from .render.api import render
     from .utils.image import save_png
@@ -154,8 +182,10 @@ def cmd_info(argv) -> dict:
                     help="one Gaussian's screen-space render state")
     _add_view(ap)
     _add_device(ap)
+    _add_dist(ap)
     args = ap.parse_args(argv)
     device = _device(args.device)
+    _maybe_distributed(args)
 
     from .utils.inspector import camera_report, peek_gaussian, scene_report
 
@@ -180,8 +210,10 @@ def cmd_pose(argv):
                     help="scene to frame when saving")
     _add_view(ap)
     _add_device(ap)
+    _add_dist(ap)
     args = ap.parse_args(argv)
     device = _device(args.device)
+    _maybe_distributed(args)
     if args.action != "list" and not args.name:
         sys.exit(f"pose {args.action} requires a NAME")
 
@@ -286,15 +318,12 @@ def cmd_train(argv):
                     help="scene capacity (free slots for densification)")
     _add_view(ap)
     _add_device(ap)
-    for flag in TRAIN_NOT_PORTED:
-        ap.add_argument(flag, default=None, help="not ported yet")
+    _add_dist(ap)
     args = ap.parse_args(argv)
-    for flag in TRAIN_NOT_PORTED:
-        if getattr(args, flag[2:]) is not None:
-            sys.exit(f"train {flag} is not ported yet")
     if args.scene == "colmap" and not args.data:
         sys.exit("--scene colmap requires a COLMAP --data directory")
     device = _device(args.device)
+    _maybe_distributed(args)
 
     import numpy as np
 
@@ -353,8 +382,10 @@ def cmd_make_dataset(argv):
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--sh-degree", type=int, default=3)
     _add_device(ap)
+    _add_dist(ap)
     args = ap.parse_args(argv)
     device = _device(args.device)
+    _maybe_distributed(args)
 
     from .camera import auto_frame
     from .render.api import auto_render_config
@@ -397,8 +428,10 @@ def cmd_bench(argv) -> dict:
     ap.add_argument("--fwd-only", action="store_true",
                     help="time the forward render alone")
     _add_device(ap)
+    _add_dist(ap)
     args = ap.parse_args(argv)
     device = _device(args.device)
+    _maybe_distributed(args)
 
     from . import benchmark
     from .camera import auto_frame
@@ -469,7 +502,8 @@ def main(argv=None):
               "       python -m gsrast_tpu_torch bench [--n N] [--width W] "
               "[--height H] [--scene PLY|random:N] [--backend {cuda,torch}] "
               "[--iters K] [--no-stages] [--small] [--fwd-only] "
-              "[--device DEV]")
+              "[--device DEV]\n"
+              "every command also takes [--dist COORD:PORT,NPROCS,RANK]")
         return
     cmd = argv[0]
     if cmd not in COMMANDS:

@@ -62,6 +62,10 @@ class RenderConfig:
       sh_degree: highest SH degree evaluated.
       background: RGB composited behind the splats with the residual
         transmittance.
+      intersect_capacity_factor: expected intersections per Gaussian; the
+        primitive-sharded path sizes its default send buffers from it
+        (`parallel.sharded.render_primitive_sharded`), as the reference
+        does.
     """
 
     tile_h: int = 8
@@ -70,6 +74,7 @@ class RenderConfig:
     backend: str = "cuda"
     sh_degree: int = 3
     background: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    intersect_capacity_factor: float = 4.0
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)

@@ -4,7 +4,8 @@
 // launched by `blend_backward` at :598). Per tile it replays the forward blend back
 // to front from the saved per-pixel final_t, over the positions the forward blended
 // (index < n_contrib and not skipped), and writes the 9 gradient rows of every
-// intersection:
+// intersection (on local tiles placed as in the forward, tile_origin in
+// blend_common.cuh):
 //     T_before = T_after / (1 - alpha)
 //     u = d_rgb . c,  w = alpha T_before
 //     d alpha = T_before u - (q + final_t d_final_t) / (1 - alpha)
@@ -72,7 +73,8 @@ __global__ void __launch_bounds__(32 * W)
 blend_backward_kernel(const float* __restrict__ feat, long long row_stride,
                       const int* __restrict__ tile_starts,
                       const int* __restrict__ order, int num_tiles, int grid_w,
-                      int tile_h, int tile_w, int wx, float alpha_min,
+                      int row0, int tile_row_step, int tile_h, int tile_w, int wx,
+                      float alpha_min,
                       float alpha_max, const float* __restrict__ d_rgb,
                       const float* __restrict__ d_final_t,
                       const float* __restrict__ final_t,
@@ -102,8 +104,8 @@ blend_backward_kernel(const float* __restrict__ feat, long long row_stride,
   const int lane = threadIdx.x & 31;
   const int start = tile_starts[tile];
   const int seg = tile_starts[tile + 1] - start;
-  const int ox = (tile % grid_w) * tile_w;
-  const int oy = (tile / grid_w) * tile_h;
+  const int2 origin = tile_origin(tile, grid_w, row0, tile_row_step, tile_h, tile_w);
+  const int ox = origin.x, oy = origin.y;
 
   float px[K], py[K], trans[K], ft_dft[K], dr[K], dg[K], db[K], q[K];
   int nc[K];
@@ -254,14 +256,16 @@ blend_backward_kernel(const float* __restrict__ feat, long long row_stride,
 
 // feat: (>= 10, row_stride) float32 rows in (tile, depth) order; tile_starts:
 // (num_tiles + 1,) int32; order: (num_tiles,) int32, the tile of each block
-// (tile_order.cu); d_rgb (num_tiles, 3, P), d_final_t, final_t (num_tiles, P)
+// (tile_order.cu); the tiles are local, placed by row0 and tile_row_step as in
+// gsrast_blend_forward; d_rgb (num_tiles, 3, P), d_final_t, final_t (num_tiles, P)
 // float32; n_contrib (num_tiles, P) int32. d_feat: (>= 10, row_stride) float32, every
 // element of rows 0:10 written (0 outside the blended positions). Runs on `stream`
 // and does not synchronise; returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a tile shape the kernel does not take (blend_common.cuh).
 extern "C" int gsrast_blend_backward(const float* feat, long long row_stride,
                                      const int* tile_starts, const int* order,
-                                     int num_tiles, int grid_w, int tile_h, int tile_w,
+                                     int num_tiles, int grid_w, int row0,
+                                     int tile_row_step, int tile_h, int tile_w,
                                      float alpha_min, float alpha_max,
                                      const float* d_rgb, const float* d_final_t,
                                      const float* final_t, const int* n_contrib,
@@ -275,8 +279,9 @@ extern "C" int gsrast_blend_backward(const float* feat, long long row_stride,
 #define GSRAST_LAUNCH(W)                                                             \
   case W:                                                                            \
     blend_backward_kernel<W><<<num_tiles + kTailBlocks, 32 * W, 0, s>>>(             \
-        feat, row_stride, tile_starts, order, num_tiles, grid_w, tile_h, tile_w, wx, \
-        alpha_min, alpha_max, d_rgb, d_final_t, final_t, n_contrib, d_feat);         \
+        feat, row_stride, tile_starts, order, num_tiles, grid_w, row0, tile_row_step, \
+        tile_h, tile_w, wx, alpha_min, alpha_max, d_rgb, d_final_t, final_t,         \
+        n_contrib, d_feat);                                                          \
     break;
     GSRAST_LAUNCH(2) GSRAST_LAUNCH(4) GSRAST_LAUNCH(8) GSRAST_LAUNCH(16)
 #undef GSRAST_LAUNCH

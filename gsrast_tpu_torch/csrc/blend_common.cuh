@@ -32,6 +32,16 @@ __device__ __forceinline__ int footprint_pixel(int i, int wx, int tile_w) {
   return y * tile_w + x;
 }
 
+// Pixel origin (x, y) of local tile `tile`: its column is tile % grid_w and its
+// global tile row row0 + (tile / grid_w) * tile_row_step. The tile-sharded path
+// blends only the rows a device owns (the reference's tile_map,
+// pallas_blend.py:201-206); the whole grid is row0 = 0, tile_row_step = 1.
+__device__ __forceinline__ int2 tile_origin(int tile, int grid_w, int row0,
+                                           int tile_row_step, int tile_h, int tile_w) {
+  return make_int2((tile % grid_w) * tile_w,
+                   (row0 + (tile / grid_w) * tile_row_step) * tile_h);
+}
+
 // Copies positions [base, base + n) of the 9 feature rows into dst[0, n), one
 // position's 9 floats per kStride-float row, with cp.async, and commits them as
 // one group; the caller waits (__pipeline_wait_prior) and then passes a barrier

@@ -11,7 +11,8 @@
 //     rgb += c alpha T;  T *= 1 - alpha;  n_contrib += 1
 // and writes rgb (T, 3, P), final_t (T, P) and n_contrib (T, P) int32. n_contrib
 // counts every position before saturation, skipped ones included, as the reference
-// does (pallas_blend.py:46-52).
+// does (pallas_blend.py:46-52). The tiles may be a device's local rows of the grid,
+// as the TPU kernel's num_tiles/tile_map place them (tile_origin, blend_common.cuh).
 //
 // What bounds it on this card: one expf plus about 21 flops per (pixel,
 // intersection) that the pixel reaches before it saturates, and on scenes with long
@@ -54,8 +55,9 @@ template <int W>
 __global__ void __launch_bounds__(32 * W)
 blend_forward_kernel(const float* __restrict__ feat, long long row_stride,
                      const int* __restrict__ tile_starts,
-                     const int* __restrict__ order, int grid_w, int tile_h,
-                     int tile_w, int wx, float alpha_min, float alpha_max,
+                     const int* __restrict__ order, int grid_w, int row0,
+                     int tile_row_step, int tile_h, int tile_w, int wx,
+                     float alpha_min, float alpha_max,
                      float t_min, float* __restrict__ rgb, float* __restrict__ final_t,
                      int* __restrict__ n_contrib) {
   constexpr int kThreads = 32 * W;
@@ -66,8 +68,8 @@ blend_forward_kernel(const float* __restrict__ feat, long long row_stride,
   const int num_pix = tile_h * tile_w;
   const int start = tile_starts[tile];
   const int end = tile_starts[tile + 1];
-  const int ox = (tile % grid_w) * tile_w;
-  const int oy = (tile / grid_w) * tile_h;
+  const int2 origin = tile_origin(tile, grid_w, row0, tile_row_step, tile_h, tile_w);
+  const int ox = origin.x, oy = origin.y;
 
   int pix[K], count[K];
   float px[K], py[K], trans[K], acc_r[K], acc_g[K], acc_b[K];
@@ -155,12 +157,16 @@ blend_forward_kernel(const float* __restrict__ feat, long long row_stride,
 
 // feat: (>= 9, row_stride) float32 rows in (tile, depth) order; tile_starts:
 // (num_tiles + 1,) int32; order: (num_tiles,) int32, the tile of each block
-// (tile_order.cu). Outputs are written in full. Runs on `stream` and does not
+// (tile_order.cu). The num_tiles tiles are local: whole rows of grid_w tiles,
+// local tile t covering the pixels of global tile row row0 + (t / grid_w) *
+// tile_row_step, column t % grid_w (the tile-sharded path; 0 and 1 for the whole
+// grid). Outputs are written in full. Runs on `stream` and does not
 // synchronise; returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
 // for a tile shape the kernel does not take (blend_common.cuh).
 extern "C" int gsrast_blend_forward(const float* feat, long long row_stride,
                                     const int* tile_starts, const int* order,
-                                    int num_tiles, int grid_w, int tile_h, int tile_w,
+                                    int num_tiles, int grid_w, int row0,
+                                    int tile_row_step, int tile_h, int tile_w,
                                     float alpha_min, float alpha_max, float t_min,
                                     float* rgb, float* final_t, int* n_contrib,
                                     void* stream) {
@@ -174,8 +180,8 @@ extern "C" int gsrast_blend_forward(const float* feat, long long row_stride,
 #define GSRAST_LAUNCH(W)                                                              \
   case W:                                                                             \
     blend_forward_kernel<W><<<num_tiles, 32 * W, 0, s>>>(                             \
-        feat, row_stride, tile_starts, order, grid_w, tile_h, tile_w, wx, alpha_min,  \
-        alpha_max, t_min, rgb, final_t, n_contrib);                                   \
+        feat, row_stride, tile_starts, order, grid_w, row0, tile_row_step, tile_h,    \
+        tile_w, wx, alpha_min, alpha_max, t_min, rgb, final_t, n_contrib);            \
     break;
     GSRAST_LAUNCH(4) GSRAST_LAUNCH(8) GSRAST_LAUNCH(16) GSRAST_LAUNCH(32)
 #undef GSRAST_LAUNCH

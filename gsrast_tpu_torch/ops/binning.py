@@ -1,7 +1,9 @@
 """Tile planning: the multi-tier slot grid of (tile, depth) keys.
 
-Single-device port of the reference's planner (`gsrast_tpu/ops/binning.py`:
-`owned_row_range`, `tier_dims`, `auto_tiers`, `plan_tiers`). Every visible
+Port of the reference's planner (`gsrast_tpu/ops/binning.py`:
+`owned_row_range`, `tier_dims`, `shard_tiers`, `auto_tiers`, `plan_tiers`),
+with its row-local and routed modes for the sharded paths (`parallel/`).
+Every visible
 Gaussian is enumerated over the tiles of its rectangle on a slot grid sized
 near the true intersection count: Gaussians are ranked by tile count
 (descending), and tier j gives the top B_j of them slots for tile ordinals
@@ -77,6 +79,35 @@ def tier_dims(n: int, tiers) -> tuple:
     return tuple(dims), off
 
 
+def shard_tiers(tiers, n_dev: int, headroom: float = 2.0) -> tuple:
+    """Per-device tier spec for tile sharding, the reference's: with
+    interleaved row ownership each device owns ~1/D of every Gaussian's tile
+    rows, so tier widths divide by D (ceil; the last tier keeps `headroom`
+    for row-quantization skew, at most its global k) and budget fractions
+    keep their global values. Tier 0 keeps a full budget (frac >= 1):
+    nearly every visible Gaussian still owns a tile on every device.
+    Tiers that collapse to the same k merge, keeping the earlier frac; a
+    frac above its predecessor's (from the second tier on) is lowered to
+    it. Drops are counted by `plan_tiers`, never silent."""
+    if n_dev <= 1:
+        return tuple(tiers)
+    out = []
+    for i, (k, f) in enumerate(tiers):
+        kd = -(-k // n_dev)
+        if i == len(tiers) - 1:
+            kd = max(kd, min(k, int(-(-k * headroom // n_dev))))
+        if i == 0:
+            f = max(f, 1.0)
+        if not out or out[-1][0] < kd:
+            out.append((kd, f))
+    fixed = []
+    for k, f in out:
+        if fixed and f > fixed[-1][1] and len(fixed) > 1:
+            f = fixed[-1][1]
+        fixed.append((k, f))
+    return tuple(fixed)
+
+
 def auto_tiers(counts, margin: float = 1.12, k0_max: int = 4,
                tier_penalty: float = 0.08):
     """A near-minimal tier spec for a scene's per-Gaussian tile counts
@@ -111,10 +142,30 @@ def auto_tiers(counts, margin: float = 1.12, k0_max: int = 4,
     return tuple((int(k), round(float(f), 4)) for k, f in tiers)
 
 
+def route_bits(dest_rows: int, grid_w: int, n_dest: int) -> int:
+    """Bits of the local tile id in a routed plan's key `dest << bits |
+    local tile`; raises where n_dest destinations overflow int32 (the
+    sentinel is n_dest << bits)."""
+    bits = (dest_rows * grid_w + 1).bit_length()
+    if (n_dest << bits) >= 1 << 31:
+        raise ValueError(f"{n_dest} devices x {bits} tile bits overflow int32")
+    return bits
+
+
 def plan_tiers(prep: Preprocessed, grid_h: int, grid_w: int,
-               render_cfg: cfg.RenderConfig) -> TierPlan:
-    """The slot grid of (tile, depth) keys for `render_cfg.tiers` over the
-    whole tile grid.
+               render_cfg: cfg.RenderConfig, num_local_rows: int | None = None,
+               row0: int = 0, row_stride: int = 1, dest_rows: int | None = None,
+               n_dest: int = 1) -> TierPlan:
+    """The slot grid of (tile, depth) keys for `render_cfg.tiers`.
+
+    By default over the whole tile grid. Row-local mode (the tile-sharded
+    path): only the owned rows {row0 + r * row_stride : r < num_local_rows}
+    are enumerated, and tile ids are local (r * grid_w + x; the sentinel is
+    num_local_rows * grid_w). Routed mode (the primitive-sharded path,
+    `dest_rows`/`n_dest`): the whole grid, each key the route key
+    `(gy // dest_rows) << route_bits | local tile on that device` of
+    contiguous ownership, `dest_rows` rows a device; the sentinel is
+    `n_dest << route_bits`.
 
     The reference floors k / rect_width through a float32 reciprocal, which
     is exact only while k_last * grid_w < 4e6; this port divides integers
@@ -123,20 +174,31 @@ def plan_tiers(prep: Preprocessed, grid_h: int, grid_w: int,
     tiers = render_cfg.tiers
     if not tiers:
         raise ValueError("plan_tiers requires render_cfg.tiers")
+    if dest_rows is not None:
+        if num_local_rows not in (None, grid_h) or row_stride != 1:
+            raise ValueError("routed mode enumerates the whole grid")
+        ltile_bits = route_bits(dest_rows, grid_w, n_dest)
     if tiers[-1][0] * grid_w >= 4_000_000:
         raise ValueError(
             f"k_last={tiers[-1][0]} x grid_w={grid_w} exceeds the bound the "
             "reference planner is exact under; use wider tiles")
     n = prep.depth.shape[0]
     device = prep.depth.device
-    num_tiles = grid_h * grid_w
-    sentinel = num_tiles
+    if num_local_rows is None:
+        num_local_rows, row0 = grid_h, 0
+    num_tiles = num_local_rows * grid_w
+    sentinel = num_tiles if dest_rows is None else n_dest << ltile_bits
     k_last = tiers[-1][0]
     i32 = torch.int32
 
     rect = prep.rect
-    counts_full, y0, rw = tile_counts(prep, grid_h)
+    rw = torch.clamp(rect.x_max - rect.x_min, min=0)
     rw_safe = torch.clamp(rw, min=1)
+    # Owned tile rows only; rho0 is the first owned local row.
+    y0, nrows = owned_row_range(rect.y_min, rect.y_max, row0, row_stride,
+                                num_local_rows)
+    rho0 = (y0 - row0) // row_stride
+    counts_full = torch.where(prep.radius > 0, nrows * rw, 0).to(i32)
     counts = torch.clamp(counts_full, max=k_last)
     depth_q = projection.depth_order_key(prep.depth)
 
@@ -155,7 +217,7 @@ def plan_tiers(prep: Preprocessed, grid_h: int, grid_w: int,
     order_l = torch.sort(-counts, stable=True).indices
     order = order_l.to(i32)
     r_xmin, r_rw, r_rho0, r_counts, r_depthq, r_mx, r_my, r_lam, r_thr = (
-        x[order_l] for x in (rect.x_min, rw_safe, y0, counts, depth_q,
+        x[order_l] for x in (rect.x_min, rw_safe, rho0, counts, depth_q,
                            prep.mean2d[..., 0], prep.mean2d[..., 1],
                            lam_min, cull_thresh))
 
@@ -171,8 +233,15 @@ def plan_tiers(prep: Preprocessed, grid_h: int, grid_w: int,
         rw_j = r_rw[None, :b_j]
         ry = ks // rw_j
         rx = ks - ry * rw_j
-        gy = r_rho0[None, :b_j] + ry
+        ly = r_rho0[None, :b_j] + ry  # local tile row
+        gy = row0 + ly * row_stride   # global tile row
         gx = r_xmin[None, :b_j] + rx
+        if dest_rows is None:
+            local = ly * grid_w + gx
+        else:
+            dest = gy // dest_rows
+            local = (dest << ltile_bits) | ((gy - dest * dest_rows) * grid_w
+                                            + gx)
         valid = ks < r_counts[None, :b_j]
         if j > 0:
             px_lo = gx.to(torch.float32) * tw_px
@@ -189,7 +258,7 @@ def plan_tiers(prep: Preprocessed, grid_h: int, grid_w: int,
                 r_thr[None, :b_j])
             granted_k = torch.where((rank < b_j) & (r_counts > k_lo),
                                     k_j, granted_k).to(i32)
-        tkeys.append(torch.where(valid, gy * grid_w + gx, sentinel)
+        tkeys.append(torch.where(valid, local, sentinel)
                      .to(i32).reshape(-1))
         gausses.append(order[None, :b_j].expand(w_j, b_j).reshape(-1))
         k_lo = k_j

@@ -9,6 +9,13 @@ pixels in row-major order: rgb (T, 3, P), final_t (T, P) and n_contrib
 (T, P) int32, the reference's `_blend` outputs (gsrast_tpu
 `render/pallas_pipeline.py`) without the TPU's row padding.
 
+The tiles are the whole grid, or (the tile-sharded path, `parallel/`) a
+device's `num_tiles` local tiles, whole rows of `grid_w`: local tile t covers
+the pixels of global tile row `tile_map[0] + (t // grid_w) * tile_map[1]`,
+column `t % grid_w`, the reference's `num_tiles`/`tile_map`
+(`pallas_blend.py:201-206`). `tile_starts`, `tile_order` and row 9 of `feat`
+index the local tiles; only the pixels' origin moves.
+
 Blend semantics (the reference's):
   power = -1/2 (A dx^2 + C dy^2) - B dx dy        (dx = mean - pixel)
   alpha = min(ALPHA_MAX, opacity e^power); skipped (alpha = 0) when
@@ -70,6 +77,7 @@ ORDER_BUCKET_POSITIONS = 32
 PLAIN_CHUNK_ELEMENTS = 1 << 24
 
 BlendOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+WHOLE_GRID = (0, 1)  # tile_map of the whole grid: row0 0, row step 1
 
 
 class Footprint(NamedTuple):
@@ -176,6 +184,30 @@ def _check_inputs(feat: torch.Tensor, tile_starts: torch.Tensor,
         raise ValueError("feat and tile_starts must share a device")
 
 
+def local_tiles(grid_h: int, grid_w: int, num_tiles, tile_map) -> tuple:
+    """(num_tiles, row0, tile_row_step) checked: num_tiles (the whole grid
+    where None) whole rows of grid_w tiles, row0 >= 0 and a row step >= 1.
+    A local row past grid_h is allowed: its tiles lie outside the image,
+    their segments are empty, and reassembly drops them."""
+    num_tiles = grid_h * grid_w if num_tiles is None else int(num_tiles)
+    row0, step = (int(v) for v in tile_map)
+    if num_tiles < 0 or num_tiles % grid_w or row0 < 0 or step < 1:
+        raise ValueError(
+            f"local tiles must be whole rows of grid_w={grid_w} tiles with "
+            f"tile_map (row0 >= 0, row step >= 1), got num_tiles={num_tiles}"
+            f", tile_map={tuple(tile_map)}")
+    return num_tiles, row0, step
+
+
+def _pixel_origins(t0: int, t1: int, grid_w: int, tile_h: int, tile_w: int,
+                   row0: int, step: int, device) -> tuple:
+    """(x, y) pixel origins, each (t1 - t0, 1), of local tiles [t0, t1)."""
+    tids = torch.arange(t0, t1, device=device)
+    ox = (tids % grid_w) * tile_w
+    oy = (row0 + (tids // grid_w) * step) * tile_h
+    return ox[:, None], oy[:, None]
+
+
 def _check_pixel_inputs(num_tiles: int, p: int, **tensors) -> None:
     """Per-pixel inputs of the backward: d_rgb (T, 3, P) float32; d_final_t
     and final_t (T, P) float32; n_contrib (T, P) int32."""
@@ -203,32 +235,39 @@ def _dispatch(backend: str, device: torch.device, cuda_fn, torch_fn):
 
 def blend_forward(feat: torch.Tensor, tile_starts: torch.Tensor, grid_h: int,
                   grid_w: int, tile_h: int, tile_w: int, backend: str = "cuda",
-                  order=None) -> BlendOut:
+                  order=None, num_tiles=None,
+                  tile_map=WHOLE_GRID) -> BlendOut:
     """Blend every tile with the kernel or the plain version (`_dispatch`);
-    `order` is the kernel's launch order (`blend_forward_cuda`)."""
+    `order` is the kernel's launch order (`blend_forward_cuda`);
+    `num_tiles`/`tile_map`: the local tiles (module docstring)."""
     fn = _dispatch(backend, feat.device,
                    functools.partial(blend_forward_cuda, order=order),
                    blend_forward_torch)
-    return fn(feat, tile_starts, grid_h, grid_w, tile_h, tile_w)
+    return fn(feat, tile_starts, grid_h, grid_w, tile_h, tile_w,
+              num_tiles=num_tiles, tile_map=tile_map)
 
 
 def blend_backward(feat: torch.Tensor, tile_starts: torch.Tensor,
                    d_rgb: torch.Tensor, d_final_t: torch.Tensor,
                    final_t: torch.Tensor, n_contrib: torch.Tensor,
                    grid_h: int, grid_w: int, tile_h: int, tile_w: int,
-                   backend: str = "cuda", order=None) -> torch.Tensor:
+                   backend: str = "cuda", order=None, num_tiles=None,
+                   tile_map=WHOLE_GRID) -> torch.Tensor:
     """d_feat (10, S) with the kernel or the plain version (`_dispatch`);
-    `order` is the kernel's launch order (`blend_backward_cuda`)."""
+    `order` is the kernel's launch order (`blend_backward_cuda`);
+    `num_tiles`/`tile_map`: the local tiles (module docstring)."""
     fn = _dispatch(backend, feat.device,
                    functools.partial(blend_backward_cuda, order=order),
                    blend_backward_torch)
     return fn(feat, tile_starts, d_rgb, d_final_t, final_t, n_contrib,
-              grid_h, grid_w, tile_h, tile_w)
+              grid_h, grid_w, tile_h, tile_w, num_tiles=num_tiles,
+              tile_map=tile_map)
 
 
 class BlendFunction(torch.autograd.Function):
     """The blend as an autograd node: (feat, tile_starts, grid_h, grid_w,
-    tile_h, tile_w, backend) -> (rgb, final_t, n_contrib). The backward
+    tile_h, tile_w, backend[, num_tiles, tile_map]) -> (rgb, final_t,
+    n_contrib), on the whole grid or on local tiles. The backward
     runs the same backend's backward on the saved final_t and n_contrib, so
     its gate is the forward's; n_contrib is not differentiable. Autograd
     hands an output the loss does not use a zero cotangent (materialized
@@ -237,34 +276,41 @@ class BlendFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feat, tile_starts, grid_h, grid_w, tile_h, tile_w,
-                backend):
+                backend, num_tiles=None, tile_map=WHOLE_GRID):
         order = None
         if backend == "cuda" and tile_starts.device.type == "cuda":
             order = tile_order_cuda(tile_starts)
+        local = dict(num_tiles=num_tiles, tile_map=tile_map)
         rgb, final_t, n_contrib = blend_forward(
-            feat, tile_starts, grid_h, grid_w, tile_h, tile_w, backend, order)
+            feat, tile_starts, grid_h, grid_w, tile_h, tile_w, backend, order,
+            **local)
         ctx.save_for_backward(feat, tile_starts, final_t, n_contrib)
         ctx.mark_non_differentiable(n_contrib)
         ctx.geometry = (grid_h, grid_w, tile_h, tile_w, backend)
         ctx.order = order
+        ctx.local = local
         return rgb, final_t, n_contrib
 
     @staticmethod
     def backward(ctx, d_rgb, d_final_t, _d_n_contrib):
         feat, tile_starts, final_t, n_contrib = ctx.saved_tensors
         d_feat = blend_backward(feat, tile_starts, d_rgb, d_final_t, final_t,
-                                n_contrib, *ctx.geometry, order=ctx.order)
-        return d_feat, None, None, None, None, None, None
+                                n_contrib, *ctx.geometry, order=ctx.order,
+                                **ctx.local)
+        return d_feat, None, None, None, None, None, None, None, None
 
 
 def blend_forward_cuda(feat: torch.Tensor, tile_starts: torch.Tensor,
                        grid_h: int, grid_w: int, tile_h: int, tile_w: int,
-                       order=None) -> BlendOut:
+                       order=None, num_tiles=None,
+                       tile_map=WHOLE_GRID) -> BlendOut:
     """The hand-written kernel (`csrc/blend_forward.cu`) on CUDA tensors,
     its blocks taking the tiles in `order` ((T,) int32; `tile_order_cuda`
-    where None), which changes no output. Runs on the current stream
-    without synchronising."""
-    num_tiles, p = grid_h * grid_w, tile_h * tile_w
+    where None), which changes no output; `num_tiles`/`tile_map`: the local
+    tiles (module docstring). Runs on the current stream without
+    synchronising."""
+    num_tiles, row0, step = local_tiles(grid_h, grid_w, num_tiles, tile_map)
+    p = tile_h * tile_w
     _check_inputs(feat, tile_starts, num_tiles)
     if feat.device.type != "cuda":
         raise ValueError(f"blend_forward_cuda needs CUDA tensors, got "
@@ -284,8 +330,8 @@ def blend_forward_cuda(feat: torch.Tensor, tile_starts: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(feat.data_ptr(), feat.shape[1], tile_starts.data_ptr(),
-                  order.data_ptr(), num_tiles, grid_w, tile_h, tile_w,
-                  cfg.ALPHA_MIN, cfg.ALPHA_MAX, cfg.TRANSMITTANCE_MIN,
+                  order.data_ptr(), num_tiles, grid_w, row0, step, tile_h,
+                  tile_w, cfg.ALPHA_MIN, cfg.ALPHA_MAX, cfg.TRANSMITTANCE_MIN,
                   rgb.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
                   stream)
     _kernels.launch_counts["blend_forward"] += 1
@@ -313,12 +359,15 @@ def _tile_chunks(counts, p: int,
 
 def blend_forward_torch(feat: torch.Tensor, tile_starts: torch.Tensor,
                         grid_h: int, grid_w: int, tile_h: int, tile_w: int,
-                        budget: int = PLAIN_CHUNK_ELEMENTS) -> BlendOut:
+                        budget: int = PLAIN_CHUNK_ELEMENTS, num_tiles=None,
+                        tile_map=WHOLE_GRID) -> BlendOut:
     """The plain version, on any device. Tiles run in chunks padded to the
     chunk's longest true segment (no cap on segment length); a segment
     longer than the budget allows is walked in blocks of positions with the
-    transmittance carried between blocks."""
-    num_tiles, p = grid_h * grid_w, tile_h * tile_w
+    transmittance carried between blocks. `num_tiles`/`tile_map`: the local
+    tiles (module docstring)."""
+    num_tiles, row0, step = local_tiles(grid_h, grid_w, num_tiles, tile_map)
+    p = tile_h * tile_w
     _check_inputs(feat, tile_starts, num_tiles)
     dev = feat.device
     s = feat.shape[1]
@@ -335,9 +384,9 @@ def blend_forward_torch(feat: torch.Tensor, tile_starts: torch.Tensor,
         if kmax == 0:
             continue
         nt = t1 - t0
-        tids = torch.arange(t0, t1, device=dev)
-        px = ((tids % grid_w) * tile_w)[:, None] + pcol
-        py = ((tids // grid_w) * tile_h)[:, None] + prow
+        ox, oy = _pixel_origins(t0, t1, grid_w, tile_h, tile_w, row0, step,
+                                dev)
+        px, py = ox + pcol, oy + prow
         px, py = px[:, None, :].float(), py[:, None, :].float()  # (nt, 1, P)
         kb = max(1, min(kmax, budget // (nt * p)))
         trans = torch.ones((nt, 1, p), dtype=torch.float32, device=dev)
@@ -379,14 +428,17 @@ def blend_backward_cuda(feat: torch.Tensor, tile_starts: torch.Tensor,
                         d_rgb: torch.Tensor, d_final_t: torch.Tensor,
                         final_t: torch.Tensor, n_contrib: torch.Tensor,
                         grid_h: int, grid_w: int, tile_h: int, tile_w: int,
-                        order=None) -> torch.Tensor:
+                        order=None, num_tiles=None,
+                        tile_map=WHOLE_GRID) -> torch.Tensor:
     """The hand-written kernel (`csrc/blend_backward.cu`) on CUDA tensors:
     d_feat (10, S), zero outside the applied positions, every element
     written by the kernel, its blocks taking the tiles in `order` as in
-    `blend_forward_cuda`. Runs on the current stream without
-    synchronising; its sums run in a fixed order, so two launches on the
-    same inputs give identical bits, whatever the order."""
-    num_tiles, p = grid_h * grid_w, tile_h * tile_w
+    `blend_forward_cuda`, on the local tiles `num_tiles`/`tile_map`. Runs
+    on the current stream without synchronising; its sums run in a fixed
+    order, so two launches on the same inputs give identical bits, whatever
+    the order."""
+    num_tiles, row0, step = local_tiles(grid_h, grid_w, num_tiles, tile_map)
+    p = tile_h * tile_w
     _check_inputs(feat, tile_starts, num_tiles)
     _check_pixel_inputs(num_tiles, p, d_rgb=d_rgb, d_final_t=d_final_t,
                         final_t=final_t, n_contrib=n_contrib)
@@ -407,8 +459,8 @@ def blend_backward_cuda(feat: torch.Tensor, tile_starts: torch.Tensor,
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream(feat.device).cuda_stream
         code = fn(feat.data_ptr(), feat.shape[1], tile_starts.data_ptr(),
-                  order.data_ptr(), num_tiles, grid_w, tile_h, tile_w,
-                  cfg.ALPHA_MIN, cfg.ALPHA_MAX, d_rgb.data_ptr(),
+                  order.data_ptr(), num_tiles, grid_w, row0, step, tile_h,
+                  tile_w, cfg.ALPHA_MIN, cfg.ALPHA_MAX, d_rgb.data_ptr(),
                   d_final_t.data_ptr(), final_t.data_ptr(),
                   n_contrib.data_ptr(), d_feat.data_ptr(), stream)
     _kernels.launch_counts["blend_backward"] += 1
@@ -422,13 +474,16 @@ def blend_backward_torch(feat: torch.Tensor, tile_starts: torch.Tensor,
                          d_rgb: torch.Tensor, d_final_t: torch.Tensor,
                          final_t: torch.Tensor, n_contrib: torch.Tensor,
                          grid_h: int, grid_w: int, tile_h: int, tile_w: int,
-                         budget: int = PLAIN_CHUNK_ELEMENTS) -> torch.Tensor:
+                         budget: int = PLAIN_CHUNK_ELEMENTS, num_tiles=None,
+                         tile_map=WHOLE_GRID) -> torch.Tensor:
     """The plain backward, on any device: d_feat (10, S). Tiles run in
     chunks as in `blend_forward_torch`, over each segment's first
     max(n_contrib) positions only (later ones carry no gradient); a segment
     longer than the budget allows is walked in blocks of positions, newest
-    block first, with T and the suffix sum of u w carried between blocks."""
-    num_tiles, p = grid_h * grid_w, tile_h * tile_w
+    block first, with T and the suffix sum of u w carried between blocks.
+    `num_tiles`/`tile_map`: the local tiles (module docstring)."""
+    num_tiles, row0, step = local_tiles(grid_h, grid_w, num_tiles, tile_map)
+    p = tile_h * tile_w
     _check_inputs(feat, tile_starts, num_tiles)
     _check_pixel_inputs(num_tiles, p, d_rgb=d_rgb, d_final_t=d_final_t,
                         final_t=final_t, n_contrib=n_contrib)
@@ -447,9 +502,9 @@ def blend_backward_torch(feat: torch.Tensor, tile_starts: torch.Tensor,
         if kmax == 0:
             continue
         nt = t1 - t0
-        tids = torch.arange(t0, t1, device=dev)
-        px = ((tids % grid_w) * tile_w)[:, None] + pcol
-        py = ((tids // grid_w) * tile_h)[:, None] + prow
+        ox, oy = _pixel_origins(t0, t1, grid_w, tile_h, tile_w, row0, step,
+                                dev)
+        px, py = ox + pcol, oy + prow
         px, py = px[:, None, :].float(), py[:, None, :].float()  # (nt, 1, P)
         kb = max(1, min(kmax, budget // (nt * p)))
         nc = n_contrib[t0:t1, None, :]

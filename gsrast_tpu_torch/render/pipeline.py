@@ -40,6 +40,13 @@ def feature_rows(prep: Preprocessed) -> torch.Tensor:
                       prep.color.T], dim=0)
 
 
+def sort_key(high: torch.Tensor, low: torch.Tensor) -> torch.Tensor:
+    """int64 keys that order (high, low) int32 pairs lexicographically as
+    signed values: (tile, depth bits) for the (tile, depth) sort, whose
+    depth bits order positive depths as the depths."""
+    return (high.long() << 32) | (low.long() + 2**31)
+
+
 def sort_pack(feat_nt: torch.Tensor, plan: binning.TierPlan,
               num_tiles: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Order the plan's slots by (tile, depth) and pack the blend's input.
@@ -53,12 +60,8 @@ def sort_pack(feat_nt: torch.Tensor, plan: binning.TierPlan,
     (exactly zero: the blend backward writes nothing outside the tiles'
     segments) over distinct addresses instead of queueing atomics on
     one."""
-    # The depth bits of culled Gaussians can be negative int32, which would
-    # sign-extend over the tile bits; padded slots carry depth 0. Masking to
-    # the low 32 bits keeps the tile in the high word. Live slots have
-    # depth > 0, where unsigned and signed orders agree.
-    key = (plan.tile_key.long() << 32) | (plan.depth_key.long() & 0xFFFFFFFF)
-    perm = torch.sort(key, stable=True).indices
+    perm = torch.sort(sort_key(plan.tile_key, plan.depth_key),
+                      stable=True).indices
     tile = plan.tile_key[perm]
     gauss = plan.gauss[perm].long()
     slot = torch.arange(gauss.shape[0], device=gauss.device)
@@ -70,6 +73,18 @@ def sort_pack(feat_nt: torch.Tensor, plan: binning.TierPlan,
     tile_starts = torch.searchsorted(tile, queries, side="left",
                                      out_int32=True)
     return feat, tile_starts
+
+
+def pack_sorted_features(feat_t: torch.Tensor,
+                         sorted_tile: torch.Tensor) -> torch.Tensor:
+    """(9, C) per-intersection feature rows already in (tile, depth) order
+    and their (C,) local tile ids -> the blend's (10, C) input: row 9 the
+    tile id as float (structure, no gradient). The counterpart of the
+    reference's `pack_sorted_features` (`pallas_pipeline.py:267-280`)
+    without its zero padding rows; the primitive-sharded path packs the
+    features it receives through the exchange with it."""
+    return torch.cat([feat_t, sorted_tile.detach().to(feat_t.dtype)[None]],
+                     dim=0)
 
 
 def render_tiled(gaussians: ActivatedGaussians, camera: Camera,

@@ -37,6 +37,28 @@ class Dataset:
     def num_frames(self) -> int:
         return self.images.shape[0]
 
+    def batch_cameras(self, idx) -> Camera:
+        """Frames `idx` as one Camera whose tensors have a leading batch
+        dim (the data-parallel train step's batch; `camera_at` takes one
+        back)."""
+        cams = [self.cameras[i] for i in idx]
+        return cams[0].replace(**{
+            f: torch.stack([getattr(c, f) for c in cams])
+            for f in _CAMERA_TENSORS})
+
+    def batch_images(self, idx) -> torch.Tensor:
+        """Images of frames `idx`, (B, H, W, 3)."""
+        return self.images[torch.as_tensor(list(idx), dtype=torch.long,
+                                           device=self.images.device)]
+
+
+_CAMERA_TENSORS = ("view", "fov_x", "fov_y", "znear", "zfar")
+
+
+def camera_at(batch: Camera, i: int) -> Camera:
+    """Camera i of a batched Camera (`Dataset.batch_cameras`)."""
+    return batch.replace(**{f: getattr(batch, f)[i] for f in _CAMERA_TENSORS})
+
 
 def save_dataset(path: str, cameras: List[Camera], images) -> str:
     """Write a dataset directory. `images`: iterable of (H, W, 3) images

@@ -108,3 +108,97 @@ def test_sort_pack_exact(case):
     np.testing.assert_array_equal(t2n(feat)[:, :live],
                                   np.asarray(feat_ref)[:10, :live])
     assert feat.shape == (10, plan.tile_key.shape[0])
+
+
+# The sharded paths' plans: 11 tile rows over D = 4 devices, 3 rows each,
+# so the last device's third local row lies past the grid.
+D = 4
+SHARD_TIERS = ((2, 1.0), (6, 0.5), (12, 0.25))
+
+
+def _shard_setup():
+    ref_scene, _ = scenes(seeded_arrays(5, 180, extent=1.5))
+    jcam, _ = front_camera(128, 88, dist=3.0)
+    jcfg = gs.RenderConfig(tile_h=8, tile_w=16, tiers=SHARD_TIERS)
+    pcfg = gt.RenderConfig(tile_h=8, tile_w=16, tiers=SHARD_TIERS,
+                           backend="torch")
+    p_ref = jax_preprocess(ref_scene.activated(), jcam, jcfg)
+    gh, gw = jcfg.grid_shape(jcam.height, jcam.width)
+    assert (gh, gw) == (11, 8)
+    return jcfg, pcfg, p_ref, gh, gw
+
+
+def _assert_plans_equal(port, ref):
+    for name in ("tile_key", "depth_key", "gauss", "order", "total",
+                 "overflow_tile_cap"):
+        np.testing.assert_array_equal(t2n(getattr(port, name)),
+                                      np.asarray(getattr(ref, name)),
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("interleave", [True, False])
+def test_plan_tiers_row_local_exact(interleave):
+    """Each device's owned rows (interleaved {d, d+4, ...} or contiguous
+    blocks of 3), with the device-scaled tiers of the tile-sharded path:
+    key for key the reference's; every device has work."""
+    jcfg, pcfg, p_ref, gh, gw = _shard_setup()
+    rpd = -(-gh // D)
+    step = D if interleave else 1
+    tiers = binning.shard_tiers(SHARD_TIERS, D if interleave else 1)
+    assert tiers == jax_binning.shard_tiers(SHARD_TIERS,
+                                            D if interleave else 1)
+    jcfg_d, pcfg_d = jcfg.replace(tiers=tiers), pcfg.replace(tiers=tiers)
+    prep = prep_to_torch(p_ref)
+    totals = []
+    for d in range(D):
+        row0 = d if interleave else d * rpd
+        ref = jax_binning.plan_tiers(p_ref, gh, gw, jcfg_d,
+                                     num_local_rows=rpd, row0=row0,
+                                     row_stride=step)
+        port = binning.plan_tiers(prep, gh, gw, pcfg_d, num_local_rows=rpd,
+                                  row0=row0, row_stride=step)
+        _assert_plans_equal(port, ref)
+        assert int(t2n(port.tile_key).max()) == rpd * gw  # the sentinel
+        totals.append(int(port.total))
+    assert min(totals) > 50, totals
+
+
+def test_plan_tiers_routed_exact():
+    """The primitive-sharded route keys (dest << bits | local tile, 3 rows
+    a device of 4): key for key the reference's."""
+    jcfg, pcfg, p_ref, gh, gw = _shard_setup()
+    rpd = -(-gh // D)
+    ref = jax_binning.plan_tiers(p_ref, gh, gw, jcfg, dest_rows=rpd,
+                                 n_dest=D)
+    port = binning.plan_tiers(prep_to_torch(p_ref), gh, gw, pcfg,
+                              dest_rows=rpd, n_dest=D)
+    _assert_plans_equal(port, ref)
+    bits = binning.route_bits(rpd, gw, D)
+    live = t2n(port.tile_key)[t2n(port.gauss) >= 0]
+    assert set(np.unique(live >> bits)) == set(range(D))
+    with pytest.raises(ValueError, match="overflow int32"):
+        binning.route_bits(1 << 20, 1024, 4)
+    with pytest.raises(ValueError, match="whole grid"):
+        binning.plan_tiers(prep_to_torch(p_ref), gh, gw, pcfg,
+                           num_local_rows=2, dest_rows=rpd, n_dest=D)
+
+
+@pytest.mark.parametrize("tiers", [
+    ((2, 1.0), (4, 1.0), (8, 0.5), (32, 0.25)),
+    ((1, 0.9), (3, 0.6), (5, 0.7), (300, 0.01)),
+    ((4, 1.0),),
+])
+@pytest.mark.parametrize("n_dev", [1, 2, 4, 8])
+def test_shard_tiers_matches_reference(tiers, n_dev):
+    """The reference's `TestShardTiers` checks, and the spec itself."""
+    td = binning.shard_tiers(tiers, n_dev)
+    assert td == jax_binning.shard_tiers(tiers, n_dev)
+    ks = [k for k, _ in td]
+    assert ks == sorted(set(ks)) and td[0][1] >= min(1.0, tiers[0][1])
+    if n_dev == 1:
+        assert td == tiers
+    elif n_dev == 8 and tiers[-1][0] > 8:  # TestShardTiers' case
+        assert ks[-1] < tiers[-1][0]  # widths shrink with D
+        assert td[0][1] >= 1.0
+        assert binning.tier_dims(10_000, td)[1] < (
+            binning.tier_dims(10_000, tiers)[1] / 2)

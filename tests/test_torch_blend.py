@@ -16,7 +16,9 @@ from gsrast_tpu_torch.render.blend import (_dispatch, blend_forward,
                                            blend_forward_torch)
 
 from torch_parity import BLEND_CASES as CASES
-from torch_parity import LONG_SEGMENT, TRAINED_SMALL, long_segment_case
+from torch_parity import (LOCAL_ROWS, LOCAL_TILE_MAP, LONG_SEGMENT,
+                          TRAINED_SMALL, long_segment_case, packed_port_local,
+                          packed_reference_local)
 from torch_parity import packed_port as _packed_port
 from torch_parity import packed_reference as _packed
 from torch_parity import t2n, to_reference_layout
@@ -82,6 +84,39 @@ def test_plain_blend_long_segment_matches_pallas():
     assert int((nc[0] > 4 * 256).sum()) > th * tw // 2  # past 4 batches
     assert int(nc[0].max()) < LONG_SEGMENT  # all saturate inside it
     assert int(nc[1].max()) == 0 and float(ft[1].min()) == 1.0  # empty
+
+
+def test_plain_blend_local_tiles_matches_pallas():
+    """Local tiles, rows {1, 3} of a 4-row grid (tile_map (1, 2)), packed by
+    the reference's row-local plan: the plain version against the
+    reference kernel with the same num_tiles/tile_map; the rgb is the whole
+    grid's at those rows."""
+    import jax.numpy as jnp
+    from gsrast_tpu.render import pallas_blend as pb
+
+    feat, starts, gh, gw, th, tw = packed_reference_local()
+    num_tiles = LOCAL_ROWS * gw
+    assert gh == 4 and starts.shape == (num_tiles + 1,)
+    out = np.asarray(pb.blend_forward(
+        feat, starts, gh, gw, th, tw, interpret=True, num_tiles=num_tiles,
+        tile_map=jnp.asarray(LOCAL_TILE_MAP, jnp.int32)))
+    rgb, ft, nc = blend_forward_torch(torch.from_numpy(np.array(feat[:10])),
+                                      torch.from_numpy(np.array(starts)),
+                                      gh, gw, th, tw, num_tiles=num_tiles,
+                                      tile_map=LOCAL_TILE_MAP)
+    np.testing.assert_allclose(t2n(rgb), out[:, pb.OC_R:pb.OC_B + 1],
+                               atol=ATOL)
+    np.testing.assert_allclose(t2n(ft), out[:, pb.OC_FT], atol=ATOL)
+    np.testing.assert_array_equal(t2n(nc), out[:, pb.OC_NC].astype(np.int32))
+    assert int(nc.max()) > 0
+    whole = blend_forward_torch(*packed_port_local("cpu", whole_grid=True))
+    rows = [r * gw + c for r in (1, 3) for c in range(gw)]
+    np.testing.assert_allclose(t2n(rgb), t2n(whole[0][rows]), atol=ATOL)
+    with pytest.raises(ValueError, match="whole rows"):
+        blend_forward_torch(torch.from_numpy(np.array(feat[:10])),
+                            torch.from_numpy(np.array(starts)), gh, gw, th,
+                            tw, num_tiles=num_tiles - 1,
+                            tile_map=LOCAL_TILE_MAP)
 
 
 def test_backend_device_mismatch_raises():
@@ -174,6 +209,26 @@ def test_cuda_kernel_matches_plain(case):
                  ) <= 1e-5
     assert float(torch.where(agree, ft - ft_p, 0.0).abs().max()) <= 1e-5
     assert int(nc.max()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_local_tiles_matches_plain():
+    """The kernel on local tiles (rows {1, 3}, tile_map (1, 2)) against the
+    plain version: the same rules as the whole grid's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    with torch.inference_mode():
+        args = packed_port_local(torch.device("cuda"))
+        local = dict(num_tiles=LOCAL_ROWS * args[3], tile_map=LOCAL_TILE_MAP)
+        rgb, ft, nc = blend_forward_cuda(*args, **local)
+        rgb_p, ft_p, nc_p = blend_forward_torch(*args, **local)
+    torch.cuda.synchronize()
+    agree = nc == nc_p
+    assert float((~agree).float().mean()) <= 1e-4
+    assert float(torch.where(agree[:, None], rgb - rgb_p, 0.0).abs().max()
+                 ) <= 1e-5
+    assert float(torch.where(agree, ft - ft_p, 0.0).abs().max()) <= 1e-5
+    assert int(nc.max()) > 0 and rgb.shape[0] == LOCAL_ROWS * args[3]
 
 
 @pytest.mark.cuda

@@ -16,8 +16,10 @@ from gsrast_tpu_torch.render.blend import (BlendFunction, blend_backward,
                                            blend_backward_torch,
                                            blend_forward_torch)
 
-from torch_parity import (BLEND_CASES, long_segment_case, packed_port,
-                          packed_reference, t2n, to_reference_layout)
+from torch_parity import (BLEND_CASES, LOCAL_ROWS, LOCAL_TILE_MAP,
+                          long_segment_case, packed_port, packed_port_local,
+                          packed_reference, packed_reference_local, t2n,
+                          to_reference_layout)
 
 torch.set_num_threads(2)
 
@@ -123,6 +125,46 @@ def test_plain_backward_long_segment_matches_pallas():
     assert_rows_close(t2n(d_feat)[:, :live], ref[:, :live])
     assert float(d_feat[:, live:].abs().max()) == 0.0
     assert float(d_feat[9].abs().max()) == 0.0
+
+
+def test_plain_backward_local_tiles_matches_pallas():
+    """Local tiles, rows {1, 3} of a 4-row grid (tile_map (1, 2)): the plain
+    backward against the reference kernel with the same num_tiles/tile_map,
+    on the reference forward's final_T and n_contrib; and against autograd
+    through the plain forward on the same local tiles."""
+    import jax.numpy as jnp
+    from gsrast_tpu.render import pallas_blend as pb
+
+    feat, starts, gh, gw, th, tw = packed_reference_local()
+    num_tiles, p = LOCAL_ROWS * gw, th * tw
+    tmap = jnp.asarray(LOCAL_TILE_MAP, jnp.int32)
+    out = pb.blend_forward(feat, starts, gh, gw, th, tw, interpret=True,
+                           num_tiles=num_tiles, tile_map=tmap)
+    ft, nc = out[:, pb.OC_FT], out[:, pb.OC_NC]
+    d_rgb, d_ft = cotangents(num_tiles, p, seed=4)
+    aux = jnp.concatenate(
+        [jnp.asarray(t2n(d_rgb)), jnp.asarray(t2n(d_ft))[:, None],
+         ft[:, None], nc[:, None], jnp.zeros((num_tiles, 2, p))], axis=1)
+    ref = np.asarray(pb.blend_backward(feat, starts, aux, gh, gw, th, tw,
+                                       interpret=True, num_tiles=num_tiles,
+                                       tile_map=tmap))
+    local = dict(num_tiles=num_tiles, tile_map=LOCAL_TILE_MAP)
+    f = torch.from_numpy(np.array(feat[:10]))
+    s = torch.from_numpy(np.array(starts))
+    d_feat = blend_backward_torch(
+        f, s, d_rgb, d_ft, torch.from_numpy(np.array(ft)),
+        torch.from_numpy(np.array(nc).astype(np.int32)), gh, gw, th, tw,
+        **local)
+    live = int(starts[-1])
+    assert_rows_close(t2n(d_feat)[:, :live], ref[:, :live])
+    assert np.abs(ref[:9, :live]).max(axis=1).min() > 0
+    leaf = f.clone().requires_grad_(True)
+    rgb, ft_t, nc_t = blend_forward_torch(leaf, s, gh, gw, th, tw, **local)
+    (grad,) = torch.autograd.grad((rgb * d_rgb).sum() + (ft_t * d_ft).sum(),
+                                  leaf)
+    mine = blend_backward_torch(f, s, d_rgb, d_ft, ft_t.detach(), nc_t, gh,
+                                gw, th, tw, **local)
+    assert_rows_close(t2n(mine), t2n(grad))
 
 
 def test_plain_backward_small_budget_carries_suffix():
@@ -231,6 +273,31 @@ def test_cuda_backward_matches_plain(case):
     plain = blend_backward_torch(*args)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(kernel).all())
+    assert_rows_close(t2n(kernel), t2n(plain), atol=1e-4)
+    live = int(starts[-1])
+    assert float(kernel[:, live:].abs().sum()) == 0.0
+    assert float(kernel[9].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_backward_local_tiles_matches_plain():
+    """The kernel on local tiles (rows {1, 3}, tile_map (1, 2)) against the
+    plain backward, rows 1e-4 of their scale, dead columns exactly 0, and
+    two launches bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda")
+    feat, starts, gh, gw, th, tw = packed_port_local(dev)
+    local = dict(num_tiles=LOCAL_ROWS * gw, tile_map=LOCAL_TILE_MAP)
+    _, ft, nc = blend.blend_forward_cuda(feat, starts, gh, gw, th, tw,
+                                         **local)
+    d_rgb, d_ft = cotangents(LOCAL_ROWS * gw, th * tw, device=dev)
+    args = (feat, starts, d_rgb, d_ft, ft, nc, gh, gw, th, tw)
+    kernel = blend_backward_cuda(*args, **local)
+    again = blend_backward_cuda(*args, **local)
+    plain = blend_backward_torch(*args, **local)
+    torch.cuda.synchronize()
+    assert torch.equal(kernel, again)
     assert_rows_close(t2n(kernel), t2n(plain), atol=1e-4)
     live = int(starts[-1])
     assert float(kernel[:, live:].abs().sum()) == 0.0

@@ -119,10 +119,11 @@ def test_tile_order_longest_bucket_first():
         "inf")
 
 
-def _brute_work(feat, starts, nc, gw, th, tw):
+def _brute_work(feat, starts, nc, gw, th, tw, tile_map=(0, 1)):
     """blend_work's pair and patch counts, by loops over tiles, warps,
     pixels and lanes, and its blended pairs by the gate in numpy float32,
-    one tile at a time."""
+    one tile at a time (local tile t at global row tile_map[0] + (t // gw)
+    * tile_map[1])."""
     f = feat.numpy()
     starts, nc = starts.tolist(), nc.numpy()
     out = dict(fwd_pairs=0, bwd_pairs=0, fwd_blended=0, bwd_blended=0,
@@ -139,7 +140,8 @@ def _brute_work(feat, starts, nc, gw, th, tw):
         if seg:
             c = f[:, starts[t]:starts[t + 1], None]
             dx = c[0] - (cols + (t % gw) * tw).astype(np.float32)
-            dy = c[1] - (rows + (t // gw) * th).astype(np.float32)
+            dy = c[1] - (rows + (tile_map[0] + (t // gw) * tile_map[1])
+                         * th).astype(np.float32)
             power = (np.float32(-0.5) * (c[2] * (dx * dx) + c[4] * (dy * dy))
                      - c[3] * (dx * dy))
             alpha = np.minimum(c[5] * np.exp(power), np.float32(cfg.ALPHA_MAX))
@@ -197,6 +199,28 @@ def test_blend_work_matches_brute_force(case):
                                                           ms_bytes))
         assert work[f"{d}_bound_by"] == ("operations" if ms_flops > ms_bytes
                                          else "bytes")
+
+
+def test_blend_work_local_tiles_matches_brute_force():
+    """blend_work on local tiles (rows {1, 3} of a 4-row grid, the
+    tile-sharded path's blend input): the pixels sit at the global rows."""
+    from torch_parity import LOCAL_ROWS, LOCAL_TILE_MAP, packed_port_local
+
+    feat, starts, gh, gw, th, tw = packed_port_local("cpu")
+    local = dict(num_tiles=LOCAL_ROWS * gw, tile_map=LOCAL_TILE_MAP)
+    _, _, nc = blend_forward_torch(feat, starts, gh, gw, th, tw, **local)
+    work = chip_smoke.blend_work(feat, starts, nc, gw, th, tw,
+                                 tile_map=LOCAL_TILE_MAP)
+    brute = _brute_work(feat, starts, nc, gw, th, tw, LOCAL_TILE_MAP)
+    for key, value in brute.items():
+        if key.endswith("_blended"):
+            assert abs(work[key] - value) <= 2 + 1e-4 * value, key
+            assert value > 0
+        else:
+            assert work[key] == value, key
+    # At the whole grid's pixel rows the same splats blend elsewhere.
+    assert chip_smoke.blended_pairs(feat, starts, nc, gw, th, tw) != (
+        work["fwd_blended"], work["bwd_blended"])
 
 
 def test_blended_pairs_chunks_agree():

@@ -228,3 +228,31 @@ def test_make_dataset_cli(tmp_path, capsys):
             np.testing.assert_allclose(t2n(img), t2n(want),
                                        atol=0.5 / 255 + 1e-6)
     assert float(port.images.std()) > 0.01
+
+
+def test_batch_cameras_and_images_match_reference(tmp_path):
+    """`Dataset.batch_cameras` / `batch_images` against the reference's on
+    the same directory: the stacked camera arrays (through
+    `torch_parity.camera_batch_to_torch`) and images, and `camera_at`
+    taking camera i back."""
+    from torch_parity import camera_batch_to_torch
+
+    cams = dataset.orbit_cameras([0.0, 0.0, 0.0], 2.5, 40, 24, 4)
+    dataset.save_dataset(str(tmp_path), cams, _images(4))
+    port = dataset.load_dataset(str(tmp_path))
+    ref = jax_dataset.load_dataset(str(tmp_path))
+    idx = [2, 0, 3]
+    batch = port.batch_cameras(idx)
+    expect = camera_batch_to_torch(ref.batch_cameras(idx))
+    for f in ("view", "fov_x", "fov_y", "znear", "zfar"):
+        np.testing.assert_array_equal(t2n(getattr(batch, f)),
+                                      t2n(getattr(expect, f)), err_msg=f)
+    assert (batch.width, batch.height) == (40, 24) == (expect.width,
+                                                       expect.height)
+    assert batch.view.shape == (3, 4, 4) and batch.fov_x.shape == (3,)
+    np.testing.assert_array_equal(t2n(port.batch_images(idx)),
+                                  np.asarray(ref.batch_images(idx)))
+    one = dataset.camera_at(batch, 1)
+    assert one.view.shape == (4, 4)
+    np.testing.assert_array_equal(t2n(one.view), t2n(port.cameras[0].view))
+    assert float(one.fov_y) == float(port.cameras[0].fov_y)

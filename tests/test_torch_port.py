@@ -65,7 +65,10 @@ def test_import_leaves_jax_out():
             "gsrast_tpu_torch.apps.render_app, gsrast_tpu_torch.benchmark, "
             "gsrast_tpu_torch.diag.scene_stats, "
             "gsrast_tpu_torch.diag.tile_sweep, "
-            "gsrast_tpu_torch.diag.make_trained_fixture; "
+            "gsrast_tpu_torch.diag.make_trained_fixture, "
+            "gsrast_tpu_torch.parallel.mesh, gsrast_tpu_torch.parallel.comm, "
+            "gsrast_tpu_torch.parallel.sharded, "
+            "gsrast_tpu_torch.diag.multihost_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'gsrast_tpu.')) or m == 'gsrast_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -90,9 +93,52 @@ def test_cli_render_writes_png(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["train", "--scene", TRAINED_SMALL,
                                    "--dist", "localhost:1234,2,0"]])
-def test_cli_unported_exits(argv):
-    with pytest.raises(SystemExit, match="not ported yet"):
+def test_cli_unported_exits(argv, monkeypatch):
+    """`train --dist` is ported: without a card it exits for the card, as
+    every command does, and not as an unported option."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device") as exc:
         cli.main(argv)
+    assert "not ported" not in str(exc.value)
+
+
+DIST = ["--dist", "localhost:29999,4,3", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["render", TRAINED_SMALL], ["info", TRAINED_SMALL], ["pose", "list"],
+    ["train", "--scene", TRAINED_SMALL], ["make-dataset", TRAINED_SMALL,
+                                          "--out", "ds"], ["bench"]])
+def test_cli_dist_parses_on_every_command(argv, monkeypatch):
+    """Every command takes --dist COORD:PORT,NPROCS,RANK and bootstraps
+    with it before any work (`initialize_distributed`, stubbed here)."""
+    seen = []
+
+    def init(coord, nprocs, rank, backend=None, device=None):
+        seen.append((coord, nprocs, rank, backend, device))
+        raise RuntimeError("bootstrapped")
+
+    monkeypatch.setattr("gsrast_tpu_torch.parallel.mesh."
+                        "initialize_distributed", init)
+    with pytest.raises(RuntimeError, match="bootstrapped"):
+        cli.main(argv + DIST)
+    assert seen == [("localhost:29999", 4, 3, None, "cpu")]
+
+
+def test_cli_dist_bootstrap_rules(monkeypatch):
+    """A malformed --dist exits; one process is a no-op; the backend rule:
+    gloo for CPU ranks and for more ranks than cards, NCCL for one rank a
+    card."""
+    from gsrast_tpu_torch.parallel import mesh
+
+    with pytest.raises(SystemExit, match="COORD:PORT,NPROCS,RANK"):
+        cli.main(["pose", "list", "--dist", "localhost:1,two,0", "--device",
+                  "cpu"])
+    assert mesh.initialize_distributed("localhost:1", 1, 0) is None
+    assert mesh.choose_backend("cpu", 4)[0] == "gloo"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert mesh.choose_backend("cuda", 2)[0] == "gloo"
+    assert mesh.choose_backend("cuda", 1)[0] == "nccl"
 
 
 @pytest.mark.parametrize("argv", [["render", TRAINED_SMALL],

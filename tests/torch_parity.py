@@ -7,6 +7,9 @@ flax, which a machine with a GPU may lack, and the `cuda`-marked tests must
 still import this module there."""
 
 import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -86,6 +89,19 @@ def t2n(x) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
+def camera_batch_to_torch(jcams) -> gt.Camera:
+    """The reference's camera batch (`Dataset.batch_cameras`: one Camera
+    pytree whose leaves have a leading batch dim) as the port's batched
+    Camera."""
+    def t(x):
+        return torch.from_numpy(np.array(x, np.float32))
+
+    return gt.Camera(view=t(jcams.view), fov_x=t(jcams.fov_x),
+                     fov_y=t(jcams.fov_y), znear=t(jcams.znear),
+                     zfar=t(jcams.zfar), width=int(jcams.width),
+                     height=int(jcams.height))
+
+
 def prep_to_torch(prep) -> tp.Preprocessed:
     """A reference `Preprocessed` as the port's, through numpy."""
     def t(x):
@@ -150,6 +166,70 @@ def packed_reference(case):
     feat, starts = jax_pp.fused_pack(
         jax_pp.feature_rows(prep), plan.tile_key, plan.depth_key, plan.slot,
         plan.gauss, plan.order, rcfg.tiers, prep.depth.shape[0], gh * gw)
+    return feat, starts, gh, gw, th, tw
+
+
+# Local tiles (the tile-sharded path's blend input): rows {1, 3} of the 4x4
+# grid of 16x32 tiles over a 128x64 view, tile_map (row0 1, row step 2).
+LOCAL_ROWS, LOCAL_TILE_MAP = 2, (1, 2)
+
+
+def _local_setup():
+    """(scene arrays, (width, height), tiles) of the local-tiles case."""
+    return seeded_arrays(9, 150), (128, 64), (16, 32)
+
+
+def packed_reference_local():
+    """Reference-packed features of the local rows: (feat_packed (16, S),
+    tile_starts, grid_h, grid_w, tile_h, tile_w), as JAX arrays, from its
+    row-local `plan_tiers` and `fused_pack` at the local tile count."""
+    import gsrast_tpu as gs
+    from gsrast_tpu.ops import binning as jax_binning
+    from gsrast_tpu.ops.preprocess import preprocess as jax_preprocess
+    from gsrast_tpu.render import pallas_pipeline as jax_pp
+    from gsrast_tpu.render.api import scene_tile_counts as jax_tile_counts
+    from gsrast_tpu.scene.gaussians import from_arrays
+
+    arrays, (w, h), (th, tw) = _local_setup()
+    scene = from_arrays(*(arrays[f] for f in SCENE_FIELDS))
+    cam, _ = front_camera(w, h)
+    rcfg = gs.RenderConfig(tile_h=th, tile_w=tw)
+    rcfg = rcfg.replace(tiers=jax_binning.auto_tiers(
+        jax_tile_counts(scene, cam, rcfg)))
+    prep = jax_preprocess(scene.activated(), cam, rcfg)
+    gh, gw = rcfg.grid_shape(h, w)
+    row0, step = LOCAL_TILE_MAP
+    plan = jax_binning.plan_tiers(prep, gh, gw, rcfg,
+                                  num_local_rows=LOCAL_ROWS, row0=row0,
+                                  row_stride=step)
+    feat, starts = jax_pp.fused_pack(
+        jax_pp.feature_rows(prep), plan.tile_key, plan.depth_key, plan.slot,
+        plan.gauss, plan.order, rcfg.tiers, prep.depth.shape[0],
+        LOCAL_ROWS * gw)
+    return feat, starts, gh, gw, th, tw
+
+
+def packed_port_local(device, whole_grid: bool = False):
+    """The local-tiles case packed by the port alone, on `device` (its
+    whole grid where `whole_grid`)."""
+    arrays, (w, h), (th, tw) = _local_setup()
+    scene = gt.from_numpy(arrays, device=device)
+    cam = port_front_camera(w, h, device=device)
+    rcfg = gt.RenderConfig(tile_h=th, tile_w=tw)
+    rcfg = rcfg.replace(tiers=binning.auto_tiers(
+        scene_tile_counts(scene, cam, rcfg)))
+    gh, gw = rcfg.grid_shape(h, w)
+    row0, step = LOCAL_TILE_MAP
+    with torch.no_grad():
+        prep = tp.preprocess(scene.activated(), cam, rcfg)
+        if whole_grid:
+            plan = binning.plan_tiers(prep, gh, gw, rcfg)
+        else:
+            plan = binning.plan_tiers(prep, gh, gw, rcfg,
+                                      num_local_rows=LOCAL_ROWS, row0=row0,
+                                      row_stride=step)
+        feat, starts = sort_pack(feature_rows(prep), plan,
+                                 (gh if whole_grid else LOCAL_ROWS) * gw)
     return feat, starts, gh, gw, th, tw
 
 
@@ -319,3 +399,156 @@ def reference_colmap_fixture(path, n_views: int = 3, wh=(96, 64),
         images, xyz=np.asarray(scene.means)[:200],
         rgb=np.full((200, 3), 0.6, np.float32))
     return jax_scene_arrays(scene)
+
+
+# Ranks of torch.distributed for the sharded paths' tests: gloo CPU
+# processes, each running one of the rank functions below on arrays that
+# the test hands over in an .npz.
+TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(TESTS_DIR)
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def launch_ranks(world: int, entry: str, arrays: dict, tmp_path,
+                 timeout: float = 400.0) -> list:
+    """Run `entry` (a function of this module: rank arrays -> dict of
+    arrays) on `world` gloo ranks, one CPU process each, all given
+    `arrays`; returns each rank's outputs as a dict of numpy arrays.
+    Raises with the output of any rank that failed."""
+    inputs = os.path.join(tmp_path, "rank_inputs.npz")
+    np.savez(inputs, **arrays)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO, TESTS_DIR] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "torch_parity", entry, str(world), str(port),
+         str(r), inputs, str(tmp_path)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=TESTS_DIR, env=env) for r in range(world)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            proc.kill()
+    failed = [(r, log) for r, (proc, log) in enumerate(zip(procs, logs))
+              if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(f"rank {r} failed:\n{log[-4000:]}"
+                                     for r, log in failed))
+    return [dict(np.load(os.path.join(tmp_path, f"rank{r}.npz")))
+            for r in range(world)]
+
+
+def _rank_main(argv) -> None:
+    import torch.distributed as dist
+
+    entry, world, port, rank, inputs, out_dir = argv
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=int(world), rank=int(rank))
+    try:
+        out = globals()[entry](dict(np.load(inputs)))
+    finally:
+        dist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+             **{k: t2n(v) if isinstance(v, torch.Tensor) else np.asarray(v)
+                for k, v in out.items()})
+
+
+def _rank_scene(arrays: dict, prefix: str) -> gt.GaussianScene:
+    return gt.from_numpy({f: arrays[f"{prefix}_{f}"] for f in SCENE_FIELDS})
+
+
+def _rank_camera(arrays: dict, prefix: str = "cam") -> gt.Camera:
+    fields = ("view", "fov_x", "fov_y", "znear", "zfar")
+    width, height = (int(v) for v in arrays[f"{prefix}_size"])
+    return gt.Camera(**{f: torch.from_numpy(arrays[f"{prefix}_{f}"])
+                        for f in fields}, width=width, height=height)
+
+
+def _stats_vector(stats: dict, names) -> torch.Tensor:
+    return torch.stack([stats[k] for k in names])
+
+
+def sharded_rank_cases(arrays: dict) -> dict:
+    """The sharded tests' cases on this rank (4 ranks): the tile-sharded
+    render in its four modes and the primitive-sharded render on the (1, 4)
+    mesh, each image with its stats and the gradient of sum(image) with
+    respect to the means; the skewed scene's send overflow; and on the
+    (2, 2) mesh the train step's loss and gradients."""
+    import dataclasses
+
+    from gsrast_tpu_torch.parallel import comm
+    from gsrast_tpu_torch.parallel import sharded as ps
+    from gsrast_tpu_torch.parallel.mesh import TILE_AXIS, make_mesh
+
+    tiers = tuple((int(k), float(f)) for k, f in arrays["tiers"])
+    rcfg = gt.RenderConfig(tiers=tiers, background=tuple(
+        float(v) for v in arrays["background"]), backend="torch")
+    cam = _rank_camera(arrays)
+    mesh = make_mesh((1, 4))
+    out = {}
+    for interleave in (True, False):
+        for exchange in (True, False):
+            act = _rank_scene(arrays, "scene").activated()
+            means = act.means.detach().requires_grad_(True)
+            res = ps.render_tile_sharded(
+                dataclasses.replace(act, means=means), cam, rcfg, mesh,
+                interleave=interleave, prep_exchange=exchange)
+            res.image.sum().backward()
+            key = f"tile_{int(interleave)}{int(exchange)}"
+            out[f"{key}_image"] = res.image
+            out[f"{key}_stats"] = _stats_vector(res.stats, TILE_STATS)
+            out[f"{key}_grad"] = means.grad
+
+    d = mesh.get_local_rank(TILE_AXIS)
+
+    def shard(prefix, with_grad=False):
+        act = ps.pad_gaussians(_rank_scene(arrays, prefix).activated(), 4)
+        nl = act.means.shape[0] // 4
+        local = {f.name: getattr(act, f.name)[d * nl:(d + 1) * nl].detach()
+                 for f in dataclasses.fields(act)}
+        if with_grad:
+            local["means"].requires_grad_(True)
+        return type(act)(**local)
+
+    g = shard("scene", with_grad=True)
+    res = ps.render_primitive_sharded(g, cam, rcfg, mesh, send_capacity=4096)
+    res.image.sum().backward()
+    out["prim_image"] = res.image
+    out["prim_stats"] = _stats_vector(res.stats, PRIM_STATS)
+    out["prim_grad"] = comm.all_gather(g.means.grad, mesh, TILE_AXIS)
+    with torch.no_grad():
+        for cap in (8192, 128):
+            res = ps.render_primitive_sharded(shard("skew"), cam, rcfg, mesh,
+                                              send_capacity=cap)
+            out[f"skew{cap}_image"] = res.image
+            out[f"skew{cap}_stats"] = _stats_vector(res.stats, PRIM_STATS)
+
+    mesh22 = make_mesh((2, 2))
+    scene = _rank_scene(arrays, "scene")
+    step = ps.make_sharded_train_step(rcfg, mesh22, cam.height, cam.width,
+                                      cameras_per_device=1)
+    loss, grads = step(scene, _rank_camera(arrays, "batch"),
+                       torch.from_numpy(arrays["targets"]))
+    out["train_loss"] = loss
+    out.update({f"train_grad_{k}": v for k, v in grads.items()})
+    out["transports"] = np.array(sorted(comm.transports.items()))
+    return out
+
+
+TILE_STATS = ("num_intersections", "overflow_capacity", "overflow_tile_cap",
+              "overflow_per_tile")
+PRIM_STATS = ("num_intersections", "overflow_send", "overflow_capacity",
+              "overflow_per_tile")
+
+
+if __name__ == "__main__":
+    _rank_main(sys.argv[1:])
