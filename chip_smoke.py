@@ -31,7 +31,13 @@ both blend kernels on a rank's local tile rows against their plain
 versions; 2 and 4 gloo ranks sharing the card, spawned by
 torch.multiprocessing, rendering the 1M scene tile- and primitive-sharded
 against `render`; the data x tile train step on a (2, 2) mesh; one NCCL
-rank; the multihost smoke through --dist); and
+rank; the multihost smoke through --dist), and the reference's default
+path (phase 17: the legacy two-tier binning, tiers=(), through the blend
+kernels at 1M/1080p timed by the benchmark and on trained_116k with its
+counted drops; both kernels against their plain versions on its inputs;
+the autograd oracle against the kernels, forward at 1080p and gradients at
+--small; build_binning on the card against the CPU; its sharded renders
+and train step on 2 gloo ranks); and
 checks that each path went through the kernels. Each phase prints its
 lines before the next begins; the line before the last is the per-kernel
 JSON record, and the last is {"ok": true, "device": {...}}. Any failure
@@ -725,9 +731,9 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def spawn_ranks(fn, world: int, *args) -> list:
+def spawn_ranks(fn, world: int, *args, out_dir: str = SHARD_DIR) -> list:
     """fn(rank, world, port, *args) on `world` spawned processes; returns
-    the JSON each wrote to SHARD_DIR/<fn>_<rank>.json. Raises if a rank
+    the JSON each wrote to out_dir/<fn>_<rank>.json. Raises if a rank
     fails, or kills them all past RANK_TIMEOUT."""
     import torch.multiprocessing as mp
 
@@ -742,7 +748,7 @@ def spawn_ranks(fn, world: int, *args) -> list:
             raise RuntimeError(f"{fn.__name__}: ranks past {RANK_TIMEOUT} s")
     out = []
     for r in range(world):
-        with open(os.path.join(SHARD_DIR, f"{fn.__name__}_{r}.json")) as f:
+        with open(os.path.join(out_dir, f"{fn.__name__}_{r}.json")) as f:
             out.append(json.load(f))
     return out
 
@@ -764,11 +770,12 @@ def _rank_setup(rank: int, world: int, port: int, backend=None):
     return torch.device("cuda", 0), dist.get_backend()
 
 
-def _rank_write(name: str, rank: int, result: dict) -> None:
+def _rank_write(name: str, rank: int, result: dict,
+                out_dir: str = SHARD_DIR) -> None:
     """The rank's results, then the process group's end."""
     import torch.distributed as dist
 
-    with open(os.path.join(SHARD_DIR, f"{name}_{rank}.json"), "w") as f:
+    with open(os.path.join(out_dir, f"{name}_{rank}.json"), "w") as f:
         json.dump(result, f)
     dist.destroy_process_group()
 
@@ -1201,6 +1208,470 @@ def phase_sharded_ranks() -> dict:
           flush=True)
     assert all(p.returncode == 0 for p in procs), outs
     assert len(sums) == 2 and sums[0] == sums[1], sums
+    return res
+
+
+# -- phase 17: the reference's default path ------------------------------
+# `render(scene, camera)` with the reference's RenderConfig(): the legacy
+# two-tier binning (tiers=()) through the blend kernels, and the capped
+# autograd oracle (the reference's 'xla' backend) that holds them.
+LEGACY_DIR = os.path.join(OUT_DIR, "phase17")
+# Oracle against the kernels: image and final_t where n_contrib agrees, as
+# the reference holds its kernels to its oracle (tests/test_pallas_blend.py
+# :104-147); gradients per parameter group, relative to the group's largest
+# magnitude (:118-119).
+ORACLE_ATOL = 3e-6
+ORACLE_GRAD_RTOL = 2e-5
+N_SMALL, SMALL_SIZE = 100_000, 800  # the bench's --small
+# Saved (tiles, positions, pixels) float tensors of one oracle chunk under
+# autograd: a reckoning for its memory, printed before the run.
+ORACLE_SAVED_TENSORS = 12
+
+
+def quantized_depth_scene(n: int, size: int, device):
+    """The bench scene and camera at n Gaussians and size x size, z snapped
+    to multiples of 2^-11. The legacy key keeps depth_bits = 31 -
+    bit_length(local tiles + 1) of the depth's float bits, so a rank's key,
+    over fewer local tiles, orders depths more finely than the
+    single-device key, and two depths equal in the one and unequal in the
+    other blend in another order (slot order against depth order). With
+    every depth z + 2.5 a multiple of 2^-11 in [1.5, 3.5] the coarsest key
+    here drops no depth bit, so every key orders the depths alike and exact
+    ties fall back to Gaussian order in every plan."""
+    from gsrast_tpu_torch import benchmark
+
+    scene, cam = benchmark.bench_scene_camera(n, size, size, device=device)
+    with torch.no_grad():
+        scene.means[:, 2] = torch.round(scene.means[:, 2] * 2048.0) / 2048.0
+    return scene, cam
+
+
+def legacy_depth_lossless(scene, cam, rcfg) -> bool:
+    """Whether the whole grid's legacy key drops no bit of any visible
+    Gaussian's depth."""
+    from gsrast_tpu_torch.ops.preprocess import preprocess
+    from gsrast_tpu_torch.ops.projection import depth_order_key
+
+    gh, gw = rcfg.grid_shape(cam.height, cam.width)
+    dshift = (gh * gw + 1).bit_length()
+    with torch.no_grad():
+        prep = preprocess(scene.activated(), cam, rcfg)
+    bits = depth_order_key(prep.depth)[prep.radius > 0]
+    return bool(((bits & ((1 << dshift) - 1)) == 0).all())
+
+
+def phase17_sharded_rank(rank: int, world: int, port: int) -> None:
+    """2 gloo ranks on the card: the legacy tile-sharded render,
+    interleaved and contiguous, and the legacy primitive-sharded render of
+    `quantized_depth_scene` at --small, each against the single-device
+    legacy `render` (2e-5, the reference's tests/test_sharded.py:77-78); the
+    same tile-interleaved render of the bench scene itself, whose gap is
+    printed, not held; one legacy train step on a (2, 1) mesh."""
+    dev, backend = _rank_setup(rank, world, port)
+    res = legacy_sharded_cases(rank, world, dev)
+    res["backend"] = backend
+    _rank_write("phase17_sharded_rank", rank, res, out_dir=LEGACY_DIR)
+
+
+def legacy_sharded_cases(rank: int, world: int, dev) -> dict:
+    """The cases of `phase17_sharded_rank` on this rank of a process group
+    already joined; returns the results."""
+    import dataclasses
+
+    from gsrast_tpu_torch import _kernels, benchmark
+    from gsrast_tpu_torch.parallel import (make_mesh, make_sharded_train_step,
+                                           render_primitive_sharded,
+                                           render_tile_sharded)
+    from gsrast_tpu_torch.render.api import render
+    from gsrast_tpu_torch.scene.dataset import Dataset, orbit_cameras
+
+    plain = _PlainCounts()
+    mesh = make_mesh((1, world))
+    res = {}
+
+    def case(run, act, ref_image):
+        _kernels.reset_launch_counts()
+        plain.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = run(act)
+        torch.cuda.synchronize()
+        return {"ms": (time.perf_counter() - t0) * 1e3,
+                "image_err": float((out.image - ref_image).abs().max()),
+                "stats": {k: int(v) for k, v in out.stats.items()},
+                "launches": dict(_kernels.launch_counts),
+                "plain_calls": dict(plain.counts)}
+
+    for name, quantized in (("quantized_depth", True), ("bench", False)):
+        if quantized:
+            scene, cam = quantized_depth_scene(N_SMALL, SMALL_SIZE, dev)
+        else:
+            scene, cam = benchmark.bench_scene_camera(
+                N_SMALL, SMALL_SIZE, SMALL_SIZE, device=dev)
+        rcfg = benchmark.bench_render_config(scene, cam, "cuda", tiers=())
+        act = scene.activated()
+        act = dataclasses.replace(act, **{
+            f.name: getattr(act, f.name).detach()
+            for f in dataclasses.fields(act)})
+        with torch.no_grad():
+            ref = render(act, cam, rcfg).image
+        runs = {"tile_interleaved": lambda g: render_tile_sharded(
+            g, cam, rcfg, mesh)}
+        if quantized:
+            nl = N_SMALL // world
+            rows = slice(rank * nl, (rank + 1) * nl)
+            runs.update(
+                tile_contiguous=lambda g: render_tile_sharded(
+                    g, cam, rcfg, mesh, interleave=False),
+                primitive=lambda g: render_primitive_sharded(
+                    dataclasses.replace(g, **{
+                        f.name: getattr(g, f.name)[rows]
+                        for f in dataclasses.fields(g)}),
+                    cam, rcfg, mesh))
+            res["depth_lossless"] = legacy_depth_lossless(scene, cam, rcfg)
+        res[name] = {k: case(run, act, ref) for k, run in runs.items()}
+
+    # One legacy train step on a (2, 1) mesh: a camera a data rank.
+    scene, cam = quantized_depth_scene(N_SMALL, SMALL_SIZE, dev)
+    rcfg = benchmark.bench_render_config(scene, cam, "cuda", tiers=())
+    views = orbit_cameras((0.0, 0.0, 0.0), 2.5, SMALL_SIZE, SMALL_SIZE, 2,
+                          device=dev)
+    data = Dataset(cameras=views, images=torch.full(
+        (2, SMALL_SIZE, SMALL_SIZE, 3), 0.25, device=dev))
+    step = make_sharded_train_step(rcfg, make_mesh((world, 1)), SMALL_SIZE,
+                                   SMALL_SIZE)
+    _kernels.reset_launch_counts()
+    plain.reset()
+    t0 = time.perf_counter()
+    loss, grads = step(scene, data.batch_cameras([0, 1]),
+                       data.batch_images([0, 1]))
+    torch.cuda.synchronize()
+    res["train"] = {
+        "loss": float(loss), "ms": (time.perf_counter() - t0) * 1e3,
+        "grads_finite": all(bool(torch.isfinite(g).all())
+                            for g in grads.values()),
+        "launches": dict(_kernels.launch_counts),
+        "plain_calls": dict(plain.counts)}
+    return res
+
+
+def oracle_bytes(tiles: int, tile_chunk: int, k: int, p: int) -> int:
+    """The autograd oracle's reckoned saved bytes for a backward: per chunk
+    ORACLE_SAVED_TENSORS float32 (tile_chunk, k, p) tensors."""
+    chunks = -(-tiles // tile_chunk)
+    return chunks * ORACLE_SAVED_TENSORS * tile_chunk * k * p * 4
+
+
+def phase_legacy(dev, tier_ms: dict) -> dict:
+    """Phase 17: the reference's default path on the card. The 1M/1080p
+    bench scene's fwd+bwd on the legacy binning with the reference bench's
+    knobs (benchmark.run_bench, best and median of 10; one launch of each
+    blend kernel a step, no plain call) and its stage table;
+    trained_116k/1080p on it with the
+    reference's trained-scene capacity (overflow_tile_cap counted, equal on
+    the plain path); both blend kernels against their plain versions on the
+    1M legacy inputs, their times beside the tier plan's (`tier_ms`, this
+    run); the autograd oracle against the kernels (trained_116k forward at
+    1080p, --small gradients); build_binning on the card against the CPU;
+    the legacy sharded renders and train step on 2 gloo ranks
+    (`phase17_sharded_rank`). Returns the kernels' numbers on the path."""
+    from gsrast_tpu_torch import _kernels, benchmark
+    from gsrast_tpu_torch import config as cfg
+    from gsrast_tpu_torch.camera import auto_frame
+    from gsrast_tpu_torch.ops import binning
+    from gsrast_tpu_torch.ops.preprocess import preprocess
+    from gsrast_tpu_torch.render.api import render
+    from gsrast_tpu_torch.render.blend import (blend_backward_cuda,
+                                               blend_backward_torch,
+                                               blend_forward_cuda,
+                                               blend_forward_torch,
+                                               tile_order, tile_order_cuda)
+    from gsrast_tpu_torch.render.pipeline import pack_features
+    from gsrast_tpu_torch.scene.ply import load_ply
+
+    plain = _PlainCounts()
+    res = {}
+
+    def counters(stats):
+        return {k: int(stats[k]) for k in (
+            "num_intersections", "overflow_capacity", "overflow_tile_cap",
+            "overflow_per_tile")}
+
+    # The 1M bench scene at 1080p, fwd+bwd on the legacy binning.
+    scene, cam = benchmark.bench_scene_camera(N_NORTH_STAR, WIDTH, HEIGHT,
+                                              device=dev)
+    rcfg = benchmark.bench_render_config(scene, cam, "cuda", tiers=())
+    assert (rcfg.tiers, rcfg.tile_h, rcfg.tile_w,
+            rcfg.max_tiles_per_gaussian, rcfg.intersect_capacity_factor) == (
+                (), 16, 32, 16, 5.0), rcfg
+    _kernels.reset_launch_counts()
+    plain.reset()
+    benchmark.bench_step(scene, cam, rcfg)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launch_counts)
+    plain_calls = dict(plain.counts)
+    best, median, mpix = benchmark.run_bench(scene, cam, rcfg, iters=10)
+    stages = benchmark.stage_table(scene, cam, rcfg, iters=3)
+    with torch.no_grad():
+        stats_1m = counters(render(scene, cam, rcfg).stats)
+    print(f"phase 17 legacy fwd+bwd 1M SH3 {WIDTH}x{HEIGHT} tiles 16x32 "
+          f"(tiers=(), K2 16, capacity 5 N): best {best:.3f} ms, median "
+          f"{median:.3f} ms of 10 = {mpix:.3f} Mpix/s by the best "
+          f"(benchmark.run_bench); one step's launches {json.dumps(launches)}"
+          f", plain-version calls {json.dumps(plain_calls)}; counters "
+          f"{json.dumps(stats_1m)}; stage table, best of 3 (ms): "
+          f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}",
+          flush=True)
+    assert launches["blend_forward"] == 1 and launches["blend_backward"] == 1
+    assert launches["tile_order"] == 1, launches
+    assert not any(plain_calls.values()), plain_calls
+    assert stats_1m["overflow_tile_cap"] == stats_1m["overflow_capacity"] == 0
+    res["step"] = {"best_ms": best, "median_ms": median, "mpix_s": mpix,
+                   "launches": launches, "stages": stages, **stats_1m}
+
+    # Both kernels against their plain versions on the 1M legacy inputs.
+    gen = torch.Generator(device=dev).manual_seed(17)
+    with torch.inference_mode():
+        gh, gw = rcfg.grid_shape(HEIGHT, WIDTH)
+        th, tw = rcfg.tile_h, rcfg.tile_w
+        prep = preprocess(scene.activated(), cam, rcfg)
+        bins = binning.build_binning(prep, gh, gw, rcfg,
+                                     rcfg.capacity(N_NORTH_STAR))
+        feat, starts = pack_features(prep, bins), bins.tile_starts
+        args = (feat, starts, gh, gw, th, tw)
+        order = tile_order_cuda(starts)
+        fwd = blend_forward_cuda(*args, order=order)
+        cmp_f = compare_blend(fwd, blend_forward_torch(*args),
+                              cfg.TRANSMITTANCE_MIN)
+        d_rgb = torch.randn((gh * gw, 3, th * tw), generator=gen, device=dev)
+        d_ft = torch.randn((gh * gw, th * tw), generator=gen, device=dev)
+        bargs = (feat, starts, d_rgb, d_ft, fwd[1], fwd[2], gh, gw, th, tw)
+        bwd = blend_backward_cuda(*bargs, order=order)
+        same = bool(torch.equal(bwd, blend_backward_cuda(*bargs,
+                                                         order=order)))
+        cmp_b = compare_backward(bwd, blend_backward_torch(*bargs),
+                                 int(starts[-1]))
+        work = blend_work(feat, starts, fwd[2], gw, th, tw)
+        ms_f = cuda_ms(lambda: blend_forward_cuda(*args, order=order))
+        ms_b = cuda_ms(lambda: blend_backward_cuda(*bargs, order=order))
+        ms_fp = cuda_ms(lambda: blend_forward_torch(*args), iters=3)
+        ms_bp = cuda_ms(lambda: blend_backward_torch(*bargs), iters=3)
+        seg = starts[1:] - starts[:-1]
+        launch = order_launch(starts)
+        assert launch() == 0
+        res["tile_order"] = {
+            "launches": launches["tile_order"],
+            "ms": cuda_ms(lambda: [launch() for _ in range(RAW_REPS)])
+            / RAW_REPS,
+            "plain_ms": cuda_ms(lambda: tile_order(starts)),
+            "max_abs_err": order_err(order, starts),
+            **dict(zip(("bound_ms", "bound_by"), order_bound(gh * gw))),
+            "library_ms": None}
+    print(f"phase 17 blend kernels on the legacy inputs, 1M SH3 "
+          f"{WIDTH}x{HEIGHT} tiles {th}x{tw} (capacity {feat.shape[1]}, "
+          f"isect={int(starts[-1])}, longest segment {int(seg.max())}): "
+          f"forward {ms_f:.3f} ms (plain {ms_fp:.3f} ms; tier plan this run "
+          f"{tier_ms['blend_forward']:.3f} ms) {json.dumps(cmp_f)}; "
+          f"{work_line(work, 'fwd', ms_f)}; backward {ms_b:.3f} ms (plain "
+          f"{ms_bp:.3f} ms; tier plan this run "
+          f"{tier_ms['blend_backward']:.3f} ms), rows "
+          f"{json.dumps(cmp_b['row_rel_err'])} of their scale, bitwise equal "
+          f"over two launches {same}; {work_line(work, 'bwd', ms_b)}; tile "
+          f"order {json.dumps(res['tile_order'])}", flush=True)
+    assert cmp_f["err_rgb"] <= ATOL and cmp_f["err_final_t"] <= ATOL
+    assert cmp_f["nc_mismatch_share"] <= MAX_NC_MISMATCH
+    assert cmp_f["mismatch_at_boundary"] and same
+    assert max(cmp_b["row_rel_err"]) <= BWD_RTOL, cmp_b
+    assert cmp_b["dead_abs_sum"] == 0.0, cmp_b
+    assert res["tile_order"]["max_abs_err"] == 0.0
+    res["blend_forward"] = {
+        "launches": launches["blend_forward"], "ms": ms_f, "plain_ms": ms_fp,
+        "max_abs_err": cmp_f["max_abs_err"], "bound_ms": work["fwd_bound_ms"],
+        "bound_by": work["fwd_bound_by"], "library_ms": None,
+        "nc_mismatch": cmp_f["nc_mismatch"]}
+    res["blend_backward"] = {
+        "launches": launches["blend_backward"], "ms": ms_b, "plain_ms": ms_bp,
+        "max_abs_err": cmp_b["max_abs_err"], "bound_ms": work["bwd_bound_ms"],
+        "bound_by": work["bwd_bound_by"], "library_ms": None,
+        "bitwise_equal_over_two_launches": same}
+    del scene, prep, bins, feat, starts, fwd, bwd, bargs, d_rgb, d_ft, order
+    torch.cuda.empty_cache()
+
+    # trained_116k at 1080p on the legacy binning, the reference's trained-
+    # scene capacity, its tile grid and K2 from bench_config (no auto tile).
+    scene = load_ply(FIXTURE_116K, device=dev)
+    cam = auto_frame(*scene.bbox(), WIDTH, HEIGHT, device=dev)
+    n116 = scene.capacity
+    rcfg = benchmark.bench_render_config(
+        scene, cam, "cuda", tiers=(),
+        intersect_capacity_factor=max(64.0, 8e6 / n116))
+    with torch.no_grad():
+        out_k = render(scene, cam, rcfg)
+        out_p = render(scene, cam, rcfg.replace(backend="torch"))
+        gh, gw = rcfg.grid_shape(HEIGHT, WIDTH)
+        bins = binning.build_binning(
+            preprocess(scene.activated(), cam, rcfg), gh, gw, rcfg,
+            rcfg.capacity(n116))
+        longest = int((bins.tile_starts[1:] - bins.tile_starts[:-1]).max())
+    stats_k, stats_p = counters(out_k.stats), counters(out_p.stats)
+
+    def tiles_of(o):
+        return (o.image.permute(2, 0, 1).reshape(1, 3, -1),
+                o.final_t.reshape(1, -1), o.n_contrib.reshape(1, -1))
+
+    cmp_kp = compare_blend(tiles_of(out_k), tiles_of(out_p),
+                           cfg.TRANSMITTANCE_MIN)
+    print(f"phase 17 legacy trained_116k {WIDTH}x{HEIGHT} tiles 16x32 "
+          f"(capacity factor {rcfg.intersect_capacity_factor:.1f}, K2 "
+          f"{rcfg.max_tiles_per_gaussian}): counters on the kernels "
+          f"{json.dumps(stats_k)}, on the plain versions "
+          f"{json.dumps(stats_p)}; longest segment {longest}; image against "
+          f"the plain path {json.dumps(cmp_kp)}", flush=True)
+    assert stats_k["overflow_tile_cap"] > 0 and stats_k == stats_p
+    assert cmp_kp["err_rgb"] <= ATOL and cmp_kp["err_final_t"] <= ATOL
+    assert cmp_kp["nc_mismatch_share"] <= MAX_NC_MISMATCH
+    res["trained_116k"] = stats_k
+
+    # The oracle forward at trained_116k/1080p, its cap above the longest
+    # segment, against the kernels' render.
+    ocfg = rcfg.replace(backend="autograd", max_per_tile=longest)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out_o = render(scene, cam, ocfg)
+        torch.cuda.synchronize()
+        oracle_s = time.perf_counter() - t0
+    peak_fwd = torch.cuda.max_memory_allocated() / 2**30
+    cmp_o = compare_blend(tiles_of(out_k), tiles_of(out_o),
+                          cfg.TRANSMITTANCE_MIN)
+    stats_o = counters(out_o.stats)
+    print(f"phase 17 autograd oracle forward trained_116k {WIDTH}x{HEIGHT} "
+          f"(max_per_tile {longest}, tile_chunk {ocfg.tile_chunk}; "
+          f"{oracle_s:.2f} s, peak {peak_fwd:.2f} GiB): counters "
+          f"{json.dumps(stats_o)}; the kernels' render against it "
+          f"{json.dumps(cmp_o)}", flush=True)
+    assert stats_o["overflow_per_tile"] == 0
+    assert {k: v for k, v in stats_o.items() if k != "overflow_per_tile"} == {
+        k: v for k, v in stats_k.items() if k != "overflow_per_tile"}
+    assert cmp_o["err_rgb"] <= ORACLE_ATOL, cmp_o
+    assert cmp_o["err_final_t"] <= ORACLE_ATOL, cmp_o
+    assert cmp_o["nc_mismatch_share"] <= MAX_NC_MISMATCH, cmp_o
+    assert cmp_o["mismatch_at_boundary"], cmp_o
+    res["oracle_forward"] = dict(cmp_o, seconds=oracle_s, peak_gib=peak_fwd)
+    del scene, out_k, out_p, out_o, bins
+    torch.cuda.empty_cache()
+
+    # The oracle's gradients at --small against the kernels': mean(img^2)
+    # through the five parameter groups (benchmark.bench_step).
+    scene, cam = benchmark.bench_scene_camera(N_SMALL, SMALL_SIZE,
+                                              SMALL_SIZE, device=dev)
+    rcfg = benchmark.bench_render_config(scene, cam, "cuda", tiers=())
+    with torch.no_grad():
+        gh, gw = rcfg.grid_shape(SMALL_SIZE, SMALL_SIZE)
+        bins = binning.build_binning(
+            preprocess(scene.activated(), cam, rcfg), gh, gw, rcfg,
+            rcfg.capacity(N_SMALL))
+        longest = int((bins.tile_starts[1:] - bins.tile_starts[:-1]).max())
+    k = -(-longest // 128) * 128
+    ocfg = rcfg.replace(backend="autograd", max_per_tile=k, tile_chunk=16)
+    reckoned = oracle_bytes(gh * gw, ocfg.tile_chunk, k,
+                            rcfg.tile_h * rcfg.tile_w)
+    print(f"phase 17 autograd oracle gradients --small ({N_SMALL}, "
+          f"{SMALL_SIZE}x{SMALL_SIZE}, {gh * gw} tiles of 16x32, K {k}, TC "
+          f"{ocfg.tile_chunk}): reckoned {reckoned / 2**30:.2f} GiB saved "
+          f"for the backward", flush=True)
+    grads_k = {f: g.clone() for f, g in
+               benchmark.bench_step(scene, cam, rcfg).items()}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads_o = benchmark.bench_step(scene, cam, ocfg)
+    torch.cuda.synchronize()
+    oracle_grad_s = time.perf_counter() - t0
+    peak_bwd = torch.cuda.max_memory_allocated() / 2**30
+    grad_err = {}
+    for f, ref in grads_o.items():
+        scale = float(ref.abs().max())
+        assert scale > 0 and bool(torch.isfinite(grads_k[f]).all()), f
+        grad_err[f] = float((grads_k[f] - ref).abs().max()) / scale
+    with torch.no_grad():
+        ovf = int(render(scene, cam, ocfg).stats["overflow_per_tile"])
+    print(f"phase 17 autograd oracle gradients --small: the kernels' "
+          f"against the oracle's, relative to each group's largest |g| "
+          f"{json.dumps(grad_err)}; oracle fwd+bwd {oracle_grad_s:.2f} s, "
+          f"peak allocated {peak_bwd:.2f} GiB; oracle overflow_per_tile "
+          f"{ovf}", flush=True)
+    assert ovf == 0
+    assert max(grad_err.values()) <= ORACLE_GRAD_RTOL, grad_err
+    res["oracle_gradients"] = dict(grad_err, seconds=oracle_grad_s,
+                                   peak_gib=peak_bwd,
+                                   reckoned_gib=reckoned / 2**30)
+    del scene, grads_k, grads_o, bins
+    torch.cuda.empty_cache()
+
+    # build_binning on the card against the CPU, on one Preprocessed.
+    small = load_ply(FIXTURE_SMALL, device=dev)
+    cam_s = auto_frame(*small.bbox(), 128, 128, device=dev)
+    equal = {}
+    for label, over, local in (
+            ("default", {}, None),
+            ("16x32 K1 2 K2 6", dict(tile_h=16, tile_w=32,
+                                     max_tiles_per_gaussian=6,
+                                     base_tiles_per_gaussian=2), None),
+            ("16x32 rows 1 + 2r", dict(tile_h=16, tile_w=32,
+                                       max_tiles_per_gaussian=6,
+                                       base_tiles_per_gaussian=2),
+             (4, 1, 2)),
+            ("capacity 0.5 N", dict(intersect_capacity_factor=0.5), None)):
+        bcfg = cfg.RenderConfig(**over)
+        with torch.no_grad():
+            prep = preprocess(small.activated(), cam_s, bcfg)
+        gh, gw = bcfg.grid_shape(128, 128)
+        kw = {} if local is None else dict(zip(
+            ("num_local_rows", "row0", "row_stride"), local))
+        cap = bcfg.capacity(small.capacity)
+        on_card = binning.build_binning(prep, gh, gw, bcfg, cap, **kw)
+        prep_cpu = prep._replace(**{f: getattr(prep, f).cpu()
+                                    for f in prep._fields if f != "rect"},
+                                 rect=prep.rect._replace(**{
+                                     f: getattr(prep.rect, f).cpu()
+                                     for f in prep.rect._fields}))
+        on_cpu = binning.build_binning(prep_cpu, gh, gw, bcfg, cap, **kw)
+        equal[label] = {
+            "equal": all(torch.equal(a.cpu(), b)
+                         for a, b in zip(on_card, on_cpu)),
+            **{k: int(getattr(on_card, k)) for k in (
+                "num_intersections", "overflow_capacity",
+                "overflow_tile_cap")}}
+    print(f"phase 17 build_binning on the card against the CPU, "
+          f"trained_small 128x128, every field: {json.dumps(equal)}",
+          flush=True)
+    assert all(v["equal"] for v in equal.values()), equal
+    res["build_binning_card_vs_cpu"] = equal
+
+    # The legacy sharded renders and train step on 2 gloo ranks.
+    os.makedirs(LEGACY_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(phase17_sharded_rank, 2, out_dir=LEGACY_DIR)
+    sec = time.perf_counter() - t0
+    for r, out in enumerate(ranks):
+        print(f"phase 17 legacy sharded, 2 gloo ranks on the card, rank {r} "
+              f"({sec:.1f} s for the group): {json.dumps(out)}", flush=True)
+        assert out["backend"] == "gloo" and out["depth_lossless"], out
+        for name, c in out["quantized_depth"].items():
+            assert c["image_err"] <= SHARD_IMAGE_ATOL, (name, c)
+            assert not any(v for k, v in c["stats"].items()
+                           if k.startswith("overflow")), (name, c)
+            assert c["launches"]["blend_forward"] == 1, (name, c)
+            assert not any(c["plain_calls"].values()), (name, c)
+        train = out["train"]
+        assert train["loss"] == ranks[0]["train"]["loss"], "ranks disagree"
+        assert math.isfinite(train["loss"]) and train["grads_finite"], train
+        assert train["launches"]["blend_forward"] >= 1, train
+        assert train["launches"]["blend_backward"] >= 1, train
+        assert not any(train["plain_calls"].values()), train
+    res["sharded"] = ranks
     return res
 
 
@@ -1938,6 +2409,14 @@ def main() -> int:
     sharded = phase_sharded(dev)
     print(f"phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- phase 17: the reference's default path ----------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    legacy = phase_legacy(dev, {
+        "blend_forward": statistics.median(ab1m["longest_first"]),
+        "blend_backward": bwd["1M"]["kernel_ms"]})
+    print(f"phase 17 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     b116 = bwd["trained_116k"]
     rows_full, tiles_full = int(full_starts[-1]) // 8, t
     print(json.dumps({"kernels": [{
@@ -1948,7 +2427,7 @@ def main() -> int:
         "max_abs_err": order_err116, "ms": order_ms["kernel"],
         "plain_ms": order_ms["plain"],
         **dict(zip(("bound_ms", "bound_by"), order_bound(n_tiles_116k))),
-        "library_ms": None,
+        "library_ms": None, "legacy_path": legacy["tile_order"],
     }, {
         "name": "blend_forward", "route": "cuda",
         "source": "gsrast_tpu_torch/csrc/blend_forward.cu",
@@ -1958,6 +2437,7 @@ def main() -> int:
         "bound_ms": work116["fwd_bound_ms"],
         "bound_by": work116["fwd_bound_by"], "library_ms": None,
         "local_tiles": sharded["local_tiles"]["blend_forward"],
+        "legacy_path": legacy["blend_forward"],
     }, {
         "name": "blend_backward", "route": "cuda",
         "source": "gsrast_tpu_torch/csrc/blend_backward.cu",
@@ -1968,6 +2448,7 @@ def main() -> int:
         "bound_ms": b116["work"]["bwd_bound_ms"],
         "bound_by": b116["work"]["bwd_bound_by"], "library_ms": None,
         "local_tiles": sharded["local_tiles"]["blend_backward"],
+        "legacy_path": legacy["blend_backward"],
     }] + [{
         "name": f"bisect_{name}", "route": "cuda",
         "source": "gsrast_tpu_torch/csrc/bisect_bwd.cu",

@@ -5,7 +5,7 @@ first use (see `_kernels.py`)."""
 
 from .camera import Camera, auto_frame, look_at, make_camera, perspective
 from .config import RenderConfig
-from .render.api import auto_render_config, render
+from .render.api import auto_render_config, default_render_config, render
 from .scene.gaussians import GaussianScene, from_numpy, random_scene
 from .scene.ply import load_ply
 
@@ -17,6 +17,7 @@ __all__ = [
     "RenderConfig",
     "auto_frame",
     "auto_render_config",
+    "default_render_config",
     "from_numpy",
     "load_ply",
     "look_at",

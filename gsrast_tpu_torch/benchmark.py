@@ -25,7 +25,7 @@ from .ops import binning
 from .ops.preprocess import preprocess
 from .render.api import auto_render_config, render, scene_tile_counts
 from .render.blend import BlendFunction, blend_backward, blend_forward
-from .render.pipeline import feature_rows, sort_pack
+from .render.pipeline import feature_rows, pack_features, sort_pack
 from .scene.gaussians import GaussianScene, random_scene
 
 # The activated fields the stage table differentiates, and the
@@ -35,13 +35,17 @@ PREPROCESSED_FIELDS = ("mean2d", "conic", "color", "opacity")
 
 
 def bench_config(backend: str) -> cfg.RenderConfig:
-    """The benchmark's base RenderConfig: 16x32 tiles, the reference's pick
-    from its sweep on the TPU (`diag/tile_sweep.py` sweeps the card). The
-    tier plan is not fixed here: every bench derives it from the scene with
-    `auto_render_config`, as `render` and `train` do. Its
-    intersect_capacity_factor is the reference bench's, 5.0."""
+    """The benchmark's base RenderConfig, the reference bench's
+    (`gsrast_tpu/benchmark.py:40-48`): 16x32 tiles, its pick from its sweep
+    on the TPU (`diag/tile_sweep.py` sweeps the card), and its knobs of
+    the legacy binning and the oracle (intersect_capacity_factor 5.0,
+    max_tiles_per_gaussian 16, max_per_tile 4,096, tile_chunk 8). The tier
+    plan is not fixed here: every bench derives it from the scene with
+    `auto_render_config`, as `render` and `train` do, unless it is handed
+    one (`bench_render_config`)."""
     return cfg.RenderConfig(backend=backend, tile_h=16, tile_w=32,
-                            intersect_capacity_factor=5.0)
+                            intersect_capacity_factor=5.0, max_per_tile=4096,
+                            tile_chunk=8, max_tiles_per_gaussian=16)
 
 
 def bench_scene_camera(n: int, width: int, height: int, sh: int = 3,
@@ -70,9 +74,13 @@ def auto_tiers_for(scene, camera: Camera, rcfg: cfg.RenderConfig) -> tuple:
 def bench_render_config(scene, camera: Camera, backend: str,
                         **cfg_overrides) -> cfg.RenderConfig:
     """`bench_config(backend)` with `cfg_overrides`, its tier plan derived
-    from the scene by `auto_render_config`; the tile grows by the
-    big-splat rule unless they give `tile_w`."""
+    from the scene by `auto_render_config`, the tile grown by the big-splat
+    rule unless they give `tile_w`. Where they give `tiers`, the config is
+    taken as it is, as the reference's `run_bench` takes it (`tiers=()`:
+    the legacy binning)."""
     rcfg = bench_config(backend).replace(**cfg_overrides)
+    if "tiers" in cfg_overrides:
+        return rcfg
     return auto_render_config(scene, camera, base=rcfg,
                               auto_tile_w="tile_w" not in cfg_overrides)
 
@@ -146,12 +154,13 @@ def stage_table(scene: GaussianScene, camera: Camera, rcfg: cfg.RenderConfig,
     """Per-stage times of rendering `scene` from `camera` with `rcfg`, best
     of `iters`. Returns {stage: ms}. The
     first five nest, each the gradient of a sum through everything before
-    it: `prep` (preprocess), `binning_fwd` (the tier plan, forward only),
-    `pack` (the sort-pack), `pack_blend` (sort-pack and blend), `full` (the
-    whole render and image assembly). Then the blend alone on the plan's
-    inputs, `blend_fwd` and `blend_bwd` (d_rgb ones, d_final_t zeros, with
-    the tile order on the kernels), and `full_fwd`, the render forward
-    only."""
+    it: `prep` (preprocess), `binning_fwd` (the tier plan, or with
+    `tiers=()` the legacy `build_binning`, forward only), `pack` (the
+    sort-pack, or the legacy `pack_features`), `pack_blend` (pack and
+    blend), `full` (the whole render and image assembly). Then the blend
+    alone on the plan's inputs, `blend_fwd` and `blend_bwd` (d_rgb ones,
+    d_final_t zeros, with the tile order on the kernels), and `full_fwd`,
+    the render forward only."""
     dev = camera.device
     grid_h, grid_w = rcfg.grid_shape(camera.height, camera.width)
     num_tiles, tile_h, tile_w = grid_h * grid_w, rcfg.tile_h, rcfg.tile_w
@@ -168,19 +177,31 @@ def stage_table(scene: GaussianScene, camera: Camera, rcfg: cfg.RenderConfig,
                 + torch.sum(p.opacity))
 
     out["prep"] = timeit(_grad_of(prep_loss, afloats), iters, dev)[0]
+    if rcfg.tiers:
+        def make_plan():
+            return binning.plan_tiers(prep, grid_h, grid_w, rcfg)
+
+        def pack(p):
+            return sort_pack(feature_rows(p), plan, num_tiles)
+    else:
+        capacity = rcfg.capacity(scene.capacity)
+
+        def make_plan():
+            return binning.build_binning(prep, grid_h, grid_w, rcfg,
+                                         capacity)
+
+        def pack(p):
+            return pack_features(p, plan), plan.tile_starts
     with torch.no_grad():
-        out["binning_fwd"] = timeit(lambda: binning.plan_tiers(
-            prep, grid_h, grid_w, rcfg), iters, dev)[0]
-        plan = binning.plan_tiers(prep, grid_h, grid_w, rcfg)
+        out["binning_fwd"] = timeit(make_plan, iters, dev)[0]
+        plan = make_plan()
 
     def pack_loss():
-        feat, _ = sort_pack(feature_rows(prep._replace(**pfloats)), plan,
-                            num_tiles)
+        feat, _ = pack(prep._replace(**pfloats))
         return torch.sum(feat * feat)
 
     def blend_loss():
-        feat, starts = sort_pack(feature_rows(prep._replace(**pfloats)),
-                                 plan, num_tiles)
+        feat, starts = pack(prep._replace(**pfloats))
         rgb, final_t, _ = BlendFunction.apply(feat, starts, grid_h, grid_w,
                                               tile_h, tile_w, rcfg.backend)
         return torch.sum(rgb) + torch.sum(final_t)
@@ -194,7 +215,7 @@ def stage_table(scene: GaussianScene, camera: Camera, rcfg: cfg.RenderConfig,
     out["full"] = timeit(_grad_of(full_loss, afloats), iters, dev)[0]
 
     with torch.no_grad():
-        feat, starts = sort_pack(feature_rows(prep), plan, num_tiles)
+        feat, starts = pack(prep)
         geometry = (grid_h, grid_w, tile_h, tile_w)
         out["blend_fwd"] = timeit(lambda: blend_forward(
             feat, starts, *geometry, backend=rcfg.backend), iters, dev)[0]

@@ -29,6 +29,11 @@ from . import config as cfg
 
 PORTED = ("render", "info", "pose", "train", "make-dataset", "bench")
 MODES = ("gaussians", "ellipsoids", "pointcloud")
+# The backends of `train` and `bench`, whose steps differentiate the render.
+TILED_BACKENDS = ("cuda", "torch", "autograd")
+TILED_HELP = ("'cuda' the blend kernels, 'torch' their plain versions, "
+              "'autograd' the capped closed-form oracle (the reference's "
+              "'xla'); default: 'cuda' on a CUDA device, else 'torch'")
 
 
 def _device(name: str) -> torch.device:
@@ -137,8 +142,10 @@ def cmd_render(argv) -> torch.Tensor:
     ap.add_argument("--backend", default=None, choices=cfg.BACKENDS,
                     help="gaussians mode: 'cuda' the blend kernels (CUDA "
                          "devices only), 'torch' their plain PyTorch "
-                         "versions on any device, 'dense' brute force; "
-                         "default: 'cuda' on a CUDA device, else 'torch'")
+                         "versions on any device, 'autograd' the capped "
+                         "closed-form oracle (the reference's 'xla'), "
+                         "'dense' brute force; default: 'cuda' on a CUDA "
+                         "device, else 'torch'")
     _add_view(ap, cfg.DEFAULT_WIDTH, cfg.DEFAULT_HEIGHT)
     _add_device(ap)
     _add_dist(ap)
@@ -250,6 +257,8 @@ def _train_frames(args, scene, device):
         # The wide margin covers densification reshaping the tile counts;
         # a view that still overflows a tier counts it in overflow_tile_cap.
         rcfg = auto_render_config(scene, camera, margin=1.5)
+        if args.backend:
+            rcfg = rcfg.replace(backend=args.backend)
         return rcfg.replace(sh_degree=min(args.sh_degree, scene.sh_degree))
 
     if args.data:
@@ -316,6 +325,8 @@ def cmd_train(argv):
                     help="write the trained scene as .ply when done")
     ap.add_argument("--capacity", type=int, default=None,
                     help="scene capacity (free slots for densification)")
+    ap.add_argument("--backend", default=None, choices=TILED_BACKENDS,
+                    help=TILED_HELP)
     _add_view(ap)
     _add_device(ap)
     _add_dist(ap)
@@ -416,10 +427,8 @@ def cmd_bench(argv) -> dict:
     ap.add_argument("--scene", default=None,
                     help="bench a .ply (or 'random:N') framed by its bbox "
                          "instead of the bench scene; n is its capacity")
-    ap.add_argument("--backend", default=None, choices=("cuda", "torch"),
-                    help="'cuda' the blend kernels, 'torch' their plain "
-                         "versions; default: 'cuda' on a CUDA device, else "
-                         "'torch'")
+    ap.add_argument("--backend", default=None, choices=TILED_BACKENDS,
+                    help=TILED_HELP)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--no-stages", action="store_true",
                     help="skip the per-stage table (headline only)")
@@ -439,15 +448,19 @@ def cmd_bench(argv) -> dict:
     backend = args.backend or ("cuda" if device.type == "cuda" else "torch")
     if args.small:
         args.n, args.width, args.height = 100_000, 800, 800
+    overrides = {}
     if args.scene:
         scene = _load_scene(args.scene, device)
         camera = auto_frame(*scene.bbox(), args.width, args.height,
                             device=device)
         args.n = scene.capacity
+        # The reference's legacy capacity for trained scenes' skew
+        # (`gsrast_tpu/benchmark.py:128-129`); the tier plan ignores it.
+        overrides["intersect_capacity_factor"] = max(64.0, 8e6 / args.n)
     else:
         scene, camera = benchmark.bench_scene_camera(
             args.n, args.width, args.height, device=device)
-    rcfg = benchmark.bench_render_config(scene, camera, backend)
+    rcfg = benchmark.bench_render_config(scene, camera, backend, **overrides)
     gh, gw = rcfg.grid_shape(args.height, args.width)
     stats = benchmark.scene_stats(scene, camera, rcfg)
     print(f"scene stats: tile {rcfg.tile_h}x{rcfg.tile_w} grid {gh}x{gw} "
@@ -495,12 +508,14 @@ def main(argv=None):
               "       python -m gsrast_tpu_torch train --scene "
               "{scene.ply|random:N|colmap} [--data DIR [--downscale K] | "
               f"--target PNG] [--steps N] [--ckpt-dir DIR] [--resume] "
-              f"[--save-ply PLY] {view} [--device DEV]\n"
+              f"[--save-ply PLY] [--backend {{{','.join(TILED_BACKENDS)}}}] "
+              f"{view} [--device DEV]\n"
               "       python -m gsrast_tpu_torch make-dataset scene.ply "
               "--out DIR [--views N] [--width W] [--height H] "
               "[--device DEV]\n"
               "       python -m gsrast_tpu_torch bench [--n N] [--width W] "
-              "[--height H] [--scene PLY|random:N] [--backend {cuda,torch}] "
+              "[--height H] [--scene PLY|random:N] [--backend "
+              f"{{{','.join(TILED_BACKENDS)}}}] "
               "[--iters K] [--no-stages] [--small] [--fwd-only] "
               "[--device DEV]\n"
               "every command also takes [--dist COORD:PORT,NPROCS,RANK]")

@@ -40,7 +40,7 @@ NEAR_CULL_DEPTH = 0.2
 # Gaussian extent cap: 3 sigma.
 GAUSSIAN_EXTENT_SIGMA = 3.0
 
-BACKENDS = ("cuda", "torch", "dense")
+BACKENDS = ("cuda", "torch", "autograd", "dense")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,24 +48,39 @@ class RenderConfig:
     """Static configuration of the tile-sorted rasterizer.
 
     Field names and defaults follow `gsrast_tpu.config.RenderConfig`. The
-    reference's legacy two-tier binning knobs are not carried: this package
-    plans slots from `tiers` only and walks true per-tile ranges.
+    backends map onto the reference's: its 'xla' (the differentiable
+    oracle) is 'autograd' here, since nothing here runs XLA, and its
+    'pallas' (the hand-written kernels) is 'cuda'.
 
     Attributes:
       tile_h/tile_w: pixel tile shape.
       tiers: multi-tier slot plan, ((k_j, budget_frac_j), ...) with k
-        ascending; see `ops.binning.plan_tiers`. Must be non-empty to render
-        (`render.api.auto_render_config` derives it from the scene).
-      backend: 'cuda' (the hand-written blend kernel, CUDA tensors only),
-        'torch' (the plain PyTorch blend, any device) or 'dense' (the
-        tile-free oracle, `render.dense`, any device; it ignores `tiers`).
+        ascending; see `ops.binning.plan_tiers`
+        (`render.api.auto_render_config` derives it from the scene). Empty,
+        the default, selects the reference's legacy two-tier binning
+        (`ops.binning.build_binning`), with the knobs below.
+      max_tiles_per_gaussian: legacy binning's cap K2 on the tiles one
+        Gaussian is binned into (drops counted in overflow_tile_cap).
+      base_tiles_per_gaussian: legacy tier-1 width K1: every Gaussian gets
+        K1 slots; the `heavy_fraction` of N with the most tiles get tier-2
+        rows for tiles K1..K2.
+      intersect_capacity_factor: the legacy intersection list's capacity
+        as a multiple of N (`capacity`; drops counted in
+        overflow_capacity); the primitive-sharded path sizes its default
+        send buffers from it too (`parallel.sharded`).
+      tile_chunk: tiles the 'autograd' oracle blends per step (bounds its
+        memory).
+      max_per_tile: positions per tile the 'autograd' oracle blends (the
+        rest are counted in overflow_per_tile); the other backends walk
+        true ranges.
+      backend: 'cuda' (the hand-written blend kernels, CUDA tensors only),
+        'torch' (the kernels' plain PyTorch versions, any device),
+        'autograd' (the capped closed-form oracle, `render.tiled`,
+        differentiated by autograd, any device) or 'dense' (the tile-free
+        oracle, `render.dense`, any device; it ignores `tiers`).
       sh_degree: highest SH degree evaluated.
       background: RGB composited behind the splats with the residual
         transmittance.
-      intersect_capacity_factor: expected intersections per Gaussian; the
-        primitive-sharded path sizes its default send buffers from it
-        (`parallel.sharded.render_primitive_sharded`), as the reference
-        does.
     """
 
     tile_h: int = 8
@@ -75,6 +90,11 @@ class RenderConfig:
     sh_degree: int = 3
     background: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     intersect_capacity_factor: float = 4.0
+    max_tiles_per_gaussian: int = 32
+    base_tiles_per_gaussian: int = 8
+    heavy_fraction: float = 0.125
+    tile_chunk: int = 16
+    max_per_tile: int = 1024
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
@@ -82,3 +102,13 @@ class RenderConfig:
     def grid_shape(self, height: int, width: int) -> Tuple[int, int]:
         """Number of tiles (rows, cols) covering a height x width image."""
         return -(-height // self.tile_h), -(-width // self.tile_w)
+
+    def padded_shape(self, height: int, width: int) -> Tuple[int, int]:
+        ty, tx = self.grid_shape(height, width)
+        return ty * self.tile_h, tx * self.tile_w
+
+    def capacity(self, num_gaussians: int) -> int:
+        """The legacy intersection list's length: int(N *
+        intersect_capacity_factor) rounded up to 128, at least 128."""
+        cap = int(num_gaussians * self.intersect_capacity_factor)
+        return max(128, -(-cap // 128) * 128)

@@ -1,15 +1,24 @@
-"""Tile planning: the multi-tier slot grid of (tile, depth) keys.
+"""Tile planning: the slot grids of (tile, depth) keys.
 
-Port of the reference's planner (`gsrast_tpu/ops/binning.py`:
-`owned_row_range`, `tier_dims`, `shard_tiers`, `auto_tiers`, `plan_tiers`),
-with its row-local and routed modes for the sharded paths (`parallel/`).
-Every visible
-Gaussian is enumerated over the tiles of its rectangle on a slot grid sized
-near the true intersection count: Gaussians are ranked by tile count
-(descending), and tier j gives the top B_j of them slots for tile ordinals
-k_{j-1}..k_j, laid out t-major. The integer structure is identical to the
-reference's, slot for slot, so the fused sort in `render.pipeline` orders
-intersections exactly as the reference does.
+Port of the reference's planners (`gsrast_tpu/ops/binning.py`), with their
+row-local and routed modes for the sharded paths (`parallel/`):
+
+  * the multi-tier plan (`owned_row_range`, `tier_dims`, `shard_tiers`,
+    `auto_tiers`, `plan_tiers`), for a non-empty `RenderConfig.tiers`:
+    every visible Gaussian is enumerated over the tiles of its rectangle
+    on a slot grid sized near the true intersection count: Gaussians are
+    ranked by tile count (descending), and tier j gives the top B_j of them
+    slots for tile ordinals k_{j-1}..k_j, laid out t-major;
+  * the legacy two-tier binning (`build_binning`), the reference's default
+    (`tiers=()`): an (N, K1) grid for every Gaussian, K2 - K1 more slots
+    for a budget of the heaviest, one 31-bit `tile | quantized depth` key
+    per slot, one stable sort, truncation to a static capacity;
+  * `expand_intersections`, the exact expansion of per-Gaussian counts
+    that the legacy primitive-sharded path routes.
+
+The integer structure is identical to the reference's, slot for slot, so
+the sorts in `render.pipeline` order intersections exactly as the
+reference does.
 """
 
 from __future__ import annotations
@@ -142,6 +151,204 @@ def auto_tiers(counts, margin: float = 1.12, k0_max: int = 4,
     return tuple((int(k), round(float(f), 4)) for k, f in tiers)
 
 
+class Binning(NamedTuple):
+    """The legacy binning's result (all int32), the reference's `Binning`.
+
+    Slots are numbered tier 1 first, (i, k) -> i K1 + k for k < K1, then
+    tier 2, (h, k) -> N K1 + h (K2 - K1) + (k - K1) over the heavy rows h;
+    padding slots up to the capacity carry the number of real slots."""
+
+    sorted_tile: torch.Tensor   # (C,) local tile; num_local_tiles when dead
+    sorted_gauss: torch.Tensor  # (C,) Gaussian index; -1 when dead
+    sorted_slot: torch.Tensor   # (max(S, C),) slot at each sorted position;
+                                # positions >= C fell to the truncation
+    heavy_idx: torch.Tensor     # (H,) Gaussians granted a tier-2 row, padded
+                                # with N; (0,) without tier 2
+    tile_starts: torch.Tensor   # (T+1,) half-open ranges of the local tiles
+    num_intersections: torch.Tensor  # () written intersections, <= C
+    overflow_capacity: torch.Tensor  # () intersections past the capacity
+    overflow_tile_cap: torch.Tensor  # () tiles dropped by K2 or the heavy
+                                     # budget
+
+
+IMAX = 2**31 - 1  # the legacy keys' sentinel, int32's largest value
+
+
+def expand_intersections(counts: torch.Tensor, capacity: int) -> tuple:
+    """Exact expansion of per-Gaussian counts (N,): position j of
+    [0, capacity) -> (Gaussian i, ordinal k within i), by a binary search
+    of the exclusive prefix sum. Positions at or past the total map to the
+    last Gaussian with a count, with k past its count. Returns (i (C,),
+    k (C,), offsets (N,), total ()), all int32."""
+    counts = counts.long()
+    offsets = torch.cumsum(counts, 0) - counts
+    total = offsets[-1] + counts[-1]
+    j = torch.arange(capacity, dtype=torch.int64, device=counts.device)
+    i = torch.clamp(torch.searchsorted(offsets, j, right=True) - 1, min=0)
+    k = j - offsets.index_select(0, i)
+    i32 = torch.int32
+    return i.to(i32), k.to(i32), offsets.to(i32), total.to(i32)
+
+
+def build_binning(prep: Preprocessed, grid_h: int, grid_w: int,
+                  render_cfg: cfg.RenderConfig, capacity: int,
+                  num_local_rows: int | None = None, row0: int = 0,
+                  row_stride: int = 1) -> Binning:
+    """The legacy two-tier binning of the reference (`build_binning`).
+
+    Tier 1 is the (N, K1) grid: slot (i, k) is the k-th owned tile of
+    Gaussian i, its owned rows walked row-major. Tier 2 gives the H heavy
+    Gaussians (more than K1 tiles; H = heavy_fraction N rounded up to 128,
+    at most N; the first H in index order) tiles K1..K2, each culled
+    where the splat's ellipse cannot reach ALPHA_MIN on the tile. A slot's
+    key is `local tile << depth_bits | depth bits >> (31 - depth_bits)`
+    with depth_bits = 31 - bit_length(num_local_tiles + 1); dead slots key
+    int32's largest value. One stable sort of the keys in slot order (ties,
+    including quantized depths, keep slot order), truncation to
+    `capacity`, and searchsorted tile ranges. Drops are counted, never
+    silent.
+
+    Row-local mode (the tile-sharded path): only rows {row0 + r row_stride
+    : r < num_local_rows} are binned, tile ids local (r grid_w + x)."""
+    if num_local_rows is None:
+        num_local_rows, row0 = grid_h, 0
+    num_local_tiles = num_local_rows * grid_w
+    k2 = render_cfg.max_tiles_per_gaussian
+    k1 = min(render_cfg.base_tiles_per_gaussian, k2)
+    n = prep.depth.shape[0]
+    device = prep.depth.device
+    i32 = torch.int32
+    h_budget = (min(n, max(128, -(-int(n * render_cfg.heavy_fraction)
+                                  // 128) * 128)) if k2 > k1 else 0)
+    # +1 keeps the sentinel's tile (IMAX >> depth_bits) above every tile.
+    depth_bits = 31 - (num_local_tiles + 1).bit_length()
+    if depth_bits < 12:
+        raise ValueError(
+            f"{num_local_tiles} tiles leave only {depth_bits} depth bits; "
+            "use a larger tile shape or shard the tile grid")
+
+    rect = prep.rect
+    rw = rect.x_max - rect.x_min
+    rw_safe = torch.clamp(rw, min=1)
+    y0, nrows = owned_row_range(rect.y_min, rect.y_max, row0, row_stride,
+                                num_local_rows)
+    rho0 = (y0 - row0) // row_stride  # first owned local row
+    counts_full = torch.where(prep.radius > 0, nrows * rw, 0).to(i32)
+    counts = torch.clamp(counts_full, max=k2)
+    depth_q = projection.depth_order_key(prep.depth) >> (31 - depth_bits)
+
+    # The tier-2 cull (`tile_reachable`), the tier-1 grid's slots uncut.
+    lam_min, cull_thresh = cull_bounds(prep)
+
+    # Tier 1: the (N, K1) grid, built elementwise.
+    ks = torch.arange(k1, dtype=i32, device=device)[None, :]
+    ry = ks // rw_safe[:, None]
+    rx = ks - ry * rw_safe[:, None]
+    local = (rho0[:, None] + ry) * grid_w + rect.x_min[:, None] + rx
+    valid1 = ks < torch.clamp(counts, max=k1)[:, None]
+    key1 = torch.where(valid1, (local << depth_bits) | depth_q[:, None],
+                       IMAX).to(i32).reshape(-1)
+    gauss1 = torch.arange(n, dtype=i32, device=device)[:, None].expand(
+        n, k1).reshape(-1)
+    ns = n * k1
+    total = torch.sum(valid1, dtype=i32)
+
+    if h_budget > 0:
+        # Tier 2: the heavy Gaussians (counts > K1), first in index order,
+        # on H rows for their tiles K1..K2; demand past the budget counts.
+        kh = k2 - k1
+        heavy = counts > k1
+        order = torch.sort((~heavy).to(torch.uint8), stable=True).indices
+        n_sel = torch.clamp(torch.sum(heavy, dtype=i32), max=h_budget)
+        sel_ok = torch.arange(h_budget, dtype=i32, device=device) < n_sel
+        h_idx = torch.where(sel_ok, order[:h_budget].to(i32), n)
+        h_c = torch.clamp(h_idx, max=n - 1).long()
+        counts_h = torch.where(sel_ok, counts[h_c], 0)
+        ks2 = k1 + torch.arange(kh, dtype=i32, device=device)[None, :]
+        rw_h = rw_safe[h_c][:, None]
+        ry2 = ks2 // rw_h
+        rx2 = ks2 - ry2 * rw_h
+        x2 = rect.x_min[h_c][:, None] + rx2
+        local2 = (rho0[h_c][:, None] + ry2) * grid_w + x2
+        valid2 = (ks2 < counts_h[:, None]) & tile_reachable(
+            x2, y0[h_c][:, None] + ry2 * row_stride,
+            prep.mean2d[h_c, 0][:, None], prep.mean2d[h_c, 1][:, None],
+            lam_min[h_c][:, None], cull_thresh[h_c][:, None],
+            render_cfg.tile_h, render_cfg.tile_w)
+        key2 = torch.where(valid2,
+                           (local2 << depth_bits) | depth_q[h_c][:, None],
+                           IMAX).to(i32).reshape(-1)
+        granted2 = torch.sum(torch.clamp(counts_h - k1, min=0))
+        key = torch.cat([key1, key2])
+        gauss = torch.cat([gauss1, h_c.to(i32)[:, None].expand(
+            h_budget, kh).reshape(-1)])
+        ns += h_budget * kh
+        total = total + torch.sum(valid2, dtype=i32)
+        dropped = torch.sum(counts_full - counts) + (
+            torch.sum(torch.clamp(counts - k1, min=0)) - granted2)
+    else:
+        h_idx = torch.zeros((0,), dtype=i32, device=device)
+        key, gauss = key1, gauss1
+        dropped = torch.sum(counts_full - torch.clamp(counts, max=k1))
+
+    slot = torch.arange(ns, dtype=i32, device=device)
+    if ns < capacity:  # pad, so that the truncation keeps every slot
+        pad = capacity - ns
+        key = torch.cat([key, torch.full((pad,), IMAX, dtype=i32,
+                                         device=device)])
+        slot = torch.cat([slot, torch.full((pad,), ns, dtype=i32,
+                                           device=device)])
+        gauss = torch.cat([gauss, torch.full((pad,), -1, dtype=i32,
+                                             device=device)])
+
+    # One stable sort of the keys, which lie in slot order: ties keep it.
+    sorted_key, perm = torch.sort(key, stable=True)
+    sorted_slot = slot[perm]
+    sorted_key_c = sorted_key[:capacity]
+    is_real = sorted_key_c != IMAX
+    sorted_gauss = torch.where(is_real, gauss[perm[:capacity]], -1)
+    sorted_tile = torch.clamp(sorted_key_c >> depth_bits,
+                              max=num_local_tiles).to(i32)
+    tile_starts = torch.searchsorted(
+        sorted_tile, torch.arange(num_local_tiles + 1, dtype=i32,
+                                  device=device), side="left", out_int32=True)
+    return Binning(
+        sorted_tile=sorted_tile, sorted_gauss=sorted_gauss,
+        sorted_slot=sorted_slot, heavy_idx=h_idx, tile_starts=tile_starts,
+        num_intersections=torch.clamp(total, max=capacity).to(i32),
+        overflow_capacity=torch.clamp(total - capacity, min=0).to(i32),
+        overflow_tile_cap=dropped.to(i32))
+
+
+def sort_key(high: torch.Tensor, low: torch.Tensor) -> torch.Tensor:
+    """int64 keys that order (high, low) int32 pairs lexicographically as
+    signed values: (tile, depth bits) for the (tile, depth) sort, whose
+    depth bits order positive depths as the depths."""
+    return (high.long() << 32) | (low.long() + 2**31)
+
+
+def binning_from_plan(plan: TierPlan, num_tiles: int) -> Binning:
+    """A multi-tier plan's slots as a `Binning` for the 'autograd' oracle:
+    one stable sort by (tile, full depth), as the reference's oracle sorts
+    the plan (`render/tiled.py:216-221`), the dead slots last. Its
+    `sorted_slot` is empty (no consumer reads it on this path) and nothing
+    is truncated."""
+    perm = torch.sort(sort_key(plan.tile_key, plan.depth_key),
+                      stable=True).indices
+    tile = plan.tile_key[perm]
+    dev = tile.device
+    empty = torch.zeros((0,), dtype=torch.int32, device=dev)
+    return Binning(
+        sorted_tile=tile, sorted_gauss=plan.gauss[perm], sorted_slot=empty,
+        heavy_idx=empty,
+        tile_starts=torch.searchsorted(
+            tile, torch.arange(num_tiles + 1, dtype=torch.int32, device=dev),
+            side="left", out_int32=True),
+        num_intersections=plan.total,
+        overflow_capacity=torch.zeros((), dtype=torch.int32, device=dev),
+        overflow_tile_cap=plan.overflow_tile_cap)
+
+
 def route_bits(dest_rows: int, grid_w: int, n_dest: int) -> int:
     """Bits of the local tile id in a routed plan's key `dest << bits |
     local tile`; raises where n_dest destinations overflow int32 (the
@@ -150,6 +357,35 @@ def route_bits(dest_rows: int, grid_w: int, n_dest: int) -> int:
     if (n_dest << bits) >= 1 << 31:
         raise ValueError(f"{n_dest} devices x {bits} tile bits overflow int32")
     return bits
+
+
+def cull_bounds(prep: Preprocessed) -> tuple:
+    """(lam_min, cull_thresh) per Gaussian for the tile-vs-ellipse cull:
+    alpha at the tile's closest pixel, d from the mean, is bounded by
+    opacity exp(-lam_min d^2 / 2) (lam_min the conic's smallest
+    eigenvalue), which is under 0.98 ALPHA_MIN where lam_min d^2 >
+    cull_thresh = 2 ln(opacity / (0.98 ALPHA_MIN))."""
+    a, b, c = prep.conic.unbind(-1)
+    lam_min = torch.clamp(
+        0.5 * (a + c)
+        - torch.sqrt(torch.clamp(0.25 * (a - c) ** 2 + b * b, min=0.0)),
+        min=0.0)
+    cull_thresh = 2.0 * torch.log(
+        torch.clamp(prep.opacity, min=1e-12) / (0.98 * cfg.ALPHA_MIN))
+    return lam_min, cull_thresh
+
+
+def tile_reachable(gx, gy, mx, my, lam_min, cull_thresh, tile_h: int,
+                   tile_w: int) -> torch.Tensor:
+    """Whether a splat at (mx, my) with `cull_bounds` (lam_min,
+    cull_thresh) may reach ALPHA_MIN on global tile (gy, gx)."""
+    px_lo = gx.to(torch.float32) * tile_w
+    py_lo = gy.to(torch.float32) * tile_h
+    dx = torch.clamp(torch.maximum(px_lo - mx, mx - (px_lo + (tile_w - 1))),
+                     min=0.0)
+    dy = torch.clamp(torch.maximum(py_lo - my, my - (py_lo + (tile_h - 1))),
+                     min=0.0)
+    return (dx * dx + dy * dy) * lam_min <= cull_thresh
 
 
 def plan_tiers(prep: Preprocessed, grid_h: int, grid_w: int,
@@ -202,16 +438,8 @@ def plan_tiers(prep: Preprocessed, grid_h: int, grid_w: int,
     counts = torch.clamp(counts_full, max=k_last)
     depth_q = projection.depth_order_key(prep.depth)
 
-    # Tile-vs-ellipse cull inputs (tiers >= 1): alpha at the tile's closest
-    # pixel is bounded by opacity * exp(-lam_min d^2 / 2); drop the slot when
-    # that bound is under 0.98 * ALPHA_MIN.
-    a, b, c = prep.conic.unbind(-1)
-    lam_min = torch.clamp(
-        0.5 * (a + c)
-        - torch.sqrt(torch.clamp(0.25 * (a - c) ** 2 + b * b, min=0.0)),
-        min=0.0)
-    cull_thresh = 2.0 * torch.log(
-        torch.clamp(prep.opacity, min=1e-12) / (0.98 * cfg.ALPHA_MIN))
+    # The tile-vs-ellipse cull's inputs (tiers >= 1).
+    lam_min, cull_thresh = cull_bounds(prep)
 
     # One count-descending ranking; stable, so ties keep index order.
     order_l = torch.sort(-counts, stable=True).indices
@@ -222,7 +450,6 @@ def plan_tiers(prep: Preprocessed, grid_h: int, grid_w: int,
                            lam_min, cull_thresh))
 
     dims, s0 = tier_dims(n, tiers)
-    th_px, tw_px = float(render_cfg.tile_h), float(render_cfg.tile_w)
     tkeys, gausses = [], []
     rank = torch.arange(n, dtype=i32, device=device)
     granted_k = torch.where(rank < dims[0][1], tiers[0][0], 0).to(i32)
@@ -244,18 +471,10 @@ def plan_tiers(prep: Preprocessed, grid_h: int, grid_w: int,
                                             + gx)
         valid = ks < r_counts[None, :b_j]
         if j > 0:
-            px_lo = gx.to(torch.float32) * tw_px
-            py_lo = gy.to(torch.float32) * th_px
-            mxj = r_mx[None, :b_j]
-            myj = r_my[None, :b_j]
-            dx = torch.clamp(torch.maximum(px_lo - mxj,
-                                           mxj - (px_lo + (tw_px - 1))),
-                             min=0.0)
-            dy = torch.clamp(torch.maximum(py_lo - myj,
-                                           myj - (py_lo + (th_px - 1))),
-                             min=0.0)
-            valid &= (dx * dx + dy * dy) * r_lam[None, :b_j] <= (
-                r_thr[None, :b_j])
+            valid &= tile_reachable(gx, gy, r_mx[None, :b_j],
+                                    r_my[None, :b_j], r_lam[None, :b_j],
+                                    r_thr[None, :b_j], render_cfg.tile_h,
+                                    render_cfg.tile_w)
             granted_k = torch.where((rank < b_j) & (r_counts > k_lo),
                                     k_j, granted_k).to(i32)
         tkeys.append(torch.where(valid, local, sentinel)

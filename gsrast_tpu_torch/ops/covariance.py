@@ -54,6 +54,15 @@ def compute_cov3d(scale: torch.Tensor, quat: torch.Tensor) -> torch.Tensor:
     ], dim=-1)
 
 
+def cov3d_to_matrix(cov6: torch.Tensor) -> torch.Tensor:
+    """(..., 6) upper triangle [xx, xy, xz, yy, yz, zz] -> the (..., 3, 3)
+    symmetric matrix."""
+    xx, xy, xz, yy, yz, zz = cov6.unbind(-1)
+    return torch.stack([torch.stack([xx, xy, xz], dim=-1),
+                        torch.stack([xy, yy, yz], dim=-1),
+                        torch.stack([xz, yz, zz], dim=-1)], dim=-2)
+
+
 def compute_cov2d(mean_view: torch.Tensor, cov6: torch.Tensor,
                   view_rot: torch.Tensor, focal_x: torch.Tensor,
                   focal_y: torch.Tensor, tan_fov_x: torch.Tensor,

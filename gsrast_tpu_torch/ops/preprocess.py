@@ -24,6 +24,12 @@ class Preprocessed(NamedTuple):
     radius: torch.Tensor   # (N,) int32 pixel extent (0 = culled)
     rect: projection.TileRect  # covered tile rectangle
 
+    def detach(self) -> "Preprocessed":
+        """The same state cut from the graph: the integer structure the
+        tile plans are built from (the reference's `stop_gradient(prep)`)."""
+        return Preprocessed(*(x.detach() if isinstance(x, torch.Tensor)
+                              else x for x in self))
+
 
 def preprocess(gaussians: ActivatedGaussians, camera: Camera,
                render_cfg: cfg.RenderConfig,

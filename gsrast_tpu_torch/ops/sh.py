@@ -61,3 +61,10 @@ def eval_sh(sh: torch.Tensor, direction: torch.Tensor,
                   + SH_C3[5] * z * (xx - yy) * sh[..., 14, :]
                   + SH_C3[6] * x * (xx - 3.0 * yy) * sh[..., 15, :])
     return torch.clamp(result + 0.5, min=0.0)
+
+
+def eval_sh_dc_reference(sh_dc: torch.Tensor) -> torch.Tensor:
+    """The original CUDA renderer's DC-only shading, 0.5 + 0.4 * DC (the
+    reference's `eval_sh_dc_reference`); its point-cloud shader uses
+    another gain."""
+    return 0.5 + 0.4 * sh_dc

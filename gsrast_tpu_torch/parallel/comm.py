@@ -15,6 +15,10 @@ The boundaries:
     `shard_map` inserts for an input replicated over the mesh: an
     all_gather of the disjoint shards over the tile axis, then a sum over
     the data axis.
+  * `replicated_input`: a tensor every rank holds and uses whole (the
+    legacy tile-sharded paths preprocess all the Gaussians on every rank).
+    Its backward is the same sum over the mesh: an all_reduce over the
+    tile axis, then over the data axis.
   * `replicated_output`: a value every rank of the mesh holds (an image
     assembled by `all_gather`, a loss after `pmean`). `shard_map` divides
     the cotangent of an output replicated over a mesh axis by that axis's
@@ -134,6 +138,21 @@ class _ShardReplicated(torch.autograd.Function):
         return g, None
 
 
+class _ReplicatedInput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        for axis in (TILE_AXIS, DATA_AXIS):
+            group = _group_of(ctx.mesh, axis)
+            if group is not None:
+                g = _all_reduce_raw(g, group)
+        return g, None
+
+
 class _ReplicatedOutput(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, replicas):
@@ -198,6 +217,14 @@ def shard_replicated(x: torch.Tensor, mesh) -> torch.Tensor:
     if not x.is_floating_point():
         return _tile_shard(x, mesh)
     return _ShardReplicated.apply(x, mesh)
+
+
+def replicated_input(x: torch.Tensor, mesh) -> torch.Tensor:
+    """x, which every rank holds and uses whole; its backward sums the
+    ranks' cotangents over the mesh (module docstring)."""
+    if mesh.size() == 1 or not x.is_floating_point():
+        return x
+    return _ReplicatedInput.apply(x, mesh)
 
 
 def replicated_output(x: torch.Tensor, mesh) -> torch.Tensor:

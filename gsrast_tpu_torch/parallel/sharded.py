@@ -3,16 +3,19 @@
 `torch.distributed` where the reference runs one `shard_map` program.
 
   * Tile sharding: rank d of D owns tile ROWS, interleaved ({d, d+D, ...},
-    for load balance) or contiguous. Each rank preprocesses 1/D of the
-    Gaussians; their screen state reaches the ranks whose rows their rects
-    touch (`_relevance_exchange`, one all_to_all of the relevant set) or
-    every rank (`_sharded_prep`, an all_gather); each rank plans, sorts and
-    blends its own rows only (`plan_tiers`' row-local mode and the blend
-    kernels' local tiles), and the image is the all_gather of the ranks'
-    tiles.
+    for load balance) or contiguous. With tiers, each rank preprocesses
+    1/D of the Gaussians; their screen state reaches the ranks whose rows
+    their rects touch (`_relevance_exchange`, one all_to_all of the
+    relevant set) or every rank (`_sharded_prep`, an all_gather); each
+    rank plans, sorts and blends its own rows only (`plan_tiers`'
+    row-local mode and the blend kernels' local tiles). With `tiers=()`
+    (the legacy branches), every rank preprocesses all the Gaussians and
+    bins its own rows (`build_binning`'s row-local mode). The image is the
+    all_gather of the ranks' tiles.
   * Primitive sharding: each rank holds 1/D of the Gaussians, routes its
     (tile, depth, features) intersection records to the tile rows' owners
-    with one all_to_all (`plan_tiers`' routed mode), and restores the exact
+    with one all_to_all (`plan_tiers`' routed mode, or with `tiers=()` the
+    exact expansion, `expand_intersections`), and restores the exact
     global blend order by a (tile, depth, Gaussian id) sort.
   * Data parallelism: a camera batch over the data axis, the loss averaged
     over it (`make_sharded_train_step`).
@@ -22,11 +25,9 @@ mesh's boundaries follow `shard_map` (`parallel.comm`), so gradients equal
 `jax.grad` of the reference's sharded functions. Each function returns on
 every rank the whole image (and `stats` summed over the tile axis).
 
-Only the reference's multi-tier path (`render_cfg.tiers`) is ported. Its
-legacy `tiers=()` branches (`build_binning`, `_blend_local`,
-`expand_intersections`) are not: with empty tiers these functions raise.
-The reference's `xla` backend is the port's `torch` (the plain blend), its
-`pallas` the port's `cuda` (the kernels).
+The backends: 'cuda' (the kernels, on local tiles) and 'torch' (their
+plain versions), and 'autograd', the capped oracle (`render.tiled`), the
+reference's 'xla', whose per-tile cap counts in overflow_per_tile.
 """
 
 from __future__ import annotations
@@ -39,20 +40,18 @@ import torch
 from .. import config as cfg
 from ..camera import Camera
 from ..ops import binning
+from ..ops.binning import IMAX, sort_key
 from ..ops.preprocess import Preprocessed, preprocess
 from ..ops.projection import TileRect
+from ..ops.projection import depth_order_key
 from ..render.blend import BlendFunction
-from ..render.pipeline import (feature_rows, pack_sorted_features, sort_key,
-                               sort_pack)
-from ..render.tiled import RenderOutput, untile, untile_cf
+from ..render.pipeline import (feature_rows, pack_features,
+                               pack_sorted_features, sort_pack)
+from ..render.tiled import (RenderOutput, blend_sorted_xla, blend_tiles_xla,
+                            untile, untile_cf)
 from ..scene.gaussians import ActivatedGaussians
 from . import comm
 from .mesh import DATA_AXIS, TILE_AXIS, axis_size
-
-LEGACY_TIERS = ("the sharded paths need render_cfg.tiers: the reference's "
-                "legacy tiers=() branches (build_binning, _blend_local, "
-                "expand_intersections) are not ported")
-IMAX = 2**31 - 1
 
 
 def _rows_per_device(grid_h: int, n_dev: int) -> int:
@@ -97,14 +96,12 @@ def exchange_budget(tiers, n_pad: int, n_dev: int, interleave: bool,
                          for k, f in tiers_d)
 
 
-def _detached(prep: Preprocessed) -> Preprocessed:
-    return Preprocessed(*(x.detach() if isinstance(x, torch.Tensor) else x
-                          for x in prep))
+SHARDED_BACKENDS = ("cuda", "torch", "autograd")
 
 
 def _blend_backend(backend: str) -> str:
-    if backend not in ("cuda", "torch"):
-        raise ValueError(f"the sharded paths blend with 'cuda' or 'torch', "
+    if backend not in SHARDED_BACKENDS:
+        raise ValueError(f"the sharded paths blend with {SHARDED_BACKENDS}, "
                          f"got {backend!r}")
     return backend
 
@@ -127,6 +124,14 @@ def _shard(g: ActivatedGaussians, mesh) -> ActivatedGaussians:
     (N divisible by D), its gradient summed over the mesh."""
     return ActivatedGaussians(**{
         f.name: comm.shard_replicated(getattr(g, f.name), mesh)
+        for f in dataclasses.fields(g)})
+
+
+def _replicated(g: ActivatedGaussians, mesh) -> ActivatedGaussians:
+    """Gaussians every rank holds and uses whole (the legacy branches),
+    their gradient summed over the mesh."""
+    return ActivatedGaussians(**{
+        f.name: comm.replicated_input(getattr(g, f.name), mesh)
         for f in dataclasses.fields(g)})
 
 
@@ -218,23 +223,60 @@ def _relevance_exchange(g_local: ActivatedGaussians, camera: Camera,
     return prep_r, ovf_send
 
 
+def _blend_local(prep: Preprocessed, bins: binning.Binning, grid_h: int,
+                 grid_w: int, render_cfg: cfg.RenderConfig, rpd: int,
+                 row0: int, row_stride: int, backend: str) -> tuple:
+    """Blend this rank's tiles (rows {row0 + r row_stride : r < rpd}) of a
+    `Binning`: 'cuda'/'torch' through `pack_features` and the blend on the
+    local tiles, 'autograd' through the oracle on the local rows. Returns
+    (rgb (T, 3, P) over the background, final_t (T, P), n_contrib (T, P),
+    overflow_per_tile: the oracle's cap's drops, else 0)."""
+    if backend == "autograd":
+        rgb, ft, nc, ovf = blend_tiles_xla(
+            prep, bins, grid_h, grid_w, render_cfg, num_local_rows=rpd,
+            row0=row0, row_stride=row_stride)
+        return rgb.transpose(1, 2), ft, nc, ovf
+    rgb, ft, nc = BlendFunction.apply(
+        pack_features(prep, bins), bins.tile_starts, grid_h, grid_w,
+        render_cfg.tile_h, render_cfg.tile_w, backend, rpd * grid_w,
+        (row0, row_stride))
+    return _over_background(rgb, ft, render_cfg), ft, nc, 0
+
+
 def _local_tiles(prep: Preprocessed, render_cfg: cfg.RenderConfig,
                  cfg_d: cfg.RenderConfig, grid_h: int, grid_w: int, rpd: int,
                  row0: int, row_stride: int, backend: str) -> tuple:
     """This rank's tiles (rows {row0 + r row_stride : r < rpd}) through the
     fused path with the device-scaled tiers of cfg_d: the row-local plan,
     the sort-pack at the local tile count, the blend on the local tiles and
-    the background. Returns (rgb (T, 3, P), final_t (T, P), n_contrib
-    (T, P), the plan)."""
+    the background (the oracle: the plan's (tile, depth) order and
+    `_blend_local`). Returns (rgb (T, 3, P), final_t (T, P), n_contrib
+    (T, P), overflow_per_tile, the plan)."""
     tpd = rpd * grid_w
-    plan = binning.plan_tiers(_detached(prep), grid_h, grid_w, cfg_d,
+    plan = binning.plan_tiers(prep.detach(), grid_h, grid_w, cfg_d,
                               num_local_rows=rpd, row0=row0,
                               row_stride=row_stride)
+    if backend == "autograd":
+        return (*_blend_local(prep, binning.binning_from_plan(plan, tpd),
+                              grid_h, grid_w, render_cfg, rpd, row0,
+                              row_stride, backend), plan)
     feat, tile_starts = sort_pack(feature_rows(prep), plan, tpd)
     rgb, ft, nc = BlendFunction.apply(
         feat, tile_starts, grid_h, grid_w, render_cfg.tile_h,
         render_cfg.tile_w, backend, tpd, (row0, row_stride))
-    return _over_background(rgb, ft, render_cfg), ft, nc, plan
+    return _over_background(rgb, ft, render_cfg), ft, nc, 0, plan
+
+
+def _legacy_local_binning(act: ActivatedGaussians, camera: Camera,
+                          render_cfg: cfg.RenderConfig, grid_h: int,
+                          grid_w: int, rpd: int, row0: int, row_stride: int,
+                          capacity: int) -> tuple:
+    """The legacy branches' local work: preprocess all the Gaussians and
+    bin this rank's rows. Returns (prep, the Binning)."""
+    prep = preprocess(act, camera, render_cfg)
+    return prep, binning.build_binning(
+        prep.detach(), grid_h, grid_w, render_cfg, capacity,
+        num_local_rows=rpd, row0=row0, row_stride=row_stride)
 
 
 def _over_background(rgb, ft, render_cfg: cfg.RenderConfig):
@@ -297,16 +339,38 @@ def render_tile_sharded(gaussians: ActivatedGaussians, camera: Camera,
     `prep_send_capacity` overrides the exchange's per-(source,
     destination) budget (`exchange_budget`). Stats, summed over the ranks:
     num_intersections, overflow_capacity (the exchange's send overflow),
-    overflow_tile_cap, overflow_per_tile (0: the blends walk true ranges).
-    """
-    if not render_cfg.tiers:
-        raise ValueError(LEGACY_TIERS)
+    overflow_tile_cap, overflow_per_tile (the oracle's cap; 0 on the
+    blends, which walk true ranges).
+
+    With `tiers=()`, the legacy branch: every rank preprocesses all the
+    Gaussians and bins its rows (`build_binning`, capacity
+    `render_cfg.capacity(N // max(D // 2, 1))`, the reference's); the
+    exchange options do not apply, and overflow_capacity counts the
+    binning's capacity drops."""
     backend = _blend_backend(backend or render_cfg.backend)
     grid_h, grid_w = render_cfg.grid_shape(camera.height, camera.width)
     n_dev, d = axis_size(mesh, TILE_AXIS), mesh.get_local_rank(TILE_AXIS)
     rpd = _rows_per_device(grid_h, n_dev)
     row_stride = n_dev if interleave else 1
     row0 = d if interleave else d * rpd
+    size = (mesh, grid_h, grid_w, rpd, interleave, render_cfg, camera.height,
+            camera.width)
+    names = ("num_intersections", "overflow_capacity", "overflow_tile_cap",
+             "overflow_per_tile")
+    if not render_cfg.tiers:
+        capacity = render_cfg.capacity(
+            gaussians.means.shape[0] // max(n_dev // 2, 1))
+        prep, bins = _legacy_local_binning(
+            _replicated(gaussians, mesh), camera, render_cfg, grid_h, grid_w,
+            rpd, row0, row_stride, capacity)
+        rgb, ft, nc, ovf = _blend_local(prep, bins, grid_h, grid_w,
+                                        render_cfg, rpd, row0, row_stride,
+                                        backend)
+        image, final_t, n_contrib = _assemble(rgb, ft, nc, *size)
+        stats = _stats([bins.num_intersections, bins.overflow_capacity,
+                        bins.overflow_tile_cap, ovf], names, mesh)
+        return RenderOutput(image=image, final_t=final_t,
+                            n_contrib=n_contrib, stats=stats)
     gaussians = pad_gaussians(gaussians, n_dev)
     g_local = _shard(gaussians, mesh)
     if prep_exchange and n_dev > 1:
@@ -319,15 +383,12 @@ def render_tile_sharded(gaussians: ActivatedGaussians, camera: Camera,
         tiers_d = binning.shard_tiers(render_cfg.tiers,
                                       n_dev if interleave else 1)
         prep, ovf_x = _sharded_prep(g_local, camera, render_cfg, mesh), 0
-    rgb, ft, nc, plan = _local_tiles(
+    rgb, ft, nc, ovf, plan = _local_tiles(
         prep, render_cfg, render_cfg.replace(tiers=tiers_d), grid_h, grid_w,
         rpd, row0, row_stride, backend)
-    image, final_t, n_contrib = _assemble(
-        rgb, ft, nc, mesh, grid_h, grid_w, rpd, interleave, render_cfg,
-        camera.height, camera.width)
-    stats = _stats([plan.total, ovf_x, plan.overflow_tile_cap, 0],
-                   ("num_intersections", "overflow_capacity",
-                    "overflow_tile_cap", "overflow_per_tile"), mesh)
+    image, final_t, n_contrib = _assemble(rgb, ft, nc, *size)
+    stats = _stats([plan.total, ovf_x, plan.overflow_tile_cap, ovf], names,
+                   mesh)
     return RenderOutput(image=image, final_t=final_t, n_contrib=n_contrib,
                         stats=stats)
 
@@ -361,6 +422,34 @@ def default_send_capacity(n_total: int, n_dev: int,
                       // (n_dev * n_dev) * 4 // 128) * 128)
 
 
+def _expanded_routes(prep: Preprocessed, grid_w: int, rpd: int,
+                     ltile_bits: int, capacity: int) -> tuple:
+    """The legacy primitive-sharded path's slots, the reference's: the
+    exact expansion (`expand_intersections`) of each visible Gaussian's
+    whole rect, `capacity` slots, slot (i, k) on the k-th tile of the rect
+    row-major, keyed by the route `dest << ltile_bits | local tile` of
+    contiguous ownership (rpd rows a rank) and the full depth bits; dead
+    slots route IMAX. Returns (route, depth key, Gaussian (-1 dead), total,
+    the intersections past the capacity)."""
+    rect = prep.rect
+    rw = torch.clamp(rect.x_max - rect.x_min, min=0)
+    touched = torch.where(prep.radius > 0, rw * torch.clamp(
+        rect.y_max - rect.y_min, min=0), 0)
+    gi, k, _, total = binning.expand_intersections(touched, capacity)
+    valid = torch.arange(capacity, device=gi.device) < total
+    gil = gi.long()
+    rw_g = torch.clamp(rw, min=1)[gil]
+    ry = k // rw_g
+    y = rect.y_min[gil] + ry
+    x = rect.x_min[gil] + (k - ry * rw_g)
+    dest = y // rpd
+    route = torch.where(
+        valid, (dest << ltile_bits) | ((y - dest * rpd) * grid_w + x), IMAX)
+    dkey = torch.where(valid, depth_order_key(prep.depth)[gil], 0)
+    return (route.to(torch.int32), dkey, torch.where(valid, gi, -1), total,
+            torch.clamp(total - capacity, min=0))
+
+
 def render_primitive_sharded(gaussians: ActivatedGaussians, camera: Camera,
                              render_cfg: cfg.RenderConfig, mesh,
                              backend: Optional[str] = None,
@@ -373,8 +462,9 @@ def render_primitive_sharded(gaussians: ActivatedGaussians, camera: Camera,
 
     Per rank d of D (contiguous tile-row ownership, rpd rows each):
       1. preprocess the shard;
-      2. the routed tier plan: each slot keyed by (destination | local
-         tile, depth);
+      2. the routed tier plan, or with `tiers=()` the exact expansion of
+         every rect (`_expanded_routes`, `render_cfg.capacity(nl)` slots):
+         each slot keyed by (destination | local tile, depth);
       3. one stable sort groups the slots by destination; fixed (D, c_send)
          send buffers take them by gather (overflow counted, never silent);
       4. one all_to_all exchanges keys, depths, global ids and the 9
@@ -384,9 +474,8 @@ def render_primitive_sharded(gaussians: ActivatedGaussians, camera: Camera,
     `send_capacity` defaults to `default_send_capacity`, rounded up to 128.
     Stats, summed over the ranks: num_intersections (min(total, D c_send)
     a rank), overflow_send, overflow_capacity (tiles past the plan's
-    k_last or a budget), overflow_per_tile (0)."""
-    if not render_cfg.tiers:
-        raise ValueError(LEGACY_TIERS)
+    k_last or a budget, or past the expansion's capacity),
+    overflow_per_tile (the oracle's cap; 0 on the blends)."""
     backend = _blend_backend(backend or render_cfg.backend)
     grid_h, grid_w = render_cfg.grid_shape(camera.height, camera.width)
     n_dev, d = axis_size(mesh, TILE_AXIS), mesh.get_local_rank(TILE_AXIS)
@@ -402,13 +491,20 @@ def render_primitive_sharded(gaussians: ActivatedGaussians, camera: Camera,
     ltile_bits = binning.route_bits(rpd, grid_w, n_dev)
 
     prep = preprocess(gaussians, camera, render_cfg)
-    plan = binning.plan_tiers(_detached(prep), grid_h, grid_w, render_cfg,
-                              dest_rows=rpd, n_dest=n_dev)
-    by_route = torch.sort(sort_key(plan.tile_key, plan.depth_key),
-                          stable=True).indices
-    sroute = plan.tile_key[by_route].long()
-    sdkey = plan.depth_key[by_route]
-    sgauss = plan.gauss[by_route].long()
+    if render_cfg.tiers:
+        plan = binning.plan_tiers(prep.detach(), grid_h, grid_w, render_cfg,
+                                  dest_rows=rpd, n_dest=n_dev)
+        route, dkey, gauss, total, ovf_expand = (
+            plan.tile_key, plan.depth_key, plan.gauss, plan.total,
+            plan.overflow_tile_cap)
+    else:
+        route, dkey, gauss, total, ovf_expand = _expanded_routes(
+            prep.detach(), grid_w, rpd, ltile_bits,
+            render_cfg.capacity(nl))
+    by_route = torch.sort(sort_key(route, dkey), stable=True).indices
+    sroute = route[by_route].long()
+    sdkey = dkey[by_route]
+    sgauss = gauss[by_route].long()
     sdest = torch.clamp(sroute >> ltile_bits, max=n_dev)
     dest_starts = torch.searchsorted(
         sdest, torch.arange(n_dev + 1, device=dev), side="left")
@@ -445,15 +541,23 @@ def render_primitive_sharded(gaussians: ActivatedGaussians, camera: Camera,
         side="left", out_int32=True)
     s_feat = _permute_rows(recv_feat, perm, inv_perm)
     live = (sorted_ltile < tpd).to(s_feat.dtype)
-    feat = pack_sorted_features((s_feat * live[:, None]).T, sorted_ltile)
-    rgb, ft, nc = BlendFunction.apply(
-        feat, tile_starts, grid_h, grid_w, render_cfg.tile_h,
-        render_cfg.tile_w, backend, tpd, (d * rpd, 1))
+    if backend == "autograd":
+        rgb, ft, nc, ovf_tile = blend_sorted_xla(
+            s_feat[:, 0:2], s_feat[:, 2:5], s_feat[:, 6:9],
+            s_feat[:, 5] * live, tile_starts, grid_h, grid_w, render_cfg,
+            num_local_rows=rpd, row0=d * rpd)
+        rgb = rgb.transpose(1, 2)
+    else:
+        feat = pack_sorted_features((s_feat * live[:, None]).T, sorted_ltile)
+        rgb, ft, nc = BlendFunction.apply(
+            feat, tile_starts, grid_h, grid_w, render_cfg.tile_h,
+            render_cfg.tile_w, backend, tpd, (d * rpd, 1))
+        rgb, ovf_tile = _over_background(rgb, ft, render_cfg), 0
     image, final_t, n_contrib = _assemble(
-        _over_background(rgb, ft, render_cfg), ft, nc, mesh, grid_h, grid_w, rpd, False, render_cfg,
+        rgb, ft, nc, mesh, grid_h, grid_w, rpd, False, render_cfg,
         camera.height, camera.width)
-    stats = _stats([torch.clamp(plan.total, max=c_recv), ovf_send,
-                    plan.overflow_tile_cap, 0],
+    stats = _stats([torch.clamp(total, max=c_recv), ovf_send, ovf_expand,
+                    ovf_tile],
                    ("num_intersections", "overflow_send",
                     "overflow_capacity", "overflow_per_tile"), mesh)
     return RenderOutput(image=image, final_t=final_t, n_contrib=n_contrib,
@@ -480,7 +584,11 @@ def make_sharded_train_step(render_cfg: cfg.RenderConfig, mesh, height: int,
       * the parameters are replicated: their gradient is summed over the
         mesh explicitly (`comm.shard_replicated`'s backward), which
         `shard_map` does implicitly, so every rank holds the gradient of
-        the reference's step.
+        the reference's step;
+      * with `tiers=()`, the legacy branch: every rank preprocesses all the
+        Gaussians and bins its rows (`build_binning`, capacity
+        `render_cfg.capacity(max(N // max(D // 2, 1), 1024))`, the
+        reference's), the gradient summed by `comm.replicated_input`.
 
     Returns train_step(scene, cameras, targets) -> (loss, grads): `scene` a
     `GaussianScene` (the same on every rank), `cameras` a batched `Camera`
@@ -491,8 +599,6 @@ def make_sharded_train_step(render_cfg: cfg.RenderConfig, mesh, height: int,
     from ..scene.dataset import camera_at
     from ..train.loss import rgb_loss
 
-    if not render_cfg.tiers:
-        raise ValueError(LEGACY_TIERS)
     backend = _blend_backend(backend or render_cfg.backend)
     n_tile = axis_size(mesh, TILE_AXIS)
     grid_h, grid_w = render_cfg.grid_shape(height, width)
@@ -502,10 +608,10 @@ def make_sharded_train_step(render_cfg: cfg.RenderConfig, mesh, height: int,
     row0 = d_tile if interleave else d_tile * rpd
     first = mesh.get_local_rank(DATA_AXIS) * cameras_per_device
 
-    def train_step(scene, cameras: Camera, targets: torch.Tensor):
-        params = scene.param_groups()
-        for p in params.values():
-            p.grad = None
+    def tier_tiles(scene):
+        """The tier path: this rank's shard of the Gaussians through the
+        exchange and the row-local plan. Returns camera -> this rank's
+        (rgb, final_t, n_contrib)."""
         act = pad_gaussians(scene.activated(), n_tile)
         n_pad = act.means.shape[0]
         g_local = _shard(act, mesh)
@@ -515,19 +621,42 @@ def make_sharded_train_step(render_cfg: cfg.RenderConfig, mesh, height: int,
         else:
             tiers_d = binning.shard_tiers(render_cfg.tiers, 1)
         cfg_d = render_cfg.replace(tiers=tiers_d)
-        losses = []
-        for i in range(first, first + cameras_per_device):
-            cam = camera_at(cameras, i)
+
+        def tiles(cam):
             if n_tile > 1:
                 prep, _ = _relevance_exchange(g_local, cam, render_cfg, mesh,
                                               rpd, interleave, c_send)
             else:
                 prep = _sharded_prep(g_local, cam, render_cfg, mesh)
-            rgb, ft, nc, _ = _local_tiles(prep, render_cfg, cfg_d, grid_h,
-                                          grid_w, rpd, row0, row_stride,
-                                          backend)
-            image, _, _ = _assemble(rgb, ft, nc, mesh, grid_h, grid_w, rpd,
-                                    interleave, render_cfg, height, width)
+            return _local_tiles(prep, render_cfg, cfg_d, grid_h, grid_w, rpd,
+                                row0, row_stride, backend)[:3]
+        return tiles
+
+    def legacy_tiles(scene):
+        """The legacy branch: all the Gaussians on every rank, its rows
+        binned. Returns camera -> (rgb, final_t, n_contrib)."""
+        act = _replicated(scene.activated(), mesh)
+        capacity = render_cfg.capacity(
+            max(act.means.shape[0] // max(n_tile // 2, 1), 1024))
+
+        def tiles(cam):
+            prep, bins = _legacy_local_binning(act, cam, render_cfg, grid_h,
+                                               grid_w, rpd, row0, row_stride,
+                                               capacity)
+            return _blend_local(prep, bins, grid_h, grid_w, render_cfg, rpd,
+                                row0, row_stride, backend)[:3]
+        return tiles
+
+    def train_step(scene, cameras: Camera, targets: torch.Tensor):
+        params = scene.param_groups()
+        for p in params.values():
+            p.grad = None
+        tiles = (tier_tiles if render_cfg.tiers else legacy_tiles)(scene)
+        losses = []
+        for i in range(first, first + cameras_per_device):
+            image, _, _ = _assemble(*tiles(camera_at(cameras, i)), mesh,
+                                    grid_h, grid_w, rpd, interleave,
+                                    render_cfg, height, width)
             losses.append(rgb_loss(image, targets[i], ssim_weight))
         loss = comm.pmean(torch.stack(losses).mean(), mesh, DATA_AXIS)
         loss.backward()

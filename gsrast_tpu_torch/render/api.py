@@ -14,11 +14,26 @@ from ..ops.preprocess import preprocess
 from ..scene.gaussians import ActivatedGaussians, GaussianScene
 from .dense import render_dense
 from .pipeline import render_tiled
-from .tiled import RenderOutput
+from .tiled import RenderOutput, render_tiled_xla
 
 
 def _activated(scene) -> ActivatedGaussians:
     return scene.activated() if isinstance(scene, GaussianScene) else scene
+
+
+def _on_card(scene, camera: Camera, off_card: str) -> str:
+    """'cuda' where the scene or the camera lies on a CUDA device, else
+    `off_card`."""
+    on_card = "cuda" in (scene.means.device.type, camera.device.type)
+    return "cuda" if on_card else off_card
+
+
+def default_render_config(scene, camera: Camera) -> cfg.RenderConfig:
+    """The reference's default, `RenderConfig()`: 8x128 tiles and the legacy
+    binning (`tiers=()`), on the blend kernels ('cuda') where the scene or
+    the camera lies on the card and elsewhere on the reference's own
+    default backend, the 'autograd' oracle (its 'xla')."""
+    return cfg.RenderConfig(backend=_on_card(scene, camera, "autograd"))
 
 
 def scene_tile_counts(scene, camera: Camera,
@@ -49,9 +64,8 @@ def auto_render_config(scene, camera: Camera,
     for parity with the reference; `diag/tile_sweep.py` times the tile
     shapes on the card."""
     if base is None:
-        on_card = "cuda" in (scene.means.device.type, camera.device.type)
-        backend = "cuda" if on_card else "torch"
-        base = cfg.RenderConfig(tile_h=16, tile_w=32, backend=backend)
+        base = cfg.RenderConfig(tile_h=16, tile_w=32,
+                                backend=_on_card(scene, camera, "torch"))
     rcfg = base
     counts = scene_tile_counts(scene, camera, rcfg)
     mean_c = float(counts.mean()) if counts.size else 0.0
@@ -67,12 +81,17 @@ def auto_render_config(scene, camera: Camera,
 
 
 def render(scene: Union[GaussianScene, ActivatedGaussians], camera: Camera,
-           render_cfg: cfg.RenderConfig,
+           render_cfg: cfg.RenderConfig | None = None,
            mean2d_delta: torch.Tensor | None = None) -> RenderOutput:
-    """Render `scene` from `camera`, differentiably. The tiled backends
-    need `render_cfg.tiers` (see `auto_render_config`); 'dense' renders by
-    brute force and takes no `mean2d_delta`. `mean2d_delta`: see
-    `ops.preprocess.preprocess`."""
+    """Render `scene` from `camera`, differentiably. `render_cfg` defaults
+    to the reference's `RenderConfig()` (`default_render_config`: the
+    legacy binning); `auto_render_config` gives the product's tier plan.
+    'cuda' and 'torch' blend with the kernels or their plain versions
+    (`render.pipeline`), 'autograd' is the capped oracle (`render.tiled`),
+    'dense' renders by brute force and takes no `mean2d_delta`.
+    `mean2d_delta`: see `ops.preprocess.preprocess`."""
+    if render_cfg is None:
+        render_cfg = default_render_config(scene, camera)
     if render_cfg.backend not in cfg.BACKENDS:
         raise ValueError(f"unknown backend {render_cfg.backend!r}; expected "
                          f"one of {cfg.BACKENDS}")
@@ -80,4 +99,7 @@ def render(scene: Union[GaussianScene, ActivatedGaussians], camera: Camera,
         if mean2d_delta is not None:
             raise ValueError("the dense backend takes no mean2d_delta")
         return render_dense(_activated(scene), camera, render_cfg)
+    if render_cfg.backend == "autograd":
+        return render_tiled_xla(_activated(scene), camera, render_cfg,
+                                mean2d_delta)
     return render_tiled(_activated(scene), camera, render_cfg, mean2d_delta)

@@ -1,21 +1,30 @@
 """The tile-sorted forward render: preprocess -> tile plan -> (tile, depth)
-sort that packs per-intersection features -> blend -> image assembly.
+sort and per-intersection features -> blend -> image assembly.
 
 Counterpart of the reference's `render_tiled_pallas`
-(`gsrast_tpu/render/pallas_pipeline.py`). The reference lets nine feature
-rows ride its sort as payloads because a gather is slow on the TPU; here one
-stable sort of a 64-bit (tile, depth) key yields the permutation, and the
-feature rows are gathered by it.
+(`gsrast_tpu/render/pallas_pipeline.py`), both of its plans:
+  * a non-empty `tiers`: the multi-tier plan, whose one stable sort of a
+    64-bit (tile, depth) key yields the permutation by which the feature
+    rows are gathered (`sort_pack`; the reference lets nine feature rows
+    ride its sort as payloads because a gather is slow on the TPU);
+  * `tiers=()`, the reference's default: the legacy two-tier binning
+    (`ops.binning.build_binning`) and its sorted Gaussian ids, by which the
+    feature rows are gathered (`pack_features`, the reference's
+    `_gather_sorted`).
+Both feed the same `BlendFunction`, so both run the blend kernels.
 
 Differentiable end to end: the tile plan is integer structure built from
 detached preprocess outputs (the reference's `stop_gradient(prep)`), the
-blend is `BlendFunction`, and autograd turns the sort-pack gather
-(`index_select`) into an index-add of per-intersection gradients by
-Gaussian id (`index_add_`, atomic adds on the card), which replaces the
-reference's routing sorts (`pallas_pipeline.py:218-244`). The gather is
-not written `feat_nt[:, gauss]`: that differentiates into `index_put_`
-with accumulation, whose CUDA kernel sorts the indices and sums each run
-of equal ones serially, 38 ms of a 64 ms 1M/1080p fwd+bwd on an H100.
+blend is `BlendFunction`, and autograd turns the gather (`index_select`)
+into an index-add of per-intersection gradients by Gaussian id
+(`index_add_`, atomic adds on the card), which replaces the reference's
+routing sorts (`pallas_pipeline.py:78-118, 218-244`). The gather is not
+written `feat_nt[:, gauss]`: that differentiates into `index_put_` with
+accumulation, whose CUDA kernel sorts the indices and sums each run of
+equal ones serially, 38 ms of a 64 ms 1M/1080p fwd+bwd on an H100. Dead
+slots gather Gaussian `slot mod N` (`sort_pack`, `render.tiled.
+gather_sorted`), so that the index-add spreads their (exactly zero)
+cotangents over distinct addresses instead of queueing atomics on one.
 """
 
 from __future__ import annotations
@@ -27,10 +36,11 @@ import torch
 from .. import config as cfg
 from ..camera import Camera
 from ..ops import binning
+from ..ops.binning import sort_key
 from ..ops.preprocess import Preprocessed, preprocess
 from ..scene.gaussians import ActivatedGaussians
 from .blend import BlendFunction
-from .tiled import RenderOutput, untile, untile_cf
+from .tiled import RenderOutput, gather_sorted, untile, untile_cf
 
 
 def feature_rows(prep: Preprocessed) -> torch.Tensor:
@@ -38,13 +48,6 @@ def feature_rows(prep: Preprocessed) -> torch.Tensor:
     mx, my, conic A, B, C, opacity, r, g, b."""
     return torch.cat([prep.mean2d.T, prep.conic.T, prep.opacity[None],
                       prep.color.T], dim=0)
-
-
-def sort_key(high: torch.Tensor, low: torch.Tensor) -> torch.Tensor:
-    """int64 keys that order (high, low) int32 pairs lexicographically as
-    signed values: (tile, depth bits) for the (tile, depth) sort, whose
-    depth bits order positive depths as the depths."""
-    return (high.long() << 32) | (low.long() + 2**31)
 
 
 def sort_pack(feat_nt: torch.Tensor, plan: binning.TierPlan,
@@ -56,10 +59,8 @@ def sort_pack(feat_nt: torch.Tensor, plan: binning.TierPlan,
     come first, in exactly the order of the reference's stable two-key sort
     of (tile, depth); the dead slots after `tile_starts[-1]` are in no
     defined order and carry no defined features: slot s gathers Gaussian
-    s mod N, so that the backward's index-add spreads their cotangents
-    (exactly zero: the blend backward writes nothing outside the tiles'
-    segments) over distinct addresses instead of queueing atomics on
-    one."""
+    s mod N (module docstring; the blend backward writes nothing outside
+    the tiles' segments)."""
     perm = torch.sort(sort_key(plan.tile_key, plan.depth_key),
                       stable=True).indices
     tile = plan.tile_key[perm]
@@ -73,6 +74,17 @@ def sort_pack(feat_nt: torch.Tensor, plan: binning.TierPlan,
     tile_starts = torch.searchsorted(tile, queries, side="left",
                                      out_int32=True)
     return feat, tile_starts
+
+
+def pack_features(prep: Preprocessed,
+                  binning_: binning.Binning) -> torch.Tensor:
+    """The legacy binning's blend input, the reference's `pack_features`:
+    the (9, N) feature rows gathered by `sorted_gauss` (`gather_sorted`:
+    dead slots zero), and row 9 the sorted tile ids
+    (`pack_sorted_features`). Returns (10, C)."""
+    return pack_sorted_features(
+        gather_sorted(feature_rows(prep), binning_.sorted_gauss, dim=1),
+        binning_.sorted_tile)
 
 
 def pack_sorted_features(feat_t: torch.Tensor,
@@ -90,15 +102,30 @@ def pack_sorted_features(feat_t: torch.Tensor,
 def render_tiled(gaussians: ActivatedGaussians, camera: Camera,
                  render_cfg: cfg.RenderConfig,
                  mean2d_delta: torch.Tensor | None = None) -> RenderOutput:
+    """The 'cuda' and 'torch' backends' render. Stats, on both plans:
+    num_visible, num_intersections, overflow_capacity (the legacy
+    capacity's drops; 0 under tiers), overflow_tile_cap, overflow_per_tile
+    (0: the blend walks true ranges), radii."""
     tile_h, tile_w = render_cfg.tile_h, render_cfg.tile_w
     grid_h, grid_w = render_cfg.grid_shape(camera.height, camera.width)
     num_tiles = grid_h * grid_w
 
     prep = preprocess(gaussians, camera, render_cfg, mean2d_delta)
-    plan = binning.plan_tiers(
-        Preprocessed(*(x.detach() if isinstance(x, torch.Tensor) else x
-                       for x in prep)), grid_h, grid_w, render_cfg)
-    feat, tile_starts = sort_pack(feature_rows(prep), plan, num_tiles)
+    zero = torch.zeros((), dtype=torch.int32, device=prep.depth.device)
+    if render_cfg.tiers:
+        plan = binning.plan_tiers(prep.detach(), grid_h, grid_w, render_cfg)
+        feat, tile_starts = sort_pack(feature_rows(prep), plan, num_tiles)
+        bin_stats = {"num_intersections": plan.total,
+                     "overflow_capacity": zero,
+                     "overflow_tile_cap": plan.overflow_tile_cap}
+    else:
+        bins = binning.build_binning(
+            prep.detach(), grid_h, grid_w, render_cfg,
+            render_cfg.capacity(gaussians.means.shape[0]))
+        feat, tile_starts = pack_features(prep, bins), bins.tile_starts
+        bin_stats = {"num_intersections": bins.num_intersections,
+                     "overflow_capacity": bins.overflow_capacity,
+                     "overflow_tile_cap": bins.overflow_tile_cap}
     rgb_tiles, ft_tiles, nc_tiles = BlendFunction.apply(
         feat, tile_starts, grid_h, grid_w, tile_h, tile_w, render_cfg.backend)
 
@@ -111,11 +138,7 @@ def render_tiled(gaussians: ActivatedGaussians, camera: Camera,
     n_contrib = untile(nc_tiles, grid_h, grid_w, render_cfg, camera.height,
                        camera.width)
     image_cf = image_cf + final_t[None] * background[:, None, None]
-    stats = {
-        "num_visible": torch.sum(prep.radius > 0),
-        "num_intersections": plan.total,
-        "overflow_tile_cap": plan.overflow_tile_cap,
-        "radii": prep.radius,
-    }
+    stats = {"num_visible": torch.sum(prep.radius > 0),
+             "overflow_per_tile": zero, "radii": prep.radius, **bin_stats}
     return RenderOutput(image=image_cf.permute(1, 2, 0), final_t=final_t,
                         n_contrib=n_contrib, stats=stats)

@@ -127,15 +127,18 @@ def render_synthetic_dataset(scene, path: str, n_views: int = 16,
                              ) -> Tuple[str, List[Camera]]:
     """Render `scene` from an orbit rig around its bbox and save the views
     as a dataset: the ground truth for multi-view training. `render_cfg`
-    defaults to `auto_render_config` on the first view."""
-    from ..render.api import auto_render_config, render
+    defaults to the reference's `RenderConfig()` (8x128 tiles, the legacy
+    binning), on the blend kernels for a scene on the card and on the
+    'autograd' oracle, the reference's default, elsewhere
+    (`render.api.default_render_config`)."""
+    from ..render.api import default_render_config, render
 
     mn, mx = (x.cpu().numpy() for x in scene.bbox())
     center = (mn + mx) / 2.0
     radius = max(float(np.linalg.norm(mx - mn)) * radius_scale / 2.0, 1e-3)
     cams = orbit_cameras(center, radius, width, height, n_views,
                          device=scene.means.device)
-    render_cfg = render_cfg or auto_render_config(scene, cams[0])
+    render_cfg = render_cfg or default_render_config(scene, cams[0])
     with torch.no_grad():
         images = [render(scene, cam, render_cfg).image for cam in cams]
     save_dataset(path, cams, images)

@@ -37,11 +37,14 @@ def test_render_config_defaults_equal_reference():
     port, ref = tcfg.RenderConfig(), jcfg.RenderConfig()
     for field in dataclasses.fields(port):
         if field.name == "backend":
-            continue  # 'cuda'/'torch' here, 'xla'/'pallas'/'dense' there
+            continue  # 'cuda'/'torch'/'autograd' here, 'pallas'/'xla' there
         assert getattr(port, field.name) == getattr(ref, field.name), (
             field.name)
     assert port.backend == "cuda"
-    assert tcfg.BACKENDS == ("cuda", "torch", "dense")
+    assert tcfg.BACKENDS == ("cuda", "torch", "autograd", "dense")
+    for n in (0, 1, 100, 1_000_000):
+        assert port.capacity(n) == ref.capacity(n)
+    assert port.padded_shape(1080, 1920) == ref.padded_shape(1080, 1920)
     for hw in ((1080, 1920), (128, 128), (7, 300)):
         assert port.grid_shape(*hw) == ref.grid_shape(*hw)
 

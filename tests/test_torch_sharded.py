@@ -35,6 +35,12 @@ JCFG = RenderConfig(max_per_tile=1024, tile_chunk=2,
                     intersect_capacity_factor=16.0, background=BACKGROUND,
                     tiers=TIERS, backend="xla")
 W, H = 256, 64
+# The legacy branches' configuration: the reference test_sharded.py's CFG
+# (8x128 tiles, no tiers), its per-tile cap 256 above this scene's longest
+# segment, so that its xla blend drops nothing the port's blends walk.
+LEGACY = RenderConfig(max_per_tile=256, tile_chunk=2,
+                      intersect_capacity_factor=16.0, background=BACKGROUND,
+                      backend="xla")
 IMAGE_ATOL = 2e-5
 GRAD_TOL = dict(atol=2e-4, rtol=1e-4)
 
@@ -82,7 +88,8 @@ def port(tmp_path_factory):
     port_batch = camera_batch_to_torch(batch)
     arrays.update(_camera_arrays("batch", port_batch))
     arrays.update(tiers=np.array(TIERS), background=np.array(BACKGROUND),
-                  targets=_targets())
+                  targets=_targets(),
+                  legacy_max_per_tile=np.array(LEGACY.max_per_tile))
     return launch_ranks(4, "sharded_rank_cases", arrays,
                         tmp_path_factory.mktemp("ranks"))
 
@@ -185,22 +192,25 @@ def test_skewed_send_overflow_counted(port):
     assert int(out.stats["overflow_send"]) > 0
 
 
-def test_train_step_matches_reference(port, ref_scene):
-    """make_sharded_train_step on a (2, 2) mesh, one camera a data rank:
-    loss (1e-5 relative) and the five groups' gradients against `jax.grad`
-    of the reference step, the same on every rank."""
+@pytest.mark.parametrize("prefix", ["train", "legacy_train"])
+def test_train_step_matches_reference(port, ref_scene, prefix):
+    """make_sharded_train_step on a (2, 2) mesh, one camera a data rank, on
+    the tier plan and on the legacy branch: loss (1e-5 relative) and the
+    five groups' gradients against `jax.grad` of the reference step, the
+    same on every rank."""
     _, batch = _cameras()
     mesh = make_mesh((2, 2), jax.devices()[:4])
     params, mask = split_params(ref_scene)
-    step = make_sharded_train_step(JCFG, mesh, H, W, cameras_per_device=1,
+    step = make_sharded_train_step(JCFG if prefix == "train" else LEGACY,
+                                   mesh, H, W, cameras_per_device=1,
                                    optimizer=None, backend="xla")
     _, _, loss, grads = jax.jit(step)(params, mask, None, batch,
                                       jnp.asarray(_targets()))
     got = port[0]
-    np.testing.assert_allclose(float(got["train_loss"]), float(loss),
+    np.testing.assert_allclose(float(got[f"{prefix}_loss"]), float(loss),
                                rtol=1e-5)
     for field in SCENE_FIELDS:
-        key = f"train_grad_{field}"
+        key = f"{prefix}_grad_{field}"
         _assert_replicated(port, key)
         ref = np.asarray(grads[field])
         np.testing.assert_allclose(got[key].reshape(ref.shape), ref,
@@ -245,14 +255,74 @@ def test_default_send_capacity_matches_reference_formula():
         RenderConfig().intersect_capacity_factor)
 
 
+@pytest.mark.parametrize("interleave,backend", [
+    (True, "torch"), (False, "torch"), (True, "autograd")])
+def test_legacy_tile_sharded_matches_reference(port, ref_scene, interleave,
+                                               backend):
+    """render_tile_sharded's legacy branch (tiers=(): every rank bins its
+    rows with build_binning) against the reference's, its xla backend:
+    image, stats and the gradient of sum(image) with respect to the
+    means; the port's blend's plain version and its oracle alike."""
+    jcam, _ = _cameras()
+    mesh = make_mesh((1, 4), jax.devices()[:4])
+    act = ref_scene.activated()
+
+    def loss(means):
+        out = render_tile_sharded(act.replace(means=means), jcam, LEGACY,
+                                  mesh, interleave=interleave)
+        return jnp.sum(out.image), (out.image, out.stats)
+
+    (_, (image, stats)), grad = jax.jit(
+        jax.value_and_grad(loss, has_aux=True))(act.means)
+    key = f"legacy_tile_{int(interleave)}{backend}"
+    for part in ("image", "stats", "grad"):
+        _assert_replicated(port, f"{key}_{part}")
+    got = port[0]
+    assert int(stats["overflow_per_tile"]) == 0
+    assert int(stats["overflow_capacity"]) == 0
+    np.testing.assert_allclose(got[f"{key}_image"], np.asarray(image),
+                               atol=IMAGE_ATOL)
+    np.testing.assert_array_equal(got[f"{key}_stats"],
+                                  _stats(stats, TILE_STATS))
+    np.testing.assert_allclose(got[f"{key}_grad"], np.asarray(grad),
+                               **GRAD_TOL)
+
+
+def test_legacy_primitive_sharded_matches_reference(port, ref_scene):
+    """render_primitive_sharded's legacy branch (tiers=(): the exact
+    expansion, expand_intersections) against the reference's: image, stats
+    and the gradient of sum(image) with respect to the padded means."""
+    jcam, _ = _cameras()
+    mesh = make_mesh((1, 4), jax.devices()[:4])
+    act = pad_gaussians(ref_scene.activated(), 4)
+
+    def loss(means):
+        out = render_primitive_sharded(act.replace(means=means), jcam,
+                                       LEGACY, mesh, send_capacity=4096)
+        return jnp.sum(out.image), (out.image, out.stats)
+
+    (_, (image, stats)), grad = jax.jit(
+        jax.value_and_grad(loss, has_aux=True))(act.means)
+    _assert_replicated(port, "legacy_prim_image")
+    got = port[0]
+    assert int(stats["overflow_send"]) == int(stats["overflow_capacity"]) == 0
+    np.testing.assert_allclose(got["legacy_prim_image"], np.asarray(image),
+                               atol=IMAGE_ATOL)
+    np.testing.assert_array_equal(got["legacy_prim_stats"],
+                                  _stats(stats, PRIM_STATS))
+    np.testing.assert_allclose(got["legacy_prim_grad"], np.asarray(grad),
+                               **GRAD_TOL)
+
+
 def test_legacy_tiers_raise():
-    """With tiers=() the sharded functions raise and name the unported
-    legacy path, before touching a process group."""
-    rcfg = gt.RenderConfig()
+    """With tiers=() the sharded functions take the legacy branch; they
+    raise only for a backend they cannot blend with ('dense'), before
+    touching a process group."""
+    rcfg = gt.RenderConfig(backend="dense")
     for call in (lambda: ps.render_tile_sharded(None, None, rcfg, None),
                  lambda: ps.render_primitive_sharded(None, None, rcfg, None),
                  lambda: ps.make_sharded_train_step(rcfg, None, H, W)):
-        with pytest.raises(ValueError, match="legacy tiers"):
+        with pytest.raises(ValueError, match="blend with"):
             call()
 
 

@@ -481,8 +481,10 @@ def sharded_rank_cases(arrays: dict) -> dict:
     """The sharded tests' cases on this rank (4 ranks): the tile-sharded
     render in its four modes and the primitive-sharded render on the (1, 4)
     mesh, each image with its stats and the gradient of sum(image) with
-    respect to the means; the skewed scene's send overflow; and on the
-    (2, 2) mesh the train step's loss and gradients."""
+    respect to the means; the skewed scene's send overflow; the legacy
+    branches (tiers=()) of both renders, the tile-sharded one also on the
+    'autograd' oracle; and on the (2, 2) mesh the train step's loss and
+    gradients, on both plans."""
     import dataclasses
 
     from gsrast_tpu_torch.parallel import comm
@@ -532,14 +534,40 @@ def sharded_rank_cases(arrays: dict) -> dict:
             out[f"skew{cap}_image"] = res.image
             out[f"skew{cap}_stats"] = _stats_vector(res.stats, PRIM_STATS)
 
+    # The legacy branches (tiers=()), the reference test_sharded.py's CFG.
+    legacy = gt.RenderConfig(
+        max_per_tile=int(arrays["legacy_max_per_tile"]), tile_chunk=2,
+        intersect_capacity_factor=16.0, background=rcfg.background,
+        backend="torch")
+    for interleave, backend in ((True, "torch"), (False, "torch"),
+                                (True, "autograd")):
+        act = _rank_scene(arrays, "scene").activated()
+        means = act.means.detach().requires_grad_(True)
+        res = ps.render_tile_sharded(
+            dataclasses.replace(act, means=means), cam, legacy, mesh,
+            interleave=interleave, backend=backend)
+        res.image.sum().backward()
+        key = f"legacy_tile_{int(interleave)}{backend}"
+        out[f"{key}_image"] = res.image
+        out[f"{key}_stats"] = _stats_vector(res.stats, TILE_STATS)
+        out[f"{key}_grad"] = means.grad
+    g = shard("scene", with_grad=True)
+    res = ps.render_primitive_sharded(g, cam, legacy, mesh,
+                                      send_capacity=4096)
+    res.image.sum().backward()
+    out["legacy_prim_image"] = res.image
+    out["legacy_prim_stats"] = _stats_vector(res.stats, PRIM_STATS)
+    out["legacy_prim_grad"] = comm.all_gather(g.means.grad, mesh, TILE_AXIS)
+
     mesh22 = make_mesh((2, 2))
-    scene = _rank_scene(arrays, "scene")
-    step = ps.make_sharded_train_step(rcfg, mesh22, cam.height, cam.width,
-                                      cameras_per_device=1)
-    loss, grads = step(scene, _rank_camera(arrays, "batch"),
-                       torch.from_numpy(arrays["targets"]))
-    out["train_loss"] = loss
-    out.update({f"train_grad_{k}": v for k, v in grads.items()})
+    for prefix, config in (("train", rcfg), ("legacy_train", legacy)):
+        scene = _rank_scene(arrays, "scene")
+        step = ps.make_sharded_train_step(config, mesh22, cam.height,
+                                          cam.width, cameras_per_device=1)
+        loss, grads = step(scene, _rank_camera(arrays, "batch"),
+                           torch.from_numpy(arrays["targets"]))
+        out[f"{prefix}_loss"] = loss
+        out.update({f"{prefix}_grad_{k}": v for k, v in grads.items()})
     out["transports"] = np.array(sorted(comm.transports.items()))
     return out
 
