@@ -361,20 +361,74 @@ def order_ab(run, tile_starts) -> dict:
     return res
 
 
-def bisect_launch(name: str, args: tuple):
+def bisect_launch(name: str, args: tuple, order=None):
     """The bisection kernel `name` alone, for timing: one launch on `args`
     into an output allocated here, without the wrapper's bounds check (a
-    host sync) and zero fill, and not counted. Returns the launcher, which
-    returns the launch's CUDA error code."""
+    host sync) and zero fill, and not counted. C's and D's blocks take the
+    tiles in `order`, by default longest first (`tile_order_cuda`, made
+    here), as the wrappers launch them. Returns the launcher, which returns
+    the launch's CUDA error code."""
     from gsrast_tpu_torch import _kernels
+    from gsrast_tpu_torch.diag.bisect_bwd import CARRIED
+    from gsrast_tpu_torch.render.blend import tile_order_cuda
 
     starts, feat, *blocks = args
     out = torch.zeros_like(feat)
     fn = getattr(_kernels.load().lib, f"gsrast_bisect_{name}")
+    if name in CARRIED:
+        order = tile_order_cuda(starts) if order is None else order
+        blocks = (*blocks, order)
     ptrs = (starts.data_ptr(), len(starts) - 1, feat.data_ptr(),
             *(b.data_ptr() for b in blocks), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     return lambda: fn(*ptrs)
+
+
+def bisect_sizes(dev) -> dict:
+    """Phase 11's inputs of the bisection kernels, by size: the reference
+    script's ("script"); "full", trained_116k's WIDTH x HEIGHT tile plan with
+    each tile's segment rounded up to whole chunks of 128, feat 2 U[0, 1)
+    and seeded ft, nc (over the longest tile's positions) and drgb; and
+    "longest_tile", the longest of those tiles alone on fresh feat."""
+    from gsrast_tpu_torch.camera import auto_frame
+    from gsrast_tpu_torch.diag import bisect_bwd as bb
+    from gsrast_tpu_torch.ops import binning
+    from gsrast_tpu_torch.ops.preprocess import preprocess
+    from gsrast_tpu_torch.render.api import auto_render_config
+    from gsrast_tpu_torch.render.pipeline import feature_rows, sort_pack
+    from gsrast_tpu_torch.scene.ply import load_ply
+
+    scene = load_ply(FIXTURE_116K, device=dev)
+    cam = auto_frame(*scene.bbox(), WIDTH, HEIGHT, device=dev)
+    rcfg = auto_render_config(scene, cam)
+    gh, gw = rcfg.grid_shape(HEIGHT, WIDTH)
+    prep = preprocess(scene.activated(), cam, rcfg)
+    plan = binning.plan_tiers(prep, gh, gw, rcfg)
+    _, starts = sort_pack(feature_rows(prep), plan, gh * gw)
+    # Each tile's segment rounded up to whole chunks of 128.
+    padded = (starts[1:] - starts[:-1] + 127) // 128 * 128
+    full_starts = torch.cat([padded.new_zeros(1),
+                             padded.cumsum(0, dtype=torch.int32)])
+    t = gh * gw
+    gen_b = torch.Generator(device=dev).manual_seed(11)
+    full = {"starts": full_starts,
+            "feat": 2.0 * torch.rand((int(full_starts[-1]) // 8, 128),
+                                     generator=gen_b, device=dev),
+            "ft": torch.rand((t, 8, 128), generator=gen_b, device=dev),
+            "nc": torch.randint(0, int(padded.max()) + 1, (t, 8, 128),
+                                generator=gen_b, device=dev,
+                                dtype=torch.int32),
+            "drgb": torch.randn((t, 3, 8, 128), generator=gen_b,
+                                device=dev)}
+    longest = int(padded.max())
+    tile1 = {"starts": torch.tensor([0, longest], dtype=torch.int32,
+                                    device=dev),
+             "feat": 2.0 * torch.rand((longest // 8, 128),
+                                      generator=gen_b, device=dev),
+             **{k: full[k][int(padded.argmax())][None]
+                for k in ("ft", "nc", "drgb")}}
+    return {"script": bb.script_inputs(dev), "full": full,
+            "longest_tile": tile1}
 
 
 def event_ms(fn) -> float:
@@ -2123,39 +2177,20 @@ def main() -> int:
     assert [ln.split(": ")[1].split()[0] for ln in lines[1:]] == ["OK"] * 4
     assert min(launches_bisect.values()) > 0, launches_bisect
     with torch.inference_mode():
-        scene = load_ply(FIXTURE_116K, device=dev)
-        cam = auto_frame(*scene.bbox(), WIDTH, HEIGHT, device=dev)
-        rcfg = auto_render_config(scene, cam)
-        gh, gw = rcfg.grid_shape(HEIGHT, WIDTH)
-        prep = preprocess(scene.activated(), cam, rcfg)
-        plan = binning.plan_tiers(prep, gh, gw, rcfg)
-        _, starts = sort_pack(feature_rows(prep), plan, gh * gw)
-        # Each tile's segment rounded up to whole chunks of 128.
-        padded = (starts[1:] - starts[:-1] + 127) // 128 * 128
-        full_starts = torch.cat([padded.new_zeros(1),
-                                 padded.cumsum(0, dtype=torch.int32)])
-        t = gh * gw
-        gen_b = torch.Generator(device=dev).manual_seed(11)
-        full = {"starts": full_starts,
-                "feat": 2.0 * torch.rand((int(full_starts[-1]) // 8, 128),
-                                         generator=gen_b, device=dev),
-                "ft": torch.rand((t, 8, 128), generator=gen_b, device=dev),
-                "nc": torch.randint(0, int(padded.max()) + 1, (t, 8, 128),
-                                    generator=gen_b, device=dev,
-                                    dtype=torch.int32),
-                "drgb": torch.randn((t, 3, 8, 128), generator=gen_b,
-                                    device=dev)}
-        longest = int(padded.max())
-        tile1 = {"starts": torch.tensor([0, longest], dtype=torch.int32,
-                                        device=dev),
-                 "feat": 2.0 * torch.rand((longest // 8, 128),
-                                          generator=gen_b, device=dev),
-                 **{k: full[k][int(padded.argmax())][None]
-                    for k in ("ft", "nc", "drgb")}}
-        del scene, prep, plan, starts
-        sizes = {"script": bb.script_inputs(dev), "full": full,
-                 "longest_tile": tile1}
+        sizes = bisect_sizes(dev)
+        full, tile1 = sizes["full"], sizes["longest_tile"]
+        full_starts, t = full["starts"], len(full["starts"]) - 1
+        longest = int(tile1["starts"][-1])
         bisect = {}
+        bounds = {"full": (int(full_starts[-1]) // 8, t),
+                  "longest_tile": (longest // 8, 1)}
+        # The order C's and D's wrappers launch first, alone on the full
+        # plan, and C and D there in index order against it.
+        order_raw = order_launch(full_starts)
+        assert order_raw() == 0
+        bisect_order_ms = cuda_ms(lambda: [order_raw() for _ in range(
+            RAW_REPS)]) / RAW_REPS
+        index_order = torch.arange(t, dtype=torch.int32, device=dev)
         for name, (cuda_fn, torch_fn) in bb.KERNELS.items():
             res = {}
             for size, inputs in sizes.items():
@@ -2176,6 +2211,21 @@ def main() -> int:
                     "wrapper_ms": cuda_ms(lambda: cuda_fn(*args)),
                     "plain_ms": cuda_ms(lambda: torch_fn(*args), iters=3,
                                         warmup=1)}
+                if name in bb.CARRIED and size in bounds:
+                    # Sums in a fixed order: a second launch, the same bits.
+                    res[size]["same_bits_twice"] = torch.equal(
+                        got, cuda_fn(*args))
+                    assert res[size]["same_bits_twice"], (name, size)
+                    bound_ms, by = bisect_bound(name, *bounds[size])
+                    res[size].update(bound_ms=bound_ms, bound_by=by,
+                                     share=bound_ms / res[size]["ms"])
+                if name in bb.CARRIED and size == "full":
+                    in_index = bisect_launch(name, args, index_order)
+                    assert in_index() == 0, name
+                    res[size].update(
+                        order_ms=bisect_order_ms, index_order_ms=cuda_ms(
+                            lambda: [in_index() for _ in range(RAW_REPS)])
+                        / RAW_REPS)
             # Where every row lies in a full chunk (the full size), A and B
             # are one PyTorch product; C and D carry a chain, no call does.
             scale_of = {"a": 2.0, "b": torch.where(

@@ -107,11 +107,14 @@ def load() -> Library:
     fn = lib.gsrast_blend_backward
     fn.argtypes = [vp, i64, vp, vp, *[i32] * 6, f32, f32, *[vp] * 6]
     fn.restype = ctypes.c_int
-    for name in ("a", "b", "c"):
+    for name in ("a", "b"):
         fn = getattr(lib, f"gsrast_bisect_{name}")
         fn.argtypes = [vp, i32, vp, vp, vp]
         fn.restype = ctypes.c_int
+    fn = lib.gsrast_bisect_c
+    fn.argtypes = [vp, i32, vp, vp, vp, vp]
+    fn.restype = ctypes.c_int
     fn = lib.gsrast_bisect_d
-    fn.argtypes = [vp, i32, vp, vp, vp, vp, vp, vp]
+    fn.argtypes = [vp, i32, vp, vp, vp, vp, vp, vp, vp]
     fn.restype = ctypes.c_int
     return Library(lib=lib, path=path, build_seconds=seconds, build_log=log)

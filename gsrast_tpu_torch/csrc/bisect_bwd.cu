@@ -5,8 +5,8 @@
 // reproduce, in small, the access pattern of the tile-blend backward: per tile t
 // (one block), the tile's chunks of 128 intersections are walked newest first,
 // k = nchunks-1 ... 0, where chunk k is the 16 rows x 128 lanes of feat starting at
-// row start/8 + 16 k; each chunk is staged into a two-slot shared-memory buffer by
-// asynchronous copies, computed into a two-slot output buffer, and written back.
+// row start/8 + 16 k; each chunk is staged into a two-slot shared-memory ring by
+// asynchronous copies, the slot of chunk k being k % 2.
 //   A: out = 2 feat.
 //   B: for each row r = 15 ... 0, lane 16 j (j = 0..7) = 3 feat[r, 16 j], 0 elsewhere.
 //   C: a carry t_run of 8 x 128 floats starts at 1 per tile and runs through every
@@ -18,36 +18,73 @@
 //      t_run drgb[t, 0] ft[t]. ft, nc and drgb are per-tile (8, 128) blocks.
 // Rows that no full chunk covers are not written: the wrapper zero-fills `out`.
 //
-// What bounds it on this card: C and D are a chain of 128 dependent steps per chunk,
-// each a division of the carry and a 1,024-element sum, so a tile takes its number
-// of steps times the latency of one block reduction; A and B read and write each
-// chunk once and are bound by memory bandwidth. The design keeps the TPU kernel's
-// pattern, which is what the script is for: the carry spread over the block's 256
-// threads (4 elements each, in registers), the next chunk's copy (cp.async, 16 bytes
-// a thread) issued before the current chunk is computed, and the slot of chunk k is
-// k % 2, so the first chunk processed (k = nchunks-1) lands in slot (nchunks-1) % 2,
-// not 0 (the fault signature the script was written to find). Per (r, j) step each
-// warp sums its lanes by shuffles and lane 0 leaves the partial in shared memory; one
-// barrier per row, then 8 threads add the 8 warps' partials for the row's 8 sums.
+// A and B (`bisect_kernel`) read and write each chunk once and are bound by memory
+// bandwidth: the whole chunk is staged (cp.async, 16 bytes a thread), the next
+// chunk's copy issued before the current one is computed, into a two-slot output
+// buffer written back as float4.
 //
-// Rounding: products, sums and the division use the _rn intrinsics (no fused
-// multiply-adds, IEEE division, denormals kept; the file is built without
-// --use_fast_math). The 1,024-element sums are taken as a tree, where the plain
-// version and the TPU reference take their own orders.
+// C and D (`carry_kernel`) are bound by instruction issue: 1,024 divisions, products
+// and sums a step, and a 1,024-element sum a step. Their design:
+// - The carry stays a real (8, 128) vector in registers, kCarryPerThread elements a
+//   thread, as the blend backward's transmittance is.
+// - Only what the steps read is staged: lanes 16 j of the chunk's 16 rows, 128
+//   floats by 4-byte cp.async, into the slot k % 2 (the first chunk processed,
+//   k = nchunks-1, lands in slot (nchunks-1) % 2, not 0: the fault signature the
+//   script was written to find).
+// - Once per chunk, 128 threads make the step table: d = 1 + 0.001 v, r = RN(1/d)
+//   (__frcp_rn), and for D the step's gate index (idx where v > 0.1, else INT_MAX,
+//   so that `gate < nc` is the whole gate); every thread reads it as broadcasts.
+// - A step divides each element by one correction of the reciprocal (Markstein):
+//   q = RN(t r), e = fma(-q, d, t), t' = fma(e, r, q), which is RN(t / d), the bits
+//   of __fdiv_rn, for d in [1, 2^20] and |t| in [2^-100, 2^100] (below that the
+//   residual e can be subnormal and inexact). A chunk runs unchecked when its 128
+//   divisors lie in that range and every element of the thread starts it above
+//   2^-99 times their product, rounded up (so none can fall under 2^-100 within
+//   it), and under 2^100; else each element is checked per step and falls to
+//   __fdiv_rn outside the range. Both are exact paths of the same division. In D
+//   an element that is not gated keeps its carry, as dividing by 1 + 0 does.
+// - Products and sums stay separate _rn operations in the order of the plain
+//   version (C: carry v; D: (carry dc) ft); only the division uses fma.
+// - Each thread keeps a row's 8 partial sums and a warp reduces them together by
+//   transposing as it adds (4 + 2 + 1 + 1 + 1 = 9 shuffles for 8 sums, not 40):
+//   lane l ends with the warp's sum of step l / 4. The warps' partials go to shared
+//   memory; after the chunk's last row the block adds each step's in warp order and
+//   writes the chunk's rows whole as float4, after the next chunk's first barrier.
+//   Two barriers a chunk; every sum is taken in a fixed order, so two launches give
+//   the same bits.
+// - Block b takes tile order[b], longest first from the wrapper
+//   (render/blend.py::tile_order_cuda): at 1080p the longest tile has 4.5 times
+//   the mean's chunks, and started last it would set the kernel's time.
+//
+// Rounding: the _rn intrinsics throughout (no contracted multiply-adds, denormals
+// kept; the file is built without --use_fast_math). The 1,024-element sums are taken
+// as a tree, where the plain version and the TPU reference take their own orders.
 
+#include <climits>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;                // A and B
 constexpr int kRows = 16;                    // rows of 128 lanes per chunk
 constexpr int kLanes = 128;
 constexpr int kChunk = kRows * kLanes;       // floats per chunk
 constexpr int kCarry = 8 * kLanes;           // elements of the carry
-constexpr int kPerThread = kCarry / kThreads;  // 4 carry elements a thread
 constexpr int kSteps = 8;                    // scalar reads per row, at lanes 16 j
+constexpr int kChunkSteps = kRows * kSteps;  // steps per chunk
+
+constexpr int kCarryThreads = 256;          // C and D
+constexpr int kCarryWarps = kCarryThreads / 32;
+constexpr int kCarryPerThread = kCarry / kCarryThreads;
+static_assert(kCarryThreads >= kChunkSteps && kCarry % kCarryThreads == 0,
+              "one table entry a thread, the carry spread evenly");
+
+constexpr unsigned kFull = 0xffffffffu;
+// The range in which one correction of the reciprocal gives RN(t / d).
+constexpr float kDivisorMax = 0x1p20f;
+constexpr float kCarryMin = 0x1p-100f;
+constexpr float kCarryMax = 0x1p100f;
 
 enum Mode { kModeA = 0, kModeB = 1, kModeC = 2, kModeD = 3 };
 
@@ -60,46 +97,18 @@ __device__ __forceinline__ void stage_chunk(float* dst, const float* src) {
   __pipeline_commit();
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, off));
-  }
-  return x;
-}
-
 template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 bisect_kernel(const int* __restrict__ starts, const float* __restrict__ feat,
-              const float* __restrict__ ft, const int* __restrict__ nc,
-              const float* __restrict__ drgb, float* __restrict__ out) {
+              float* __restrict__ out) {
   __shared__ __align__(16) float buf[2][kChunk];
   __shared__ __align__(16) float obuf[2][kChunk];
-  __shared__ float red[2][kSteps][kWarps];
 
   const int tile = blockIdx.x;
   const int start = starts[tile];
   const int nchunks = (starts[tile + 1] - start) / 128;
   if (nchunks <= 0) return;
   const long long row0 = start / 8;
-  const int warp = threadIdx.x / 32;
-  const int lane_id = threadIdx.x % 32;
-
-  float carry[kPerThread], ftv[kPerThread], dcv[kPerThread];
-  int ncv[kPerThread];
-#pragma unroll
-  for (int q = 0; q < kPerThread; ++q) {
-    carry[q] = 1.0f;
-    if (kMode == kModeD) {
-      const long long e = static_cast<long long>(tile) * kCarry +
-                          threadIdx.x * kPerThread + q;
-      ftv[q] = ft[e];
-      ncv[q] = nc[e];
-      // drgb is (T, 3, 8, 128): channel 0 of this tile.
-      dcv[q] = drgb[static_cast<long long>(tile) * 3 * kCarry +
-                    threadIdx.x * kPerThread + q];
-    }
-  }
 
   stage_chunk(buf[(nchunks - 1) % 2], feat + (row0 + kRows * (nchunks - 1)) * kLanes);
   for (int k = nchunks - 1; k >= 0; --k) {
@@ -122,48 +131,9 @@ bisect_kernel(const int* __restrict__ starts, const float* __restrict__ feat,
       }
     } else {
       for (int r = kRows - 1; r >= 0; --r) {
-        if (kMode == kModeB) {
-          if (threadIdx.x < kLanes) {
-            const int l = threadIdx.x;
-            o[r * kLanes + l] = (l % 16 == 0) ? __fmul_rn(3.0f, b[r * kLanes + l]) : 0.0f;
-          }
-          continue;
-        }
-#pragma unroll
-        for (int j = 0; j < kSteps; ++j) {
-          const float v = b[r * kLanes + 16 * j];  // a broadcast read
-          float p = 0.0f;
-          if (kMode == kModeC) {
-            const float div = __fadd_rn(1.0f, __fmul_rn(0.001f, v));
-#pragma unroll
-            for (int q = 0; q < kPerThread; ++q) {
-              carry[q] = __fdiv_rn(carry[q], div);
-              p = __fadd_rn(p, __fmul_rn(carry[q], v));
-            }
-          } else {
-            const int idx = 128 * k + 8 * r + j;
-            const float a_on = __fmul_rn(0.001f, v);
-#pragma unroll
-            for (int q = 0; q < kPerThread; ++q) {
-              const float a = (idx < ncv[q] && v > 0.1f) ? a_on : 0.0f;
-              carry[q] = __fdiv_rn(carry[q], __fadd_rn(1.0f, a));
-              p = __fadd_rn(p, __fmul_rn(__fmul_rn(carry[q], dcv[q]), ftv[q]));
-            }
-          }
-          p = warp_sum(p);
-          if (lane_id == 0) red[r % 2][j][warp] = p;
-        }
-        // One barrier per row. The partials alternate between two buffers by row
-        // parity, so row r - 1's writers never meet row r's readers.
-        __syncthreads();
         if (threadIdx.x < kLanes) {
           const int l = threadIdx.x;
-          float s = 0.0f;
-          if (l % 16 == 0) {
-#pragma unroll
-            for (int w = 0; w < kWarps; ++w) s = __fadd_rn(s, red[r % 2][l / 16][w]);
-          }
-          o[r * kLanes + l] = s;
+          o[r * kLanes + l] = (l % 16 == 0) ? __fmul_rn(3.0f, b[r * kLanes + l]) : 0.0f;
         }
       }
     }
@@ -174,12 +144,223 @@ bisect_kernel(const int* __restrict__ starts, const float* __restrict__ feat,
   }
 }
 
+// RN(t / d) from r = RN(1 / d): exact for d in [1, kDivisorMax] and |t| in
+// [kCarryMin, kCarryMax].
+__device__ __forceinline__ float div_corrected(float t, float d, float r) {
+  const float q = __fmul_rn(t, r);
+  const float e = __fmaf_rn(-q, d, t);
+  return __fmaf_rn(e, r, q);
+}
+
+// RN(t / d) for any t and d: the correction inside its range, __fdiv_rn outside.
+__device__ __forceinline__ float div_checked(float t, float d, float r) {
+  const float a = fabsf(t);
+  if (d >= 1.0f && d <= kDivisorMax && a >= kCarryMin && a <= kCarryMax) {
+    return div_corrected(t, d, r);
+  }
+  return __fdiv_rn(t, d);
+}
+
+// One row's 8 steps on this thread's elements; p[j] = this thread's sum for step j.
+template <int kMode, bool kUnchecked>
+__device__ __forceinline__ void row_steps(const float4* __restrict__ tab,
+                                          float (&carry)[kCarryPerThread],
+                                          const float (&ftv)[kCarryPerThread],
+                                          const float (&dcv)[kCarryPerThread],
+                                          const int (&ncv)[kCarryPerThread],
+                                          float (&p)[kSteps]) {
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j) {
+    const float4 e = tab[j];  // a broadcast read: v, d, RN(1/d), D's gate index
+    const int gate = __float_as_int(e.w);
+#pragma unroll
+    for (int q = 0; q < kCarryPerThread; ++q) {
+      if (kMode == kModeC || gate < ncv[q]) {
+        carry[q] = kUnchecked ? div_corrected(carry[q], e.y, e.z)
+                              : div_checked(carry[q], e.y, e.z);
+      }
+      const float term = kMode == kModeC
+                             ? __fmul_rn(carry[q], e.x)
+                             : __fmul_rn(__fmul_rn(carry[q], dcv[q]), ftv[q]);
+      p[j] = q == 0 ? term : __fadd_rn(p[j], term);
+    }
+  }
+}
+
+// The warp's sums of p[0..7], transposed as they are added: each butterfly stage
+// sends half of the values still held, so lane l ends with the sum of p[l / 4] over
+// the 32 lanes. Every lane adds in the same fixed order.
+__device__ __forceinline__ float warp_sums8(const float (&p)[kSteps], int lane) {
+  float a[4], b[2];
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    a[i] = __fadd_rn(h16 ? p[i + 4] : p[i],
+                     __shfl_xor_sync(kFull, h16 ? p[i] : p[i + 4], 16));
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    b[i] = __fadd_rn(h8 ? a[i + 2] : a[i],
+                     __shfl_xor_sync(kFull, h8 ? a[i] : a[i + 2], 8));
+  }
+  float c = __fadd_rn(h4 ? b[1] : b[0], __shfl_xor_sync(kFull, h4 ? b[0] : b[1], 4));
+  c = __fadd_rn(c, __shfl_xor_sync(kFull, c, 2));
+  return __fadd_rn(c, __shfl_xor_sync(kFull, c, 1));
+}
+
+// The minimum of one block an SM lets ptxas keep more values in flight (C 48 and
+// D 56 registers, against 32 and 48 without it), which ran faster on the H100.
 template <int kMode>
-int launch(const int* starts, int num_tiles, const float* feat, const float* ft,
-           const int* nc, const float* drgb, float* out, void* stream) {
+__global__ void __launch_bounds__(kCarryThreads, 1)
+carry_kernel(const int* __restrict__ starts, const float* __restrict__ feat,
+             const float* __restrict__ ft, const int* __restrict__ nc,
+             const float* __restrict__ drgb, const int* __restrict__ order,
+             float* __restrict__ out) {
+  __shared__ float staged[2][kChunkSteps];           // v of each step
+  __shared__ float4 table[2][kChunkSteps];           // v, d, RN(1/d), gate index
+  __shared__ __align__(16) float warp_product[2][4];  // the stager warps' divisors
+  __shared__ float red[2][kRows][kSteps][kCarryWarps];  // warps' partial sums
+
+  const int tile = order[blockIdx.x];
+  const int start = starts[tile];
+  const int nchunks = (starts[tile + 1] - start) / 128;
+  if (nchunks <= 0) return;
+  const long long row0 = start / 8;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const bool stager = threadIdx.x < kChunkSteps;  // thread s owns step s = 8 r + j
+  const int s_row = threadIdx.x / kSteps, s_lane = 16 * (threadIdx.x % kSteps);
+
+  float carry[kCarryPerThread], ftv[kCarryPerThread], dcv[kCarryPerThread];
+  int ncv[kCarryPerThread];
+#pragma unroll
+  for (int q = 0; q < kCarryPerThread; ++q) {
+    carry[q] = 1.0f;
+    ftv[q] = dcv[q] = 0.0f;
+    ncv[q] = 0;
+    if (kMode == kModeD) {
+      const long long e = static_cast<long long>(tile) * kCarry +
+                          threadIdx.x * kCarryPerThread + q;
+      ftv[q] = ft[e];
+      ncv[q] = nc[e];
+      // drgb is (T, 3, 8, 128): channel 0 of this tile.
+      dcv[q] = drgb[static_cast<long long>(tile) * 3 * kCarry +
+                    threadIdx.x * kCarryPerThread + q];
+    }
+  }
+
+  auto stage = [&](int k) {
+    if (stager) {
+      __pipeline_memcpy_async(&staged[k % 2][threadIdx.x],
+                              feat + (row0 + kRows * k + s_row) * kLanes + s_lane, 4);
+    }
+    __pipeline_commit();
+  };
+  // Chunk k's rows, whole: lane 16 j of row r is the warps' sum for step (r, j),
+  // added in warp order; the other lanes 0.
+  auto write_rows = [&](int k) {
+    float4* dst = reinterpret_cast<float4*>(out + (row0 + kRows * k) * kLanes);
+    for (int f = threadIdx.x; f < kChunk / 4; f += kCarryThreads) {
+      const int r = f / (kLanes / 4), quad = f % (kLanes / 4);
+      float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (quad % 4 == 0) {
+#pragma unroll
+        for (int w = 0; w < kCarryWarps; ++w) {
+          o.x = __fadd_rn(o.x, red[k % 2][r][quad / 4][w]);
+        }
+      }
+      dst[f] = o;
+    }
+  };
+
+  stage(nchunks - 1);
+  for (int k = nchunks - 1; k >= 0; --k) {
+    const int slot = k % 2;
+    if (k > 0) {
+      // The next chunk's copy goes out before this one is computed. Its slot held
+      // chunk k + 1, whose readers all passed the barrier that ended its table.
+      stage(k - 1);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();  // chunk k's values have landed; chunk k + 1's partials are in
+    if (k + 1 < nchunks) write_rows(k + 1);
+    if (stager) {
+      const float v = staged[slot][threadIdx.x];
+      const float d = __fadd_rn(1.0f, __fmul_rn(0.001f, v));
+      const int idx = 128 * k + threadIdx.x;
+      table[slot][threadIdx.x] = make_float4(
+          v, d, __frcp_rn(d), __int_as_float(v > 0.1f ? idx : INT_MAX));
+      // The product of the warp's 32 divisors, rounded up, or +inf where one lies
+      // outside [1, kDivisorMax] (NaN included), for the chunk's bound.
+      float f = (d >= 1.0f && d <= kDivisorMax) ? d : __int_as_float(0x7f800000);
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        f = __fmul_ru(f, __shfl_xor_sync(kFull, f, off));
+      }
+      if (lane == 0) warp_product[slot][warp] = f;
+    }
+    __syncthreads();  // the step table is complete
+
+    const float4* tab = table[slot];
+    auto finish_row = [&](int r, const float (&p)[kSteps]) {
+      const float sum = warp_sums8(p, lane);
+      if (lane % 4 == 0) red[slot][r][lane / 4][warp] = sum;
+    };
+    // The carry's range, checked once for the chunk where all its divisors allow
+    // it, else per element and step.
+    const float4 qp = *reinterpret_cast<const float4*>(warp_product[slot]);
+    const float chunk_floor = __fmul_ru(
+        0x1p-99f, __fmul_ru(__fmul_ru(qp.x, qp.y), __fmul_ru(qp.z, qp.w)));
+    float lo = fabsf(carry[0]), hi = lo;
+#pragma unroll
+    for (int q = 1; q < kCarryPerThread; ++q) {
+      lo = fminf(lo, fabsf(carry[q]));
+      hi = fmaxf(hi, fabsf(carry[q]));
+    }
+    if (lo >= chunk_floor && hi <= kCarryMax) {
+      auto unchecked_row = [&](int r) {
+        float p[kSteps];
+        row_steps<kMode, true>(tab + kSteps * r, carry, ftv, dcv, ncv, p);
+        finish_row(r, p);
+      };
+      if (kMode == kModeC) {
+        // Two rows at a time: a row's sum overlaps the next row's divisions (D's
+        // larger register set does better one row at a time).
+#pragma unroll 2
+        for (int r = kRows - 1; r >= 0; --r) unchecked_row(r);
+      } else {
+        for (int r = kRows - 1; r >= 0; --r) unchecked_row(r);
+      }
+    } else {
+      for (int r = kRows - 1; r >= 0; --r) {
+        float p[kSteps];
+        row_steps<kMode, false>(tab + kSteps * r, carry, ftv, dcv, ncv, p);
+        finish_row(r, p);
+      }
+    }
+  }
+  __syncthreads();  // chunk 0's partials are in
+  write_rows(0);
+}
+
+template <int kMode>
+int launch(const int* starts, int num_tiles, const float* feat, float* out,
+           void* stream) {
   if (num_tiles == 0) return static_cast<int>(cudaSuccess);
   bisect_kernel<kMode><<<num_tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      starts, feat, ft, nc, drgb, out);
+      starts, feat, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kMode>
+int launch_carry(const int* starts, int num_tiles, const float* feat, const float* ft,
+                 const int* nc, const float* drgb, const int* order, float* out,
+                 void* stream) {
+  if (num_tiles == 0) return static_cast<int>(cudaSuccess);
+  carry_kernel<kMode><<<num_tiles, kCarryThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      starts, feat, ft, nc, drgb, order, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -188,25 +369,28 @@ int launch(const int* starts, int num_tiles, const float* feat, const float* ft,
 // starts: (num_tiles + 1,) int32; feat, out: (R, 128) float32, 16-byte aligned, with
 // every tile's full chunks inside R rows (the wrapper checks); out zero-filled by the
 // caller. D also takes ft (num_tiles, 8, 128) float32, nc (num_tiles, 8, 128) int32
-// and drgb (num_tiles, 3, 8, 128) float32. Each runs on `stream` without
+// and drgb (num_tiles, 3, 8, 128) float32. C's and D's block b takes tile order[b]
+// ((num_tiles,) int32, a permutation of the tiles). Each runs on `stream` without
 // synchronising and returns cudaGetLastError() after the launch.
 extern "C" int gsrast_bisect_a(const int* starts, int num_tiles, const float* feat,
                                float* out, void* stream) {
-  return launch<kModeA>(starts, num_tiles, feat, nullptr, nullptr, nullptr, out, stream);
+  return launch<kModeA>(starts, num_tiles, feat, out, stream);
 }
 
 extern "C" int gsrast_bisect_b(const int* starts, int num_tiles, const float* feat,
                                float* out, void* stream) {
-  return launch<kModeB>(starts, num_tiles, feat, nullptr, nullptr, nullptr, out, stream);
+  return launch<kModeB>(starts, num_tiles, feat, out, stream);
 }
 
 extern "C" int gsrast_bisect_c(const int* starts, int num_tiles, const float* feat,
-                               float* out, void* stream) {
-  return launch<kModeC>(starts, num_tiles, feat, nullptr, nullptr, nullptr, out, stream);
+                               const int* order, float* out, void* stream) {
+  return launch_carry<kModeC>(starts, num_tiles, feat, nullptr, nullptr, nullptr,
+                              order, out, stream);
 }
 
 extern "C" int gsrast_bisect_d(const int* starts, int num_tiles, const float* feat,
                                const float* ft, const int* nc, const float* drgb,
-                               float* out, void* stream) {
-  return launch<kModeD>(starts, num_tiles, feat, ft, nc, drgb, out, stream);
+                               const int* order, float* out, void* stream) {
+  return launch_carry<kModeD>(starts, num_tiles, feat, ft, nc, drgb, order, out,
+                              stream);
 }

@@ -23,10 +23,17 @@ walks). What each computes, for every tile t with
      v > 0.1 (elementwise), else 0; t_run /= 1 + a; the sum is of
      t_run drgb[t, 0] ft[t].
 
-Rows that no full chunk covers stay 0. Each kernel has a plain PyTorch
-version (`bisect_*_torch`, any device), which the CPU runs and the kernel is
-checked against, and a wrapper (`bisect_*_cuda`, CUDA tensors only) that
-launches the kernel or raises.
+Rows that no full chunk covers stay 0. On the card A and B stage whole
+chunks; C and D stage only the 128 values a chunk's steps read, make a
+table of each step's divisor and its correctly rounded reciprocal once a
+chunk, divide each carry element by one correction of that reciprocal (the
+bits of IEEE division; `__fdiv_rn` where the carry is under 2^-100 or a
+divisor outside [1, 2^20]), and sum a row's 8 steps in one transposing warp
+reduction, in a fixed order (two launches, the same bits); their blocks
+take the tiles longest first (`tile_order_cuda`, a launch of its own). Each
+kernel has a plain PyTorch version (`bisect_*_torch`, any device), which
+the CPU runs and the kernel is checked against, and a wrapper
+(`bisect_*_cuda`, CUDA tensors only) that launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -39,12 +46,14 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from ..render.blend import tile_order_cuda
 
 ROWS, LANES = 16, 128
 CHUNK = ROWS * 8      # intersections per chunk
 CARRY = (8, LANES)    # the carried recurrence's shape
 # The reference script's inputs: four tiles of 2, 1, 0 and 1 chunks.
 SCRIPT_COUNTS = (2 * 128, 128, 0, 128)
+CARRIED = ("c", "d")  # the kernels that carry the recurrence
 NAMES = {"a": "A-readwrite", "b": "B-scalars", "c": "C-carries",
          "d": "D-blocked-ins"}
 
@@ -190,8 +199,12 @@ def _launch(name: str, starts: torch.Tensor, feat: torch.Tensor,
     fn = getattr(_kernels.load().lib, f"gsrast_bisect_{name}")
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream(feat.device).cuda_stream
-        code = fn(starts.data_ptr(), len(starts) - 1, feat.data_ptr(),
-                  *(x.data_ptr() for x in blocks), out.data_ptr(), stream)
+        ptrs = [starts.data_ptr(), len(starts) - 1, feat.data_ptr(),
+                *(x.data_ptr() for x in blocks)]
+        if name in CARRIED:  # the blocks take the longest tiles first
+            order = tile_order_cuda(starts)
+            ptrs.append(order.data_ptr())
+        code = fn(*ptrs, out.data_ptr(), stream)
     _kernels.launch_counts[f"bisect_{name}"] += 1
     if code != 0:
         raise RuntimeError(f"bisect_{name} kernel launch failed: CUDA error "
