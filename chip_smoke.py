@@ -15,7 +15,8 @@ reference benchmark) and the training path (whole-render gradients against
 the CPU, 30 steps at 1080p through the `train.trainer` API, the CLI `train`
 with a checkpoint resume, and the fwd+bwd and train-step times at the
 north-star size), the fault-bisection kernels through their entry point
-and against their plain versions at the script's shapes and at the size of
+(with the probe of what the L2 fetches for kernel B's reads) and against
+their plain versions at the script's shapes and at the size of
 trained_116k's 1080p plan, training from data through the CLI (a COLMAP
 scene of eight 1080p views of trained_116k with its means as SfM points,
 whose 32x64 tiles the blend kernels are also held at, a cameras.json
@@ -37,7 +38,10 @@ kernels at 1M/1080p timed by the benchmark and on trained_116k with its
 counted drops; both kernels against their plain versions on its inputs;
 the autograd oracle against the kernels, forward at 1080p and gradients at
 --small; build_binning on the card against the CPU; its sharded renders
-and train step on 2 gloo ranks); and
+and train step on 2 gloo ranks), and the counterparts of the reference's
+`__graft_entry__.py` and scaling harness (phase 18: the entry point's
+image against the blend's plain versions, the dry run on 2 and 4 gloo ranks sharing the
+card, the scaling harness --quick on 1, 2 and 4 ranks); and
 checks that each path went through the kernels. Each phase prints its
 lines before the next begins; the line before the last is the per-kernel
 JSON record, and the last is {"ok": true, "device": {...}}. Any failure
@@ -47,6 +51,7 @@ package beside the script. It imports no JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -338,7 +343,10 @@ def order_launch(tile_starts):
     fn = _kernels.load().lib.gsrast_tile_order
     ptrs = (tile_starts.data_ptr(), num_tiles, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    return lambda: fn(*ptrs)
+
+    def launch(_alive=out):  # its output lives as long as it
+        return fn(*ptrs)
+    return launch
 
 
 def order_ab(run, tile_starts) -> dict:
@@ -381,7 +389,10 @@ def bisect_launch(name: str, args: tuple, order=None):
     ptrs = (starts.data_ptr(), len(starts) - 1, feat.data_ptr(),
             *(b.data_ptr() for b in blocks), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    return lambda: fn(*ptrs)
+
+    def launch(_alive=(out, *blocks)):  # its buffers live as long as it
+        return fn(*ptrs)
+    return launch
 
 
 def bisect_sizes(dev) -> dict:
@@ -726,11 +737,11 @@ def phase_bench(dev) -> dict:
 
 
 # -- phase 16: the sharded path -------------------------------------------
-# The ranks are processes of torch.multiprocessing (spawn), all on cuda:0:
-# NCCL takes one rank per GPU, so ranks that share the card take gloo and
-# one rank alone takes NCCL. Each rank writes its results as JSON under
-# SHARD_DIR; the first failure of any rank fails the phase.
-SHARD_DIR = os.path.join(OUT_DIR, "phase16")
+# The ranks are processes of torch.multiprocessing (spawn), all on cuda:0
+# (`diag.dryrun.spawn_ranks`): NCCL takes one rank per GPU, so ranks that
+# share the card take gloo and one rank alone takes NCCL. Each rank returns
+# its results through the spawner's queue; the first failure of any rank
+# fails the phase.
 RANK_TIMEOUT = 240.0  # seconds a group of ranks may take
 # Sharded against single-device results on the card: images as the
 # reference's sharded tests hold them (2e-5). Gradients of sum(image): the
@@ -775,63 +786,6 @@ def tie_free_bench_scene(device):
         depth = to_camera(scene.means, cam.view)[:, 2]
     assert len(torch.unique(depth)) == N_NORTH_STAR, "depth ties"
     return scene, cam
-
-
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        return sock.getsockname()[1]
-
-
-def spawn_ranks(fn, world: int, *args, out_dir: str = SHARD_DIR) -> list:
-    """fn(rank, world, port, *args) on `world` spawned processes; returns
-    the JSON each wrote to out_dir/<fn>_<rank>.json. Raises if a rank
-    fails, or kills them all past RANK_TIMEOUT."""
-    import torch.multiprocessing as mp
-
-    port = free_port()
-    ctx = mp.start_processes(fn, args=(world, port, *args), nprocs=world,
-                             join=False, start_method="spawn")
-    deadline = time.monotonic() + RANK_TIMEOUT
-    while not ctx.join(timeout=5):
-        if time.monotonic() > deadline:
-            for proc in ctx.processes:
-                proc.kill()
-            raise RuntimeError(f"{fn.__name__}: ranks past {RANK_TIMEOUT} s")
-    out = []
-    for r in range(world):
-        with open(os.path.join(out_dir, f"{fn.__name__}_{r}.json")) as f:
-            out.append(json.load(f))
-    return out
-
-
-def _rank_setup(rank: int, world: int, port: int, backend=None):
-    """The rank's bootstrap: the port's `initialize_distributed` (gloo for
-    ranks that share the card), or an explicit backend for one rank."""
-    sys.path.insert(0, ROOT)
-    import torch.distributed as dist
-    from gsrast_tpu_torch.parallel.mesh import initialize_distributed
-
-    torch.cuda.set_device(0)
-    if world > 1:
-        initialize_distributed(f"localhost:{port}", world, rank,
-                               backend=backend, device="cuda")
-    else:
-        dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
-                                world_size=1, rank=0)
-    return torch.device("cuda", 0), dist.get_backend()
-
-
-def _rank_write(name: str, rank: int, result: dict,
-                out_dir: str = SHARD_DIR) -> None:
-    """The rank's results, then the process group's end."""
-    import torch.distributed as dist
-
-    with open(os.path.join(out_dir, f"{name}_{rank}.json"), "w") as f:
-        json.dump(result, f)
-    dist.destroy_process_group()
 
 
 class _PlainCounts:
@@ -924,21 +878,22 @@ def _single_device_reference(scene, cam, rcfg):
     return act, means, ref, _grad_compare(grads[0], grads[1])
 
 
-def phase16_sharded_rank(rank: int, world: int, port: int) -> None:
+def phase16_sharded_rank(world: int, dev) -> dict:
     """D gloo ranks on the card: the tile-sharded render, interleaved and
     contiguous, and the primitive-sharded render of the 1M SH-3 scene at
     1080p (`tie_free_bench_scene`), fwd+bwd, each against `render` on the
     same card; the bench scene's ties, printed; with 4 ranks then the
     data x tile train step on a (2, 2) mesh."""
-    dev, backend = _rank_setup(rank, world, port)
+    import torch.distributed as dist
     from gsrast_tpu_torch import benchmark
     from gsrast_tpu_torch.parallel import (comm, make_mesh,
                                            render_primitive_sharded,
                                            render_tile_sharded)
 
     plain = _PlainCounts()
+    rank = dist.get_rank()
     mesh = make_mesh((1, world))
-    res = {"backend": backend}
+    res = {"backend": dist.get_backend()}
     # The bench scene itself, interleaved: depth ties taken in another
     # order than `render` takes them (printed, not held to a tolerance).
     scene, cam = benchmark.bench_scene_camera(N_NORTH_STAR, WIDTH, HEIGHT,
@@ -976,11 +931,11 @@ def phase16_sharded_rank(rank: int, world: int, port: int) -> None:
     del ref, ref_image, ref_grad, scene, act, means
     torch.cuda.empty_cache()
     if world == 4:
-        res["train"] = _train_2x2(rank, dev, plain)
-    _rank_write("phase16_sharded_rank", rank, res)
+        res["train"] = _train_2x2(dev, plain)
+    return res
 
 
-def _train_2x2(rank: int, dev, plain) -> dict:
+def _train_2x2(dev, plain) -> dict:
     """The data x tile train step on a (2, 2) mesh of the 4 ranks:
     trained_116k perturbed as in phase 8, its renders from TRAIN_VIEWS orbit
     views at 1080p as targets, 2 views a data rank, TRAIN_STEPS steps of the
@@ -1033,12 +988,12 @@ def _train_2x2(rank: int, dev, plain) -> dict:
             "plain_calls": dict(plain.counts)}
 
 
-def phase16_nccl_rank(rank: int, world: int, port: int) -> None:
+def phase16_nccl_rank(world: int, dev) -> dict:
     """One rank over NCCL on the card: the tile-sharded render of the 1M
     scene at 1080p against `render` (the same launches: bit for bit) with
     its gradient, an all_reduce over NCCL, and the train step against the
     single-device step."""
-    dev, backend = _rank_setup(rank, world, port, backend="nccl")
+    import torch.distributed as dist
     from gsrast_tpu_torch import benchmark
     from gsrast_tpu_torch.parallel import (comm, make_mesh,
                                            make_sharded_train_step,
@@ -1057,7 +1012,8 @@ def phase16_nccl_rank(rank: int, world: int, port: int) -> None:
                                mesh.get_group("tiles"))
     assert float(one.sum()) == 4.0
     act, means, ref, spread = _single_device_reference(scene, cam, rcfg)
-    res = {"backend": backend, "transports": dict(comm.transports),
+    res = {"backend": dist.get_backend(),
+           "transports": dict(comm.transports),
            "render_vs_render": spread}
     res["tile"] = _sharded_case(
         lambda g: render_tile_sharded(g, cam, rcfg, mesh), act,
@@ -1081,7 +1037,7 @@ def phase16_nccl_rank(rank: int, world: int, port: int) -> None:
     res["train_loss"] = [float(loss), float(ref_loss.detach())]
     res["train_grads"] = {k: _grad_compare(grads[k], p.grad)
                           for k, p in scene.param_groups().items()}
-    _rank_write("phase16_nccl_rank", rank, res)
+    return res
 
 
 def phase_sharded(dev) -> dict:
@@ -1200,11 +1156,13 @@ def phase_sharded_ranks() -> dict:
     (2, 2) train step on the 4; one NCCL rank (`phase16_nccl_rank`); the
     multihost smoke as 2 processes through --dist. Returns the ranks'
     results."""
-    os.makedirs(SHARD_DIR, exist_ok=True)
+    from gsrast_tpu_torch.diag.dryrun import free_port, spawn_ranks
+
     res = {}
     for world in (2, 4):
         t0 = time.perf_counter()
-        ranks = spawn_ranks(phase16_sharded_rank, world)
+        ranks = spawn_ranks(phase16_sharded_rank, world, "cuda",
+                            timeout=RANK_TIMEOUT)
         sec = time.perf_counter() - t0
         for r, out in enumerate(ranks):
             shown = {k: v for k, v in out.items() if k != "train"}
@@ -1232,7 +1190,8 @@ def phase_sharded_ranks() -> dict:
         assert not any(out["plain_calls"].values()), out
 
     t0 = time.perf_counter()
-    (nccl,) = spawn_ranks(phase16_nccl_rank, 1)
+    (nccl,) = spawn_ranks(phase16_nccl_rank, 1, "cuda",
+                          timeout=RANK_TIMEOUT)
     print(f"phase 16 one NCCL rank ({time.perf_counter() - t0:.1f} s): "
           f"{json.dumps(nccl)}", flush=True)
     assert nccl["backend"] == "nccl" and nccl["image_bit_equal"]
@@ -1269,7 +1228,6 @@ def phase_sharded_ranks() -> dict:
 # `render(scene, camera)` with the reference's RenderConfig(): the legacy
 # two-tier binning (tiers=()) through the blend kernels, and the capped
 # autograd oracle (the reference's 'xla' backend) that holds them.
-LEGACY_DIR = os.path.join(OUT_DIR, "phase17")
 # Oracle against the kernels: image and final_t where n_contrib agrees, as
 # the reference holds its kernels to its oracle (tests/test_pallas_blend.py
 # :104-147); gradients per parameter group, relative to the group's largest
@@ -1314,17 +1272,18 @@ def legacy_depth_lossless(scene, cam, rcfg) -> bool:
     return bool(((bits & ((1 << dshift) - 1)) == 0).all())
 
 
-def phase17_sharded_rank(rank: int, world: int, port: int) -> None:
+def phase17_sharded_rank(world: int, dev) -> dict:
     """2 gloo ranks on the card: the legacy tile-sharded render,
     interleaved and contiguous, and the legacy primitive-sharded render of
     `quantized_depth_scene` at --small, each against the single-device
     legacy `render` (2e-5, the reference's tests/test_sharded.py:77-78); the
     same tile-interleaved render of the bench scene itself, whose gap is
     printed, not held; one legacy train step on a (2, 1) mesh."""
-    dev, backend = _rank_setup(rank, world, port)
-    res = legacy_sharded_cases(rank, world, dev)
-    res["backend"] = backend
-    _rank_write("phase17_sharded_rank", rank, res, out_dir=LEGACY_DIR)
+    import torch.distributed as dist
+
+    res = legacy_sharded_cases(dist.get_rank(), world, dev)
+    res["backend"] = dist.get_backend()
+    return res
 
 
 def legacy_sharded_cases(rank: int, world: int, dev) -> dict:
@@ -1705,9 +1664,11 @@ def phase_legacy(dev, tier_ms: dict) -> dict:
     res["build_binning_card_vs_cpu"] = equal
 
     # The legacy sharded renders and train step on 2 gloo ranks.
-    os.makedirs(LEGACY_DIR, exist_ok=True)
+    from gsrast_tpu_torch.diag.dryrun import spawn_ranks
+
     t0 = time.perf_counter()
-    ranks = spawn_ranks(phase17_sharded_rank, 2, out_dir=LEGACY_DIR)
+    ranks = spawn_ranks(phase17_sharded_rank, 2, "cuda",
+                        timeout=RANK_TIMEOUT)
     sec = time.perf_counter() - t0
     for r, out in enumerate(ranks):
         print(f"phase 17 legacy sharded, 2 gloo ranks on the card, rank {r} "
@@ -1726,6 +1687,91 @@ def phase_legacy(dev, tier_ms: dict) -> dict:
         assert train["launches"]["blend_backward"] >= 1, train
         assert not any(train["plain_calls"].values()), train
     res["sharded"] = ranks
+    return res
+
+
+# -- phase 18: the entry point, the dry run and the scaling harness -------
+
+DRYRUN_RANKS = (2, 4)
+SCALING_RANKS = 4  # the harness's D = 1, 2, 4
+
+
+def phase_dryrun(dev) -> dict:
+    """Phase 18: `diag.dryrun.entry` on the card (100k SH3 at 1024x768; its
+    image finite, through the blend kernels, and held against the plain
+    versions' image, `render` with the entry config on backend 'torch', as
+    phase 15 holds them); `dryrun_multichip` on 2 and 4 gloo ranks sharing
+    the card (every overflow counter 0, the ranks agreeing, each through
+    the kernels); the scaling harness `--quick` on D = 1, 2, 4 (its JSON in
+    `_build/`). Returns the results."""
+    from gsrast_tpu_torch import _kernels
+    from gsrast_tpu_torch.config import TRANSMITTANCE_MIN
+    from gsrast_tpu_torch.diag import dryrun, scaling_bench
+    from gsrast_tpu_torch.render.api import render
+
+    res = {}
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fn, (act, view) = dryrun.entry(device=dev)
+        image = fn(act, view)
+        torch.cuda.synchronize()
+        launches = dict(_kernels.launch_counts)
+        sec = time.perf_counter() - t0
+        # The plain versions' image, and final_t and n_contrib of both.
+        camera = dryrun.front_camera(image.shape[1], image.shape[0], 2.5, dev)
+        outs = [render(act, camera, dryrun.entry_config(dev).replace(
+            backend=b)) for b in ("torch", "cuda")]
+    tiles = [(img.permute(2, 0, 1).reshape(1, 3, -1),
+              o.final_t.reshape(1, -1), o.n_contrib.reshape(1, -1))
+             for img, o in ((outs[0].image, outs[0]), (image, outs[1]))]
+    cmp_plain = compare_blend(tiles[1], tiles[0], TRANSMITTANCE_MIN)
+    res["entry"] = {"shape": list(image.shape), "mean": float(image.mean()),
+                    "finite": bool(torch.isfinite(image).all()),
+                    "against_plain": cmp_plain, "launches": launches,
+                    "s": sec}
+    print(f"phase 18 entry(): {json.dumps(res['entry'])}", flush=True)
+    assert res["entry"]["finite"], res["entry"]
+    assert res["entry"]["shape"] == [768, 1024, 3], res["entry"]
+    assert cmp_plain["err_rgb"] <= ATOL and cmp_plain["err_final_t"] <= ATOL
+    assert cmp_plain["nc_mismatch_share"] <= MAX_NC_MISMATCH, cmp_plain
+    assert min(launches[k] for k in ("tile_order", "blend_forward")) > 0
+    del fn, act, view, image, outs, tiles
+
+    # Both groups at once (each rank takes seconds to reach the card).
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(DRYRUN_RANKS)) as pool:
+        groups = dict(zip(DRYRUN_RANKS, pool.map(
+            lambda world: dryrun.spawn_ranks(
+                dryrun._dryrun_rank, world, "cuda", timeout=RANK_TIMEOUT),
+            DRYRUN_RANKS)))
+    sec = time.perf_counter() - t0
+    for world, ranks in groups.items():
+        print(f"phase 18 dryrun_multichip({world}), gloo ranks sharing the "
+              f"card ({sec:.1f} s for both groups): "
+              f"{dryrun.dryrun_line(ranks[0])}; launches per rank "
+              f"{[r['launches'] for r in ranks]}", flush=True)
+        for r in ranks:
+            assert r["loss"] == ranks[0]["loss"], "ranks disagree"
+            assert r["tile_intersections"] == ranks[0]["tile_intersections"]
+            assert min(r["launches"][k] for k in PATH_KERNELS) > 0, r
+        res[f"dryrun_{world}"] = ranks
+
+    out = os.path.join(OUT_DIR, "scaling_quick.json")
+    t0 = time.perf_counter()
+    scaling_bench.main(["--quick", "--ranks", str(SCALING_RANKS),
+                        "--iters", "2", "--out", out])
+    with open(out) as f:
+        scaling = json.load(f)
+    print(f"phase 18 scaling_bench --quick on D = "
+          f"{scaling['device_counts']} ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(scaling)}", flush=True)
+    assert scaling["device_counts"] == [1, 2, 4], scaling
+    assert scaling["transport"][1:] == ["gloo", "gloo"], scaling
+    assert scaling["cards"] == [1, 1, 1], scaling
+    for mode in ("tile", "primitive"):
+        assert all(t > 0 for t in scaling["modes"][mode]["step_ms"]), mode
+    res["scaling"] = scaling
     return res
 
 
@@ -1762,6 +1808,7 @@ def main() -> int:
                                                 make_train_step,
                                                 maybe_densify, step_generator)
     from gsrast_tpu_torch.diag import bisect_bwd as bb
+    from gsrast_tpu_torch.diag import bisect_timing
     from gsrast_tpu_torch.ops.sh import SH_C0
     from gsrast_tpu_torch.scene import colmap
     from gsrast_tpu_torch.scene.dataset import orbit_cameras, save_dataset
@@ -2184,6 +2231,12 @@ def main() -> int:
         bisect = {}
         bounds = {"full": (int(full_starts[-1]) // 8, t),
                   "longest_tile": (longest // 8, 1)}
+        # What the L2 fetches from HBM for B's reads, one float every 64
+        # bytes (diag/bisect_timing.py::probe_memory).
+        probe = bisect_timing.probe_memory(full["feat"], lambda launch: (
+            cuda_ms(lambda: [launch() for _ in range(RAW_REPS)]) / RAW_REPS))
+        print(f"phase 11 memory probe over the full input's feat: "
+              f"{json.dumps(probe)}", flush=True)
         # The order C's and D's wrappers launch first, alone on the full
         # plan, and C and D there in index order against it.
         order_raw = order_launch(full_starts)
@@ -2211,7 +2264,7 @@ def main() -> int:
                     "wrapper_ms": cuda_ms(lambda: cuda_fn(*args)),
                     "plain_ms": cuda_ms(lambda: torch_fn(*args), iters=3,
                                         warmup=1)}
-                if name in bb.CARRIED and size in bounds:
+                if size in bounds:
                     # Sums in a fixed order: a second launch, the same bits.
                     res[size]["same_bits_twice"] = torch.equal(
                         got, cuda_fn(*args))
@@ -2466,6 +2519,12 @@ def main() -> int:
         "blend_forward": statistics.median(ab1m["longest_first"]),
         "blend_backward": bwd["1M"]["kernel_ms"]})
     print(f"phase 17 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- phase 18: the entry point, the dry run and the scaling harness ----
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_dryrun(dev)
+    print(f"phase 18 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     b116 = bwd["trained_116k"]
     rows_full, tiles_full = int(full_starts[-1]) // 8, t

@@ -18,11 +18,36 @@
 //      t_run drgb[t, 0] ft[t]. ft, nc and drgb are per-tile (8, 128) blocks.
 // Rows that no full chunk covers are not written: the wrapper zero-fills `out`.
 //
-// A and B (`bisect_kernel`) read and write each chunk once and are bound by memory
+// A (`bisect_kernel`) reads and writes each chunk once and is bound by memory
 // bandwidth: the whole chunk is staged (cp.async, 16 bytes a thread), the next
 // chunk's copy issued before the current one is computed, into a two-slot output
 // buffer written back as float4.
 //
+// B (`lanes_kernel`) is bound by memory too. It needs 8 floats of each 512-byte
+// row, 64 bytes apart, and writes whole rows; but the L2 fetches 64-byte granules
+// from HBM (cudaLimitMaxL2FetchGranularity is 64 on the H100, and a streaming read
+// of one float every 64 bytes takes as long as one of every float:
+// diag/bisect_timing.py --probe), so its reads cost every byte of its input and it
+// moves A's bytes whatever it reads. Its design moves them once, with no shared
+// memory and no barrier:
+// - Warp w of the block's kLanesWarps = 16 writes row w of every chunk (rows w,
+//   w + kLanesWarps, ... with fewer warps), a row of 32 float4 in one warp store;
+//   lane l writes quad l, which holds lane 16 j for l = 4 j, so the 8 lanes
+//   l % 4 == 0 read the row's values themselves (feat[row, 4 l]) and write
+//   (3 v, 0, 0, 0); the other lanes write zeros and read nothing, so NaN or inf on
+//   a lane B does not read never reaches the output.
+// - The values live in a register ring of kLanesAhead + 1 chunks: chunk k is
+//   written while the reads of the 3 chunks after it in the walk are in flight
+//   (the TPU kernel's ring is the slot k % 2 of a two-chunk buffer; in registers
+//   the slot is the chunk's place in the walk).
+// - The product is __fmul_rn(3, v), the plain version's bits.
+// Measured against the alternatives on the H100 (PERF.md, Findings): the 128
+// values staged by 4-byte cp.async into a shared ring slot k % 2, one barrier a
+// chunk, was 1.5-2.5% slower on the full input and slower on the longest tile; 4
+// or 8 warps a block 3-4% slower; blocks taking the tiles longest first at most
+// 1.5% faster, against the 11% that the order's own launch costs, so B's blocks
+// take the tiles in index order.
+
 // C and D (`carry_kernel`) are bound by instruction issue: 1,024 divisions, products
 // and sums a step, and a 1,024-element sum a step. Their design:
 // - The carry stays a real (8, 128) vector in registers, kCarryPerThread elements a
@@ -66,7 +91,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;                // A and B
+constexpr int kThreads = 256;                // A
 constexpr int kRows = 16;                    // rows of 128 lanes per chunk
 constexpr int kLanes = 128;
 constexpr int kChunk = kRows * kLanes;       // floats per chunk
@@ -80,13 +105,17 @@ constexpr int kCarryPerThread = kCarry / kCarryThreads;
 static_assert(kCarryThreads >= kChunkSteps && kCarry % kCarryThreads == 0,
               "one table entry a thread, the carry spread evenly");
 
+// B: warps a block, and chunks read ahead of the one written.
+constexpr int kLanesWarps = 16;
+constexpr int kLanesAhead = 3;
+
 constexpr unsigned kFull = 0xffffffffu;
 // The range in which one correction of the reciprocal gives RN(t / d).
 constexpr float kDivisorMax = 0x1p20f;
 constexpr float kCarryMin = 0x1p-100f;
 constexpr float kCarryMax = 0x1p100f;
 
-enum Mode { kModeA = 0, kModeB = 1, kModeC = 2, kModeD = 3 };
+enum Mode { kModeA = 0, kModeC = 2, kModeD = 3 };
 
 // Issue the asynchronous copy of one chunk (2,048 floats: 512 copies of 16 bytes,
 // two a thread) and commit it as one group.
@@ -97,6 +126,8 @@ __device__ __forceinline__ void stage_chunk(float* dst, const float* src) {
   __pipeline_commit();
 }
 
+// A (kModeA, its only instantiation; the template keeps its symbol, and so its
+// SASS digest in diag/bisect_timing.py, comparable with earlier builds).
 template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 bisect_kernel(const int* __restrict__ starts, const float* __restrict__ feat,
@@ -125,22 +156,64 @@ bisect_kernel(const int* __restrict__ starts, const float* __restrict__ feat,
     const float* b = buf[slot];
     float* o = obuf[slot];
 
-    if (kMode == kModeA) {
-      for (int i = threadIdx.x; i < kChunk; i += kThreads) {
-        o[i] = __fmul_rn(2.0f, b[i]);
-      }
-    } else {
-      for (int r = kRows - 1; r >= 0; --r) {
-        if (threadIdx.x < kLanes) {
-          const int l = threadIdx.x;
-          o[r * kLanes + l] = (l % 16 == 0) ? __fmul_rn(3.0f, b[r * kLanes + l]) : 0.0f;
-        }
-      }
+    for (int i = threadIdx.x; i < kChunk; i += kThreads) {
+      o[i] = __fmul_rn(2.0f, b[i]);
     }
     __syncthreads();  // the chunk's output is complete; its input slot is free
     float4* dst = reinterpret_cast<float4*>(out + (row0 + kRows * k) * kLanes);
     const float4* src = reinterpret_cast<const float4*>(o);
     for (int s = threadIdx.x; s < kChunk / 4; s += kThreads) dst[s] = src[s];
+  }
+}
+
+// B: block b writes tile b's covered rows, its chunks walked newest first (the
+// design in the header).
+__global__ void __launch_bounds__(32 * kLanesWarps)
+lanes_kernel(const int* __restrict__ starts, const float* __restrict__ feat,
+             float* __restrict__ out) {
+  static_assert(kRows % kLanesWarps == 0, "every warp writes as many rows");
+  constexpr int kPer = kRows / kLanesWarps;  // rows a warp writes per chunk
+  constexpr int kRing = kLanesAhead + 1;
+  const int start = starts[blockIdx.x];
+  const int nchunks = (starts[blockIdx.x + 1] - start) / 128;
+  if (nchunks <= 0) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool reader = lane % 4 == 0;  // quad `lane` holds lane 16 (lane / 4)
+  const long long row0 = start / 8 + warp;
+  const float* src = feat + row0 * kLanes + 4 * lane;
+  float4* dst = reinterpret_cast<float4*>(out + row0 * kLanes) + lane;
+  float v[kRing][kPer];
+
+  // The i-th chunk of the walk is k = nchunks - 1 - i; its rows kLanesWarps q + warp.
+  auto read = [&](int i, float (&w)[kPer]) {
+    const float* p = src + static_cast<long long>(kRows * (nchunks - 1 - i)) * kLanes;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) w[q] = reader ? p[kLanesWarps * q * kLanes] : 0.0f;
+  };
+  auto write = [&](int i, const float (&w)[kPer]) {
+    float4* p = dst + static_cast<long long>(kRows * (nchunks - 1 - i)) * (kLanes / 4);
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      p[kLanesWarps * q * (kLanes / 4)] =
+          make_float4(reader ? __fmul_rn(3.0f, w[q]) : 0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kLanesAhead; ++s) {
+    if (s < nchunks) read(s, v[s]);
+  }
+  for (int base = 0; base < nchunks; base += kRing) {
+#pragma unroll
+    for (int s = 0; s < kRing; ++s) {  // chunk i = base + s sits in slot s
+      const int i = base + s;
+      if (i < nchunks) {
+        if (i + kLanesAhead < nchunks) {
+          read(i + kLanesAhead, v[(s + kLanesAhead) % kRing]);
+        }
+        write(i, v[s]);
+      }
+    }
   }
 }
 
@@ -379,7 +452,10 @@ extern "C" int gsrast_bisect_a(const int* starts, int num_tiles, const float* fe
 
 extern "C" int gsrast_bisect_b(const int* starts, int num_tiles, const float* feat,
                                float* out, void* stream) {
-  return launch<kModeB>(starts, num_tiles, feat, out, stream);
+  if (num_tiles == 0) return static_cast<int>(cudaSuccess);
+  lanes_kernel<<<num_tiles, 32 * kLanesWarps, 0, static_cast<cudaStream_t>(stream)>>>(
+      starts, feat, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int gsrast_bisect_c(const int* starts, int num_tiles, const float* feat,

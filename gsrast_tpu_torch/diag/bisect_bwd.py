@@ -23,8 +23,12 @@ walks). What each computes, for every tile t with
      v > 0.1 (elementwise), else 0; t_run /= 1 + a; the sum is of
      t_run drgb[t, 0] ft[t].
 
-Rows that no full chunk covers stay 0. On the card A and B stage whole
-chunks; C and D stage only the 128 values a chunk's steps read, make a
+Rows that no full chunk covers stay 0. On the card A stages whole chunks;
+B reads only the 8 values of each row it uses, into registers, three
+chunks ahead of the one it writes, and writes each row whole (the L2
+fetches 64-byte granules, so those reads still cost every byte of feat:
+`diag/bisect_timing.py --probe`); C and D stage only the 128 values a
+chunk's steps read, make a
 table of each step's divisor and its correctly rounded reciprocal once a
 chunk, divide each carry element by one correction of that reciprocal (the
 bits of IEEE division; `__fdiv_rn` where the carry is under 2^-100 or a

@@ -16,11 +16,18 @@ instruction count and a hash of its SASS with addresses and parameter
 offsets left out (where `cuobjdump` runs). A tree must lie inside this
 checkout (for the parent, `git archive` unpacked under `_archive/`, which
 git ignores). Default tree: this checkout.
+
+With `--probe`, it then builds `diag/bisect_probe.cu` and prints one more
+JSON line: the L2 fetch-granularity limit, and the ms of a streaming read
+of every float, of one float every 8, 16 and 32 (32, 64 and 128 bytes
+apart) and of a streaming write, over the full input's feat (55 MB) and
+over 8 times as much (440 MB, far past the 50 MB L2).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import json
 import re
@@ -32,6 +39,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[2]  # the checkout holding this file
 INPUTS = HERE / "gsrast_tpu_torch" / "_build" / "bisect_timing_inputs.pt"
 SIZES = ("full", "longest_tile")
+PROBE_SRC = Path(__file__).with_name("bisect_probe.cu")
+PROBE_STRIDES = (1, 8, 16, 32)  # floats between the reads
 
 
 def make_inputs() -> None:
@@ -59,13 +68,15 @@ def sass_digest(path: Path) -> dict:
         return {}
     out = {}
     for body in sass.split("Function : ")[1:]:
-        m = re.search(r"(bisect|carry)_kernelILi(\d)E", body.split("\n", 1)[0])
+        m = re.search(r"(bisect|carry)_kernelILi(\d)E|lanes_kernelE",
+                      body.split("\n", 1)[0])
         if not m:
             continue
         instrs = [re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][.]",
                          ln.split("*/", 1)[1].split(";")[0].strip())
                   for ln in body.splitlines() if re.match(r"\s+/\*[0-9a-f]{4}\*/", ln)]
-        out[f"{m.group(1)}_kernel<{m.group(2)}>"] = [
+        out[f"{m.group(1)}_kernel<{m.group(2)}>" if m.group(1)
+            else "lanes_kernel"] = [
             len(instrs), hashlib.sha256("\n".join(instrs).encode()).hexdigest()[:12]]
     return out
 
@@ -101,8 +112,77 @@ def run_tree(tree: Path) -> dict:
                          text=True).stdout.strip()
     return {"tree": str(tree), "card": smi, "raw_reps": smoke.RAW_REPS,
             "ptxas": [ln.strip() for ln in built.build_log.splitlines()
-                      if "bisect" in ln or "carry" in ln or "registers" in ln],
+                      if "bisect" in ln or "carry" in ln or "lanes" in ln
+                      or "registers" in ln],
             "ms": res, "sass": sass_digest(built.path)}
+
+
+@functools.cache
+def build_probe():
+    """nvcc of `bisect_probe.cu` into `_build/`, loaded with ctypes."""
+    import ctypes
+
+    from gsrast_tpu_torch import _kernels
+
+    path = _kernels.BUILD_DIR / "libgsrast_bisect_probe.so"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-o",
+                    str(path), str(PROBE_SRC)], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(path))
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.gsrast_probe_fetch_granularity.argtypes = [vp]
+    lib.gsrast_probe_read.argtypes = [vp, i64, i32, vp, vp]
+    lib.gsrast_probe_write.argtypes = [vp, i64, vp]
+    return lib
+
+
+def probe_memory(x, raw_ms) -> dict:
+    """The L2 fetch-granularity limit, and the ms of the streaming reads
+    (every PROBE_STRIDES floats) and write of `x` (a float32 CUDA tensor,
+    its size a multiple of 32), each timed by raw_ms(launcher)."""
+    import ctypes
+
+    import torch
+
+    lib = build_probe()
+    limit = ctypes.c_ulonglong(0)
+    assert lib.gsrast_probe_fetch_granularity(ctypes.byref(limit)) == 0
+    stream = torch.cuda.current_stream().cuda_stream
+    sink = torch.zeros(1, device=x.device)
+    n = x.numel()
+    res = {"l2_fetch_granularity_limit_bytes": limit.value, "bytes": 4 * n}
+    for s in PROBE_STRIDES:
+        res[f"read_stride{s}_ms"] = raw_ms(lambda s=s: lib.gsrast_probe_read(
+            x.data_ptr(), n, s, sink.data_ptr(), stream))
+    y = torch.empty_like(x)
+    res["write_ms"] = raw_ms(lambda: lib.gsrast_probe_write(
+        y.data_ptr(), n, stream))
+    for s in PROBE_STRIDES[1:]:
+        res[f"stride{s}_over_all"] = (res[f"read_stride{s}_ms"]
+                                      / res["read_stride1_ms"])
+    return res
+
+
+def run_probe() -> dict:
+    """The memory probes of the module docstring."""
+    import torch
+
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as smoke
+
+    def raw_ms(launch) -> float:
+        assert launch() == 0
+        return smoke.cuda_ms(lambda: [launch() for _ in range(
+            smoke.RAW_REPS)]) / smoke.RAW_REPS
+
+    feat = torch.load(INPUTS)["full"]["feat"].to("cuda:0")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    return {"probe": {"card": smi, "raw_reps": smoke.RAW_REPS,
+                      "feat_55MB": probe_memory(feat, raw_ms),
+                      "x8_440MB": probe_memory(feat.repeat(8, 1), raw_ms)}}
 
 
 def main(argv=None) -> int:
@@ -111,6 +191,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", action="append", default=None,
                     help="a checkout inside this one to time (repeatable; "
                          "default: this one)")
+    ap.add_argument("--probe", action="store_true",
+                    help="then run the memory probes of bisect_probe.cu")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
@@ -133,6 +215,8 @@ def main(argv=None) -> int:
                                "--worker", str(tree)], cwd=tree, timeout=900)
         if proc.returncode != 0:
             return proc.returncode
+    if args.probe:
+        print(json.dumps(run_probe()), flush=True)
     return 0
 
 

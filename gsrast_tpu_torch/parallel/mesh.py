@@ -66,15 +66,18 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None,
                            backend: Optional[str] = None,
-                           device="cuda") -> Optional[str]:
-    """Multi-process bootstrap; a no-op for one process (returns None).
+                           device="cuda",
+                           group_of_one: bool = False) -> Optional[str]:
+    """Multi-process bootstrap; a no-op for one process (returns None)
+    unless `group_of_one` (a spawned rank of a one-rank mesh, which needs a
+    process group of its own).
 
     Otherwise joins the process group at `tcp://<coordinator_address>`
     (`host:port`, rank 0 listening) as rank `process_id` of
     `num_processes`, with `backend`, or where None the one
     `choose_backend` gives for `device`; prints the choice and returns the
     backend. A CUDA rank's current card is set first (`rank_device`)."""
-    if num_processes is None or num_processes <= 1:
+    if num_processes is None or (num_processes <= 1 and not group_of_one):
         return None
     reason = "named by the caller"
     if backend is None:
@@ -109,4 +112,8 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None):
 
 
 def axis_size(mesh, axis: str) -> int:
-    return mesh.shape[AXES.index(axis)]
+    """The ranks along `axis`; 1 where the mesh lacks it, as the tile axis
+    of a rank's row, `mesh[TILE_AXIS]`, lacks the data axis (the sharded
+    renders take such a row as a (1, D) mesh of its own)."""
+    names = mesh.mesh_dim_names
+    return mesh.shape[names.index(axis)] if axis in names else 1

@@ -85,7 +85,10 @@ def exchange_budget(tiers, n_pad: int, n_dev: int, interleave: bool,
     up to 128, at least 128. The tiers are `shard_tiers`' (scaled ~1/D
     only under interleaved rows), their budget fractions rescaled from the
     full population to the plan's c_recv = D c_send received rows so the
-    absolute budgets stay (clipped at 1)."""
+    absolute budgets stay (clipped at 1). One rank exchanges nothing:
+    (None, `shard_tiers(tiers, 1)`)."""
+    if n_dev == 1:
+        return None, binning.shard_tiers(tiers, 1)
     tiers_d = binning.shard_tiers(tiers, n_dev if interleave else 1)
     nl = n_pad // n_dev
     if send_capacity is None:
@@ -221,6 +224,38 @@ def _relevance_exchange(g_local: ActivatedGaussians, camera: Camera,
     prep_r = _prep_from_columns(comm.all_to_all(send_rec, mesh, TILE_AXIS),
                                 comm.all_to_all(send_ints, mesh, TILE_AXIS))
     return prep_r, ovf_send
+
+
+def _tile_inputs(gaussians: ActivatedGaussians, render_cfg: cfg.RenderConfig,
+                 mesh, interleave: bool, prep_exchange: bool = True,
+                 send_capacity: Optional[int] = None) -> tuple:
+    """The tier path's set-up for one scene on this rank: (its shard of the
+    Gaussians padded to a multiple of D, the exchange's c_send, the config
+    with the row-local tiers). c_send is None where nothing is exchanged:
+    on one rank, or without `prep_exchange` (then the tiers are
+    `shard_tiers`' unscaled budgets, as the plan sees every Gaussian)."""
+    n_dev = axis_size(mesh, TILE_AXIS)
+    gaussians = pad_gaussians(gaussians, n_dev)
+    if prep_exchange:
+        c_send, tiers_d = exchange_budget(
+            render_cfg.tiers, gaussians.means.shape[0], n_dev, interleave,
+            send_capacity)
+    else:
+        c_send, tiers_d = None, binning.shard_tiers(
+            render_cfg.tiers, n_dev if interleave else 1)
+    return _shard(gaussians, mesh), c_send, render_cfg.replace(tiers=tiers_d)
+
+
+def _tile_prep(g_local: ActivatedGaussians, camera: Camera,
+               render_cfg: cfg.RenderConfig, mesh, rpd: int, interleave: bool,
+               c_send: Optional[int]) -> tuple:
+    """(the Preprocessed rows this rank's plan takes, the exchange's send
+    overflow): the relevance exchange where c_send is set, else the
+    all_gather of every rank's shard (`_tile_inputs`)."""
+    if c_send is None:
+        return _sharded_prep(g_local, camera, render_cfg, mesh), 0
+    return _relevance_exchange(g_local, camera, render_cfg, mesh, rpd,
+                               interleave, c_send)
 
 
 def _blend_local(prep: Preprocessed, bins: binning.Binning, grid_h: int,
@@ -371,21 +406,14 @@ def render_tile_sharded(gaussians: ActivatedGaussians, camera: Camera,
                         bins.overflow_tile_cap, ovf], names, mesh)
         return RenderOutput(image=image, final_t=final_t,
                             n_contrib=n_contrib, stats=stats)
-    gaussians = pad_gaussians(gaussians, n_dev)
-    g_local = _shard(gaussians, mesh)
-    if prep_exchange and n_dev > 1:
-        c_send, tiers_d = exchange_budget(
-            render_cfg.tiers, gaussians.means.shape[0], n_dev, interleave,
-            prep_send_capacity)
-        prep, ovf_x = _relevance_exchange(g_local, camera, render_cfg, mesh,
-                                          rpd, interleave, c_send)
-    else:
-        tiers_d = binning.shard_tiers(render_cfg.tiers,
-                                      n_dev if interleave else 1)
-        prep, ovf_x = _sharded_prep(g_local, camera, render_cfg, mesh), 0
-    rgb, ft, nc, ovf, plan = _local_tiles(
-        prep, render_cfg, render_cfg.replace(tiers=tiers_d), grid_h, grid_w,
-        rpd, row0, row_stride, backend)
+    g_local, c_send, cfg_d = _tile_inputs(gaussians, render_cfg, mesh,
+                                          interleave, prep_exchange,
+                                          prep_send_capacity)
+    prep, ovf_x = _tile_prep(g_local, camera, render_cfg, mesh, rpd,
+                             interleave, c_send)
+    rgb, ft, nc, ovf, plan = _local_tiles(prep, render_cfg, cfg_d, grid_h,
+                                          grid_w, rpd, row0, row_stride,
+                                          backend)
     image, final_t, n_contrib = _assemble(rgb, ft, nc, *size)
     stats = _stats([plan.total, ovf_x, plan.overflow_tile_cap, ovf], names,
                    mesh)
@@ -612,22 +640,12 @@ def make_sharded_train_step(render_cfg: cfg.RenderConfig, mesh, height: int,
         """The tier path: this rank's shard of the Gaussians through the
         exchange and the row-local plan. Returns camera -> this rank's
         (rgb, final_t, n_contrib)."""
-        act = pad_gaussians(scene.activated(), n_tile)
-        n_pad = act.means.shape[0]
-        g_local = _shard(act, mesh)
-        if n_tile > 1:
-            c_send, tiers_d = exchange_budget(render_cfg.tiers, n_pad,
-                                              n_tile, interleave)
-        else:
-            tiers_d = binning.shard_tiers(render_cfg.tiers, 1)
-        cfg_d = render_cfg.replace(tiers=tiers_d)
+        g_local, c_send, cfg_d = _tile_inputs(scene.activated(), render_cfg,
+                                              mesh, interleave)
 
         def tiles(cam):
-            if n_tile > 1:
-                prep, _ = _relevance_exchange(g_local, cam, render_cfg, mesh,
-                                              rpd, interleave, c_send)
-            else:
-                prep = _sharded_prep(g_local, cam, render_cfg, mesh)
+            prep, _ = _tile_prep(g_local, cam, render_cfg, mesh, rpd,
+                                 interleave, c_send)
             return _local_tiles(prep, render_cfg, cfg_d, grid_h, grid_w, rpd,
                                 row0, row_stride, backend)[:3]
         return tiles

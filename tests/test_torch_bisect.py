@@ -210,6 +210,51 @@ def test_cuda_carried_same_bits_twice(name):
         assert torch.equal(first, bb.KERNELS[name][0](*args)), (name, case)
 
 
+def _lanes_cases(dev) -> dict:
+    """B's inputs: 64 seeded tiles of 0 to 9 chunks (every place of a
+    chunk in the kernel's register ring, and tiles it skips), 8 of them
+    with a partial chunk whose rows stay uncovered, and -0 on a tenth of
+    the values; and the same tiles with NaN, inf and -0 on the lanes that
+    B does not read, on the uncovered rows, and -0 and inf on some lanes
+    it does read."""
+    rng = np.random.default_rng(4)
+    counts = 128 * rng.integers(0, 10, 64)
+    counts[rng.integers(0, 64, 8)] += rng.integers(1, 128, 8)  # remainders
+    rows = int(counts.sum()) // 8 + 1
+    feat = rng.uniform(-2, 2, (rows, 128)).astype(np.float32)
+    feat[rng.random(feat.shape) < 0.1] = -0.0
+    nonfinite = feat.copy()
+    unread = np.arange(128) % 16 != 0
+    special = np.array([np.nan, np.inf, -np.inf, -0.0], np.float32)
+    nonfinite[:, unread] = special[rng.integers(0, 4, (rows,
+                                                       int(unread.sum())))]
+    read = rng.random((rows, 8)) < 0.05
+    nonfinite[:, ::16][read] = special[rng.integers(1, 4, int(read.sum()))]
+    nc = np.zeros((64, 8, 128), np.int64)
+    return {"seeded": _seeded(dev, counts, feat, nc, rng),
+            "nonfinite": _seeded(dev, counts, nonfinite, nc, rng)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["seeded", "nonfinite"])
+def test_cuda_b_bits_match_plain(case):
+    """B reads only lanes 16 j: its output has the plain version's bits
+    (3 v by one rounding there, +0 on the other lanes of every covered
+    row, whatever feat holds on them, and on uncovered rows), and two
+    launches give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    args = bb.kernel_args("b", _lanes_cases(torch.device("cuda"))[case])
+    got = bb.bisect_b_cuda(*args)
+    torch.cuda.synchronize()
+    ref = bb.bisect_b_torch(*args)
+    bits = got.view(torch.int32)
+    assert torch.equal(bits, ref.view(torch.int32)), case
+    assert not bool(bits[:, torch.arange(128, device=bits.device) % 16 != 0]
+                    .any()), case
+    assert torch.equal(bits, bb.bisect_b_cuda(*args).view(torch.int32))
+
+
 @pytest.mark.cuda
 def test_cuda_division_bits_match_plain():
     """D with one live element a tile (ft and drgb channel 0 one there, ft

@@ -572,6 +572,54 @@ def sharded_rank_cases(arrays: dict) -> dict:
     return out
 
 
+def dryrun_rank(arrays: dict) -> dict:
+    """`diag.dryrun.dryrun_multichip` on this rank, on the scene's arrays at
+    the test's size (`size`: width, height)."""
+    import torch.distributed as dist
+
+    from gsrast_tpu_torch.diag import dryrun
+
+    width, height = (int(v) for v in arrays["size"])
+    res = dryrun.dryrun_multichip(
+        dist.get_world_size(), scene=_rank_scene(arrays, "scene"),
+        width=width, height=height, device=torch.device("cpu"),
+        min_intersections=int(arrays["min_intersections"]))
+    mesh = res.pop("mesh")
+    return dict(res, mesh=np.array(list(mesh.values())))
+
+
+def scaling_tile_grad(arrays: dict) -> dict:
+    """The scaling harness's tile mode on a (1, D) mesh of this rank's
+    group, at its scene of `size` (N, width, height): the gradient of
+    mean(image) with respect to the means from its step, and the image of
+    `render_tile_sharded` beside the one assembled from its `blend`
+    prefix's tiles."""
+    import torch.distributed as dist
+
+    from gsrast_tpu_torch.diag import scaling_bench
+    from gsrast_tpu_torch.parallel import sharded as ps
+    from gsrast_tpu_torch.parallel.mesh import make_mesh
+
+    n, width, height = (int(v) for v in arrays["size"])
+    world = dist.get_world_size()
+    scene, camera = scaling_bench.scene_camera(n, width, height, "cpu")
+    cfg = scaling_bench.bench_config(scene, camera)
+    with torch.no_grad():
+        act = scene.activated()
+    mesh = make_mesh((1, world))
+    step, means = scaling_bench.tile_step(act, camera, cfg, mesh)
+    step()
+    grid_h, grid_w = cfg.grid_shape(height, width)
+    with torch.no_grad():
+        image = ps.render_tile_sharded(act, camera, cfg, mesh).image
+        rgb, ft, nc, _, _ = scaling_bench.tile_prefix(act, camera, cfg,
+                                                      mesh)("blend")
+        staged = ps._assemble(rgb, ft, nc, mesh, grid_h, grid_w,
+                              ps._rows_per_device(grid_h, world), True, cfg,
+                              height, width)[0]
+    return {"grad": means.grad, "image": image, "blend_prefix_image": staged}
+
+
 TILE_STATS = ("num_intersections", "overflow_capacity", "overflow_tile_cap",
               "overflow_per_tile")
 PRIM_STATS = ("num_intersections", "overflow_send", "overflow_capacity",
