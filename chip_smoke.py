@@ -26,8 +26,10 @@ cloud at 1M, the three new renderers on the card against the CPU, a saved
 pose rendered back bit for bit, `info`, the four apps, the native .ply
 reader against numpy), and the benchmark through `bench` (the 1M scene
 fwd+bwd with its stage table and forward only, `--small`, trained_116k,
-`--backend torch` on the card, the scene statistics, the tile sweep, and a
-trained fixture made from a random scene), and the sharded path (phase 16:
+the same four with `--chain 8`, each chain captured in one CUDA graph and
+its replays held to an eager step, `--backend torch` on the card, the
+scene statistics, the tile sweep, and a trained fixture made from a random
+scene), and the sharded path (phase 16:
 both blend kernels on a rank's local tile rows against their plain
 versions; 2 and 4 gloo ranks sharing the card, spawned by
 torch.multiprocessing, rendering the 1M scene tile- and primitive-sharded
@@ -41,7 +43,8 @@ the autograd oracle against the kernels, forward at 1080p and gradients at
 and train step on 2 gloo ranks), and the counterparts of the reference's
 `__graft_entry__.py` and scaling harness (phase 18: the entry point's
 image against the blend's plain versions, the dry run on 2 and 4 gloo ranks sharing the
-card, the scaling harness --quick on 1, 2 and 4 ranks); and
+card, the scaling harness --quick on 1, 2 and 4 ranks, its share
+control at D = 1 within SHARE_CONTROL_BAND of the one-rank step); and
 checks that each path went through the kernels. Each phase prints its
 lines before the next begins; the line before the last is the per-kernel
 JSON record, and the last is {"ok": true, "device": {...}}. Any failure
@@ -644,7 +647,16 @@ def captured(fn, argv) -> tuple:
 def phase_bench(dev) -> dict:
     """Phase 15: the benchmark on the card through `cli.main(["bench",
     ...])` at 1920x1080: the 1M SH-3 scene fwd+bwd with the stage table and
-    forward only, `--small`, trained_116k, the plain versions on the card
+    forward only, `--small`, trained_116k, the same four with `--chain 8`
+    (`bench_chain`: one capture recording 8 times an eager step's kernel
+    launches, none during the replays, the parameters bit for bit as they
+    were, the last step's gradients within CHAIN_GRAD_RTOL of an eager
+    step's, or SPREAD_FACTOR times eager steps' spread where that is
+    larger, and
+    under deterministic algorithms bit for bit, the forward image bit for
+    bit, a replay following an in-place change of the opacities),
+    `--chain 8 --backend torch`
+    refused, the plain versions on the card
     (`--backend torch`) on trained_small at 128x128 with their image held
     against the kernels', the scene statistics and the tile sweep at 1M,
     and a trained fixture made from a random scene, benched with its 5x
@@ -683,6 +695,24 @@ def phase_bench(dev) -> dict:
     bench("1M fwd", ["--fwd-only", "--no-stages", *size])
     bench("--small", ["--small"])
     bench("trained_116k", ["--scene", FIXTURE_116K, *size])
+    # The same cells chained: CHAIN steps in one CUDA graph a call.
+    # Each with `cli.bench_inputs`' arguments for the checks' own chain.
+    big = (N_NORTH_STAR, WIDTH, HEIGHT, None)
+    for label, argv, spec in (
+            ("1M fwd+bwd", size, big),
+            ("1M fwd", ["--fwd-only", *size], big),
+            ("--small", ["--small"], (N_SMALL, SMALL_SIZE, SMALL_SIZE, None)),
+            ("trained_116k", ["--scene", FIXTURE_116K, *size],
+             (0, WIDTH, HEIGHT, FIXTURE_116K))):
+        res[f"chain {label}"] = bench_chain(label, argv, spec)
+    try:
+        cli.main(["bench", "--chain", str(CHAIN), "--backend", "torch",
+                  "--scene", FIXTURE_SMALL, "--no-stages"])
+    except ValueError as err:
+        print(f"phase 15 bench --chain {CHAIN} --backend torch refused: "
+              f"{err}", flush=True)
+    else:
+        raise AssertionError("--chain with --backend torch did not raise")
     small = ["--scene", FIXTURE_SMALL, "--width", "128", "--height", "128"]
     bench("torch backend trained_small",
           ["--backend", "torch", "--no-stages", "--iters", "1", *small],
@@ -734,6 +764,158 @@ def phase_bench(dev) -> dict:
     bench("trained fixture 5x", ["--scene", made["stats_5m"], "--no-stages",
                                  *size])
     return res
+
+
+CHAIN = 8  # steps a chained bench call captures in one CUDA graph
+CHAIN_REPLAYS = 3  # timed replays of the checks' own chain
+# The chained step's gradients against an eager step's: the gather's
+# backward sums by atomics (`index_add_`) in no fixed order, so a group's
+# gradient moves within rounding of its largest magnitude (phase 16's bound).
+CHAIN_GRAD_RTOL = 1e-6
+# That rounding grows with the terms an atomic sum takes: on trained_116k
+# (up to 460 tiles a Gaussian) eager steps differ from each other by
+# several times 1e-6 of a group's largest |g|, and no sum order is fixed. There the chained step is
+# held to SPREAD_FACTOR times the most that EAGER_PAIRS eager steps differ
+# from a first one, measured beside it, and a chain captured under
+# deterministic algorithms to an eager step's bits.
+EAGER_PAIRS = 3
+SPREAD_FACTOR = 4.0
+# After the opacity logits drop by 1 in place, the next replay's opacity
+# gradients (or image) move by more than this share of their largest
+# magnitude: far above the atomics' rounding, so the graph followed.
+CHAIN_MOVED = 1e-3
+
+
+def param_bits(scene) -> dict:
+    """Each parameter group's bits (int32 view), -0.0 told from 0.0."""
+    return {k: v.detach().clone().view(torch.int32)
+            for k, v in scene.param_groups().items()}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms inside (an op without one
+    raises), the previous setting restored after."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def gib_above(base: int) -> float:
+    """The most memory allocated since the last peak reset, above `base`
+    bytes, in GiB (after a synchronize)."""
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def bench_chain(label: str, argv: list, spec: tuple) -> dict:
+    """`bench --chain CHAIN --no-stages` on one cell through the CLI (its
+    JSON, and the kernel launches per step that its capture recorded), then
+    a chain of the same inputs (`cli.bench_inputs(*spec)`, as the CLI makes
+    them) held to the checks of phase 15 (`phase_bench`), its peak memory
+    over warm-up and capture beside an eager step's. Returns the JSON and
+    the checks' numbers."""
+    from gsrast_tpu_torch import _kernels, benchmark, cli
+
+    out, lines, sec = captured(cli.main, ["bench", "--chain", str(CHAIN),
+                                          "--no-stages", *argv])
+    assert json.loads(lines[-1]) == out
+    cli_per_step = json.loads(lines[-2].split("in the capture ", 1)[1])
+    dev = torch.device("cuda")
+    scene, camera, rcfg = cli.bench_inputs(*spec, "cuda", dev)
+    args = (scene, camera, rcfg, "--fwd-only" in argv)
+    before = param_bits(scene)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    steps = benchmark.StepChain(*args, CHAIN)
+    chain_peak = gib_above(base)
+    counts = dict(_kernels.launch_counts)
+    benchmark.time_steps(steps, CHAIN_REPLAYS)
+    replay_launches = sum(_kernels.launch_counts.values()) - sum(
+        counts.values())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    eager = benchmark.bench_step(*args)
+    step_peak = gib_above(base)
+    eager_counts = dict(_kernels.launch_counts)
+
+    def against_eager(chained, eager) -> float:
+        """The largest gap over the groups, in units of each group's
+        largest |g| (fwd+bwd), or 0 where the images are bit-equal."""
+        if steps.fwd_only:
+            assert torch.equal(chained, eager), "the chained image differs"
+            return 0.0
+        gaps = []
+        for name, g in eager.items():
+            scale = float(g.abs().max())
+            assert scale > 0, name
+            gaps.append(float((chained[name] - g).abs().max()) / scale)
+        return max(gaps)
+
+    # Eager steps differ from each other by the atomics' order alone: the
+    # spread (the most of three) that bounds a replay where it exceeds
+    # CHAIN_GRAD_RTOL (trained_116k).
+    spread = max(against_eager(benchmark.bench_step(*args), eager)
+                 for _ in range(EAGER_PAIRS))
+    gap = against_eager(steps.out, eager)
+    unchanged = all(torch.equal(v, before[k])
+                    for k, v in param_bits(scene).items())
+    # An in-place change of an input: the next replay must follow it.
+    with torch.no_grad():
+        scene.opacity_logits.sub_(1.0)
+    old = (steps.out.clone() if steps.fwd_only
+           else steps.out["opacity_logits"].clone())
+    steps()
+    moved = steps.out if steps.fwd_only else steps.out["opacity_logits"]
+    moved = float((moved - old).abs().max()) / float(old.abs().max())
+    gap_after = against_eager(steps.out, benchmark.bench_step(*args))
+    det_gap = 0.0
+    if not steps.fwd_only:
+        # With PyTorch's deterministic algorithms (`index_add_` sorted, no
+        # atomics) a captured chain's replay is an eager step bit for bit.
+        with deterministic():
+            det_eager = benchmark.bench_step(*args)
+            det_steps = benchmark.StepChain(*args, CHAIN)
+            det_gap = against_eager(det_steps(), det_eager)
+        del det_steps, det_eager
+    torch.cuda.synchronize()
+    res = {
+        "chained_ms": out["chained_ms"],
+        "per_dispatch_ms": out["per_dispatch_ms"],
+        "ratio": out["chained_ms"] / out["per_dispatch_ms"],
+        "captures": steps.captures, "captured": steps.captured,
+        "eager_step": eager_counts, "cli_per_step": cli_per_step,
+        "replay_launches": replay_launches,
+        "params_unchanged": unchanged, "grad_gap": gap,
+        "eager_spread": spread, "moved_by_input": moved,
+        "grad_gap_after_input": gap_after, "deterministic_gap": det_gap,
+        "peak_gib": {"chain": chain_peak, "step": step_peak},
+        "seconds": sec,
+    }
+    print(f"phase 15 bench --chain {CHAIN} {label} ({sec:.1f} s): "
+          f"chained_ms {res['chained_ms']:.4f}, per_dispatch_ms "
+          f"{res['per_dispatch_ms']:.4f}, ratio {res['ratio']:.4f}; "
+          f"{' | '.join(lines[:-1])}; checks {json.dumps(res)}", flush=True)
+    print(f"phase 15 {lines[-1]}", flush=True)
+    assert out["chain"] == CHAIN and out["value"] > 0
+    assert steps.captures == 1, "the chain was not captured once"
+    assert steps.captured == {k: CHAIN * v for k, v in eager_counts.items()}
+    assert cli_per_step == {k: v for k, v in eager_counts.items() if v}
+    assert min(eager_counts[k] for k in (
+        PATH_KERNELS[:2] if steps.fwd_only else PATH_KERNELS)) == 1
+    assert replay_launches == 0, "a replay launched a wrapper"
+    assert unchanged, "the zero updates changed a parameter"
+    bound = max(CHAIN_GRAD_RTOL, SPREAD_FACTOR * spread)
+    assert gap <= bound and gap_after <= bound, res
+    assert det_gap == 0.0, "the deterministic replay is not the eager step"
+    assert moved > CHAIN_MOVED, "the replay did not follow its input"
+    return dict(out, **res)
 
 
 # -- phase 16: the sharded path -------------------------------------------
@@ -1694,6 +1876,50 @@ def phase_legacy(dev, tier_ms: dict) -> dict:
 
 DRYRUN_RANKS = (2, 4)
 SCALING_RANKS = 4  # the harness's D = 1, 2, 4
+QUICK = (20_000, 512, 256)  # scaling_bench --quick: N, width, height
+# The share control at D = 1 over the one-rank tile step, timed in turns:
+# the step's work without the exchange's column pack and unpack and the
+# image assembly, so at most 1 (and 5% for the spread of host-bound bests
+# of scaling_bench.ONE_RANK_ITERS calls). Timed in turns on an H100,
+# those parts took 0.59-1.29 ms of a 6.9-8.0 ms forward
+# (`phase18_control_rank`; PERF.md §6): if their backward costs no
+# more than their forward, the control reads at least 1 - 2 x 1.29 /
+# 10.39 of the 10.39-12.24 ms step, so 0.75.
+SHARE_CONTROL_BAND = (0.75, 1.05)
+
+
+def phase18_control_rank(world: int, dev) -> dict:
+    """On a group of one rank at the harness's --quick size, each the best
+    of scaling_bench.ONE_RANK_ITERS, in turns (ms): the tile step and the
+    share control at D = 1 as the harness times them (forward and
+    backward), each forward alone, the step's forward up to its tiles (`tile_prefix`'s
+    blend stage: no image assembly), its one-rank exchange (the prefix's
+    prep stage: preprocess, the screen state packed into columns and
+    unpacked) and the control's preprocess alone."""
+    from gsrast_tpu_torch.diag import scaling_bench as sb
+    from gsrast_tpu_torch.ops.preprocess import preprocess
+    from gsrast_tpu_torch.parallel import make_mesh, render_tile_sharded
+
+    scene, camera = sb.scene_camera(*QUICK, dev)
+    cfg = sb.bench_config(scene, camera)
+    with torch.no_grad():
+        act = scene.activated()
+    mesh = make_mesh((1, 1))
+    loss = sb.share_loss(act, camera, cfg, 1)
+    prefix = sb.tile_prefix(act, camera, cfg, mesh)
+    res = dict(zip(("step", "control"), sb.timed_turns(
+        [sb.tile_step(act, camera, cfg, mesh)[0], lambda: loss().backward()],
+        sb.ONE_RANK_ITERS, dev)))
+    with torch.no_grad():
+        res.update(zip(
+            ("step_fwd", "control_fwd", "step_tiles", "exchange",
+             "preprocess"),
+            sb.timed_turns([
+                lambda: render_tile_sharded(act, camera, cfg, mesh), loss,
+                lambda: prefix("blend"), lambda: prefix("prep"),
+                lambda: preprocess(act, camera, cfg)],
+                sb.ONE_RANK_ITERS, dev)))
+    return res
 
 
 def phase_dryrun(dev) -> dict:
@@ -1703,7 +1929,8 @@ def phase_dryrun(dev) -> dict:
     phase 15 holds them); `dryrun_multichip` on 2 and 4 gloo ranks sharing
     the card (every overflow counter 0, the ranks agreeing, each through
     the kernels); the scaling harness `--quick` on D = 1, 2, 4 (its JSON in
-    `_build/`). Returns the results."""
+    `_build/`), its share control at D = 1 over the one-rank tile step
+    within SHARE_CONTROL_BAND. Returns the results."""
     from gsrast_tpu_torch import _kernels
     from gsrast_tpu_torch.config import TRANSMITTANCE_MIN
     from gsrast_tpu_torch.diag import dryrun, scaling_bench
@@ -1771,7 +1998,27 @@ def phase_dryrun(dev) -> dict:
     assert scaling["cards"] == [1, 1, 1], scaling
     for mode in ("tile", "primitive"):
         assert all(t > 0 for t in scaling["modes"][mode]["step_ms"]), mode
-    res["scaling"] = scaling
+    ratio = (scaling["share_control_ms"]["1"]
+             / scaling["modes"]["tile"]["step_ms"][0])
+    print(f"phase 18 share control at D = 1 over the one-rank tile step: "
+          f"{scaling['share_control_ms']['1']:.4f} / "
+          f"{scaling['modes']['tile']['step_ms'][0]:.4f} ms = {ratio:.4f} "
+          f"(band {SHARE_CONTROL_BAND})", flush=True)
+    # What the control leaves out of the one-rank step, measured apart.
+    t0 = time.perf_counter()
+    (parts,) = dryrun.spawn_ranks(phase18_control_rank, 1, "cuda",
+                                  timeout=RANK_TIMEOUT)
+    parts.update(
+        ratio=parts["control"] / parts["step"],
+        fwd_ratio=parts["control_fwd"] / parts["step_fwd"],
+        exchange_over_preprocess=parts["exchange"] - parts["preprocess"],
+        assembly=parts["step_fwd"] - parts["step_tiles"])
+    print(f"phase 18 share control's parts at D = 1, best of "
+          f"{scaling_bench.ONE_RANK_ITERS} ms "
+          f"({time.perf_counter() - t0:.1f} s): {json.dumps(parts)}",
+          flush=True)
+    assert SHARE_CONTROL_BAND[0] <= ratio <= SHARE_CONTROL_BAND[1], ratio
+    res["scaling"], res["control_parts"] = scaling, parts
     return res
 
 

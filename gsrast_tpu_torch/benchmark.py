@@ -19,6 +19,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from . import _kernels
 from . import config as cfg
 from .camera import Camera, look_at, make_camera
 from .ops import binning
@@ -127,15 +128,129 @@ def bench_step(scene: GaussianScene, camera: Camera, rcfg: cfg.RenderConfig,
     return {name: p.grad for name, p in params.items()}
 
 
-def run_bench(scene: GaussianScene, camera: Camera, rcfg: cfg.RenderConfig,
-              fwd_only: bool = False,
-              iters: int = 10) -> Tuple[float, float, float]:
-    """Time `bench_step` over `iters` calls after a warm-up, with `rcfg`
-    (`bench_render_config`'s for the bench). Returns (best_ms, median_ms,
-    mpix_s), Mpix/s from the best, as the reference computes it."""
-    best, median = timeit(lambda: bench_step(scene, camera, rcfg, fwd_only),
-                          iters, camera.device)
+def check_chain(backend: str, device, chain: int) -> None:
+    """Raise where a chain of more than one step cannot be captured on
+    `device`: on a card only the blend kernels' path (backend 'cuda') is
+    capture-safe. The plain versions ('torch') read each tile's segment
+    length on the host (`.tolist()` in `render/blend.py`), which a capture
+    forbids, and the 'autograd' oracle has not been made capture-safe."""
+    if chain > 1 and torch.device(device).type == "cuda" and (
+            backend != "cuda"):
+        raise ValueError(
+            f"--chain {chain} on a card captures the steps in a CUDA graph, "
+            f"which backend {backend!r} cannot enter: "
+            + ("the plain blend versions read the tiles' segment lengths on "
+               "the host" if backend == "torch" else
+               "the autograd oracle is not capture-safe")
+            + "; use backend 'cuda' or --chain 1")
+
+
+class StepChain:
+    """`chain` bench steps, each dependent on the last: the reference's
+    `run_bench(chain=K)` (`gsrast_tpu/benchmark.py:106-181`), whose scan
+    carries the parameters through a zero update after every step. Here
+    each parameter group is updated in place, `p.add_(0.0 * grad)` (with
+    `fwd_only`: `p.add_(0.0 * mean(image))`), which orders the steps
+    without changing the math. A call runs the whole chain and returns the
+    last step's output (`bench_step`'s: the grads by field name, or the
+    image). A chain of 1 (or less, the reference's `max(chain, 1)`) is one
+    `bench_step` a call, the per-call path.
+
+    On a CUDA device a chain of K > 1 is captured once into one CUDA
+    graph, after a warm-up of the whole chain on a side stream (PyTorch's
+    whole-network capture recipe: every kernel has loaded and every
+    allocation has a block before the capture), and each call is one
+    `replay()`: the card's time for K steps with the host's launches
+    taken out. The returned tensors are then the graph's own, rewritten
+    by every replay. A capture that fails raises; nothing falls back to an
+    eager chain on the card (`check_chain` refuses the backends that cannot
+    be captured). On the CPU the chain runs eagerly.
+
+    `captured`: per kernel of `_kernels.launch_counts`, the launches the
+    capture recorded, K times the eager step's; `captures`: the graphs
+    captured (one on a card, none on the CPU). A replay launches no
+    wrapper, so it adds nothing to `launch_counts`."""
+
+    def __init__(self, scene: GaussianScene, camera: Camera,
+                 rcfg: cfg.RenderConfig, fwd_only: bool = False,
+                 chain: int = 1):
+        self.scene, self.camera, self.rcfg = scene, camera, rcfg
+        self.fwd_only = fwd_only
+        self.chain = max(int(chain), 1)
+        self.graph = None
+        self.out = None
+        self.captured, self.captures = {}, 0
+        check_chain(rcfg.backend, camera.device, self.chain)
+        if self.chain > 1 and camera.device.type == "cuda":
+            self._capture()
+
+    def __call__(self):
+        if self.graph is not None:
+            self.graph.replay()
+        else:
+            self.out = self._run()
+        return self.out
+
+    def _run(self):
+        """The chain, eagerly: K steps, each followed by the zero update
+        of every parameter group (one step alone takes none)."""
+        out = None
+        params = self.scene.param_groups()
+        for _ in range(self.chain):
+            out = bench_step(self.scene, self.camera, self.rcfg,
+                             self.fwd_only)
+            if self.chain == 1:
+                return out
+            with torch.no_grad():
+                if self.fwd_only:
+                    eps = 0.0 * torch.mean(out)
+                    for p in params.values():
+                        p.add_(eps)
+                else:
+                    for name, p in params.items():
+                        p.add_(0.0 * out[name])
+        return out
+
+    def _capture(self) -> None:
+        dev = self.camera.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._run()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = dict(_kernels.launch_counts)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                out = self._run()
+        except RuntimeError as err:
+            raise RuntimeError(
+                f"capturing the {self.chain}-step bench chain in a CUDA "
+                f"graph failed: {err}") from err
+        self.captured = {k: _kernels.launch_counts[k] - before[k]
+                         for k in before}
+        self.graph, self.out = graph, out
+        self.captures += 1
+
+
+def time_steps(steps: StepChain, iters: int) -> Tuple[float, float, float]:
+    """Time `steps` over `iters` calls after a warm-up (`timeit`): returns
+    (best_ms, median_ms, mpix_s) per step, each call's time divided by its
+    chain length, Mpix/s from the best, as the reference computes them."""
+    best, median = timeit(steps, iters, steps.camera.device)
+    best, median = best / steps.chain, median / steps.chain
+    camera = steps.camera
     return best, median, camera.width * camera.height / best / 1e3
+
+
+def run_bench(scene: GaussianScene, camera: Camera, rcfg: cfg.RenderConfig,
+              fwd_only: bool = False, iters: int = 10,
+              chain: int = 1) -> Tuple[float, float, float]:
+    """Time `bench_step` with `rcfg` (`bench_render_config`'s for the
+    bench): one step a call where `chain` <= 1, else a `StepChain` of
+    `chain` steps a call (one CUDA graph replay on a card). Returns
+    (best_ms, median_ms, mpix_s) per step (`time_steps`)."""
+    return time_steps(StepChain(scene, camera, rcfg, fwd_only, chain), iters)
 
 
 def _grad_of(loss_fn: Callable, leaves: dict) -> Callable:

@@ -135,7 +135,7 @@ def perspective(fov_x, fov_y, znear, zfar) -> torch.Tensor:
     p[1, 1] = 1.0 / ty
     p[2, 2] = zfar / (zfar - znear)
     p[2, 3] = -(zfar * znear) / (zfar - znear)
-    p[3, 2] = 1.0
+    p[3, 2].fill_(1.0)  # a fill kernel, not a host copy: capturable
     return p
 
 

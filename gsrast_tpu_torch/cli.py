@@ -414,12 +414,44 @@ def cmd_make_dataset(argv):
     return cams
 
 
+def bench_inputs(n: int, width: int, height: int, scene_spec, backend: str,
+                 device) -> tuple:
+    """`bench`'s (scene, camera, config): the bench scene of n Gaussians,
+    or `scene_spec` (a .ply or 'random:N') framed by its bbox, at width x
+    height, with `benchmark.bench_render_config` on `backend`."""
+    from . import benchmark
+    from .camera import auto_frame
+
+    overrides = {}
+    if scene_spec:
+        scene = _load_scene(scene_spec, device)
+        camera = auto_frame(*scene.bbox(), width, height, device=device)
+        # The reference's legacy capacity for trained scenes' skew
+        # (`gsrast_tpu/benchmark.py:128-129`); the tier plan ignores it.
+        overrides["intersect_capacity_factor"] = max(
+            64.0, 8e6 / scene.capacity)
+    else:
+        scene, camera = benchmark.bench_scene_camera(n, width, height,
+                                                     device=device)
+    rcfg = benchmark.bench_render_config(scene, camera, backend, **overrides)
+    return scene, camera, rcfg
+
+
 def cmd_bench(argv) -> dict:
     """The benchmark (`benchmark.py`, the one definition of the step that
     `chip_smoke.py` and the diag scripts time too): on the bench scene, or
     `--scene` framed by its bbox, print the scene statistics of its tile
     plan, the stage table unless `--no-stages`, and as the last line one
-    JSON object, which it returns."""
+    JSON object, which it returns.
+
+    `--chain K` > 1 times K data-dependent steps a call (the reference's
+    `bench --chain`; `benchmark.StepChain`: on a card one CUDA graph
+    replay, on the CPU an eager chain), prints the kernel launches per
+    step that the capture recorded, and adds the root `bench.py`'s keys:
+    `chained_ms` (the chained best per step; `best_ms`, `median_ms` and
+    `value` are the chained ones too) and `per_dispatch_ms` /
+    `per_dispatch_mpix_s` from one step a call over max(3, iters // 2)
+    calls. Every JSON carries `chain`."""
     ap = argparse.ArgumentParser(prog="gsrast_tpu_torch bench")
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--width", type=int, default=1920)
@@ -430,6 +462,11 @@ def cmd_bench(argv) -> dict:
     ap.add_argument("--backend", default=None, choices=TILED_BACKENDS,
                     help=TILED_HELP)
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--chain", type=int, default=1,
+                    help="steps chained per timed call (steady-state "
+                         "timing: on a card K steps in one CUDA graph, one "
+                         "replay a call; 1 = one step a call, its host "
+                         "launches included)")
     ap.add_argument("--no-stages", action="store_true",
                     help="skip the per-stage table (headline only)")
     ap.add_argument("--small", action="store_true",
@@ -443,24 +480,13 @@ def cmd_bench(argv) -> dict:
     _maybe_distributed(args)
 
     from . import benchmark
-    from .camera import auto_frame
 
     backend = args.backend or ("cuda" if device.type == "cuda" else "torch")
     if args.small:
         args.n, args.width, args.height = 100_000, 800, 800
-    overrides = {}
-    if args.scene:
-        scene = _load_scene(args.scene, device)
-        camera = auto_frame(*scene.bbox(), args.width, args.height,
-                            device=device)
-        args.n = scene.capacity
-        # The reference's legacy capacity for trained scenes' skew
-        # (`gsrast_tpu/benchmark.py:128-129`); the tier plan ignores it.
-        overrides["intersect_capacity_factor"] = max(64.0, 8e6 / args.n)
-    else:
-        scene, camera = benchmark.bench_scene_camera(
-            args.n, args.width, args.height, device=device)
-    rcfg = benchmark.bench_render_config(scene, camera, backend, **overrides)
+    scene, camera, rcfg = bench_inputs(args.n, args.width, args.height,
+                                       args.scene, backend, device)
+    args.n = scene.capacity
     gh, gw = rcfg.grid_shape(args.height, args.width)
     stats = benchmark.scene_stats(scene, camera, rcfg)
     print(f"scene stats: tile {rcfg.tile_h}x{rcfg.tile_w} grid {gh}x{gw} "
@@ -468,8 +494,9 @@ def cmd_bench(argv) -> dict:
     if not args.no_stages:
         stages = benchmark.stage_table(scene, camera, rcfg, iters=args.iters)
         print(benchmark.format_stage_table(stages, args.width, args.height))
-    best_ms, median_ms, mpix_s = benchmark.run_bench(
-        scene, camera, rcfg, fwd_only=args.fwd_only, iters=args.iters)
+    steps = benchmark.StepChain(scene, camera, rcfg, args.fwd_only,
+                                args.chain)
+    best_ms, median_ms, mpix_s = benchmark.time_steps(steps, args.iters)
     mode = "fwd" if args.fwd_only else "fwd+bwd"
     result = {
         "metric": ("mpixels_per_s_per_chip_fwd" if args.fwd_only
@@ -480,7 +507,21 @@ def cmd_bench(argv) -> dict:
         "iters": args.iters, "mode": mode,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
+        "chain": steps.chain,
     }
+    if steps.chain > 1:
+        if steps.captures:
+            per_step = {k: v / steps.chain for k, v in steps.captured.items()
+                        if v}
+            print(f"chain: {steps.chain} steps in one CUDA graph; kernel "
+                  f"launches per step in the capture {json.dumps(per_step)}")
+        else:
+            print(f"chain: {steps.chain} steps a call, eagerly on {device}")
+        pd_ms, _, pd_mpix = benchmark.run_bench(
+            scene, camera, rcfg, fwd_only=args.fwd_only,
+            iters=max(3, args.iters // 2))
+        result.update(chained_ms=best_ms, per_dispatch_ms=pd_ms,
+                      per_dispatch_mpix_s=pd_mpix)
     print(json.dumps(result))
     return result
 
@@ -516,7 +557,7 @@ def main(argv=None):
               "       python -m gsrast_tpu_torch bench [--n N] [--width W] "
               "[--height H] [--scene PLY|random:N] [--backend "
               f"{{{','.join(TILED_BACKENDS)}}}] "
-              "[--iters K] [--no-stages] [--small] [--fwd-only] "
+              "[--iters K] [--chain K] [--no-stages] [--small] [--fwd-only] "
               "[--device DEV]\n"
               "every command also takes [--dist COORD:PORT,NPROCS,RANK]")
         return

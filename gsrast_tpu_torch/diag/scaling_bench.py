@@ -16,8 +16,8 @@ and times the gradient of mean(image) with respect to the means:
     prefixes, each entry the difference (`stages_tile_fwd_ms`);
   * primitive mode: `render_primitive_sharded`, each rank its shard of the
     scene padded by `pad_gaussians`;
-and one rank alone times `share_control` for every D: one rank's exact
-share of the work with no communication (the preprocess of N/D Gaussians
+and one rank alone times the share control (`share_loss`) for every D:
+one rank's exact share of the work with no communication (the preprocess of N/D Gaussians
 and rank 0's interleaved rows' plan, pack and blend over the whole set,
 each forward and backward), so that efficiency_vs_share_control = control /
 measured is at most about 1. The exchange budgets come from
@@ -29,10 +29,14 @@ Scene: N SH-1 anisotropic Gaussians, scales in [0.004, 0.015], from
 capacity factor 8. Default 200k at 1024x512; --quick 20k at 512x256. Each
 time is the best of --iters after a warm-up, per iteration the slowest
 rank's: on the card by CUDA events, on the CPU by the host clock between
-barriers. The JSON at --out has the reference's keys (`SCALING_r05.json`)
-and, per D, the transport and the distinct cards the ranks used, with the
-card's name and power limit (nvidia-smi). Ranks that share one card
-measure the curve's shape and its overheads, not scaling.
+barriers; the group of one takes its tile step and the share controls
+in turns (`timed_turns`), each the best of at least ONE_RANK_ITERS, so
+that the control at D = 1 lands within a band of the step (`chip_smoke.py`
+phase 18). The JSON at
+--out has the reference's keys (`SCALING_r05.json`) and, per D, the
+transport and the distinct cards the ranks used, with the card's name
+and power limit (nvidia-smi). Ranks that share one card measure the
+curve's shape and its overheads, not scaling.
 """
 
 from __future__ import annotations
@@ -51,6 +55,10 @@ import torch
 
 COUNTS = (1, 2, 4, 8)
 STAGES = ("prep", "binning", "blend")
+# The group of one times its tile step and the share controls as the best
+# of at least this many calls: both are host-bound, and on an H100 a best
+# of 2 spread by half. A call takes 10-20 ms there at --quick's size.
+ONE_RANK_ITERS = 30
 
 
 def scene_camera(n: int, width: int, height: int, device):
@@ -75,30 +83,38 @@ def bench_config(scene, camera):
 def timed(fn, iters: int, device) -> float:
     """Best of `iters` runs of fn() after one warm-up, in ms; per run the
     slowest rank's time (a collective: every rank calls it)."""
+    return timed_turns([fn], iters, device)[0]
+
+
+def timed_turns(fns, iters: int, device) -> list:
+    """`timed` of each of fns, taken in turns: every round runs each once,
+    so that a drift of the host's speed falls on all of them alike."""
     import torch.distributed as dist
 
-    fn()
-    times = []
+    for fn in fns:
+        fn()
+    times = [[] for _ in fns]
     for _ in range(iters):
-        dist.barrier()
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            fn()
+        for fn, runs in zip(fns, times):
             dist.barrier()
-            times.append((time.perf_counter() - t0) * 1e3)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                runs.append(start.elapsed_time(end))
+            else:
+                t0 = time.perf_counter()
+                fn()
+                dist.barrier()
+                runs.append((time.perf_counter() - t0) * 1e3)
     slowest = torch.tensor(times, dtype=torch.float64, device=(
         device if dist.get_backend() == "nccl" else "cpu"))
     dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
-    return float(slowest.min())
+    return slowest.min(dim=1).values.tolist()
 
 
 def tile_step(act, camera, cfg, mesh):
@@ -181,11 +197,15 @@ def stage_ms(act, camera, cfg, mesh, iters: int, device) -> dict:
     return out
 
 
-def share_control(act, camera, cfg, n_dev: int, iters: int, device) -> float:
-    """One rank's exact share at D = n_dev, with no communication: the
-    preprocess of N/D Gaussians and rank 0's interleaved rows' plan, pack
-    and blend over all N, forward and backward as one graph, as the step
-    is (ms). The reference sums two timed jits; eagerly, each part's own
+def share_loss(act, camera, cfg, n_dev: int):
+    """loss() of the share control: one rank's exact share at D = n_dev,
+    with no communication: the preprocess of N/D Gaussians and rank 0's
+    interleaved rows' plan, pack and blend over all N, as one graph, as the
+    step is; it sets its leaves' grads to None first, as the step does.
+    Like the step, it differentiates with respect to the means alone: the
+    reference's control takes the gradient of all five activated fields,
+    which jit fuses but which eagerly costs launches that the step does not
+    pay. The reference sums two timed jits; eagerly, each part's own
     backward would pay the host's launch latency again."""
     from ..ops.preprocess import preprocess
     from ..parallel import sharded as ps
@@ -197,28 +217,33 @@ def share_control(act, camera, cfg, n_dev: int, iters: int, device) -> float:
                                     True)
     cfg_d = cfg.replace(tiers=tiers_d)
     nl = padded.means.shape[0] // n_dev
-    part = {k: v[:nl].detach().clone().requires_grad_(v.is_floating_point())
-            for k, v in vars(padded).items()}
+    part = {k: v[:nl].detach().clone() for k, v in vars(padded).items()}
+    part["means"].requires_grad_(True)
     with torch.no_grad():
         full = preprocess(act, camera, cfg)
     floats = {k: getattr(full, k).detach().clone().requires_grad_(True)
               for k in ("mean2d", "conic", "color", "opacity")}
+    leaves = [part["means"], *floats.values()]
 
-    def share():
+    def loss():
+        for leaf in leaves:
+            leaf.grad = None
         p = preprocess(type(act)(**part), camera, cfg)
         rgb, ft, _, _, _ = ps._local_tiles(
             full._replace(**floats), cfg, cfg_d, grid_h, grid_w, rpd, 0,
             n_dev, cfg.backend)
-        (p.mean2d.sum() + p.conic.sum() + p.color.sum() + p.opacity.sum()
-         + rgb.sum() + ft.sum()).backward()
-    return timed(share, iters, device)
+        return (p.mean2d.sum() + p.conic.sum() + p.color.sum()
+                + p.opacity.sum() + rgb.sum() + ft.sum())
+    return loss
 
 
 def _rank(world: int, device, cfg: dict, n: int, width: int, height: int,
           iters: int, controls=()) -> dict:
     """One rank of a group of D = world: both modes' step times, the tile
-    stages, and (on a group of one) `share_control` for each D of
-    `controls`."""
+    stages, and (on a group of one) the share control (`share_loss`
+    forward and backward) for each D of `controls`; there the tile step and
+    the controls are timed in turns (`timed_turns`), the best of at least
+    ONE_RANK_ITERS calls each."""
     import torch.distributed as dist
 
     from ..config import RenderConfig
@@ -228,15 +253,18 @@ def _rank(world: int, device, cfg: dict, n: int, width: int, height: int,
     with torch.no_grad():
         act = scene.activated()
     cfg = RenderConfig(**cfg)
+    step_iters = max(iters, ONE_RANK_ITERS) if world == 1 else iters
     mesh = make_mesh((1, world))
     res = {"device": str(device), "transport": dist.get_backend()}
-    res["tile_ms"] = timed(tile_step(act, camera, cfg, mesh)[0], iters,
-                           device)
+    losses = [share_loss(act, camera, cfg, d) for d in controls]
+    res["tile_ms"], *control_ms = timed_turns(
+        [tile_step(act, camera, cfg, mesh)[0],
+         *[lambda loss=loss: loss().backward() for loss in losses]],
+        step_iters, device)
     res["stages"] = stage_ms(act, camera, cfg, mesh, iters, device)
     res["primitive_ms"] = timed(primitive_step(act, camera, cfg, mesh)[0],
                                 iters, device)
-    res["controls"] = {str(d): share_control(act, camera, cfg, d, iters,
-                                             device) for d in controls}
+    res["controls"] = {str(d): t for d, t in zip(controls, control_ms)}
     return res
 
 

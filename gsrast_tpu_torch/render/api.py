@@ -56,9 +56,14 @@ def auto_render_config(scene, camera: Camera,
     tiles per Gaussian is above 8. `base` defaults to 16x32 with backend
     'cuda' where the scene or the camera lies on a CUDA device, else
     'torch' (so make the config from the tensors it will render). A given
-    `base` keeps its backend and every other field. `margin` is the tier
-    budgets' headroom (`auto_tiers`); training passes a larger one, since
-    densification reshapes the count distribution.
+    `base` keeps its backend and every other field but the legacy
+    binning's fallback knobs, which are set as the reference sets them on
+    every config it returns (`gsrast_tpu/render/api.py:76-78`):
+    `max_tiles_per_gaussian` 512 and `heavy_fraction` 0.5, for a caller
+    that puts the config back on the legacy path (`tiers=()`); neither
+    changes the tier plan. `margin` is the tier budgets' headroom
+    (`auto_tiers`); training passes a larger one, since densification
+    reshapes the count distribution.
 
     The 16x32 base and the P <= 2048 cap were tuned on the TPU and are kept
     for parity with the reference; `diag/tile_sweep.py` times the tile
@@ -66,7 +71,7 @@ def auto_render_config(scene, camera: Camera,
     if base is None:
         base = cfg.RenderConfig(tile_h=16, tile_w=32,
                                 backend=_on_card(scene, camera, "torch"))
-    rcfg = base
+    rcfg = base.replace(max_tiles_per_gaussian=512, heavy_fraction=0.5)
     counts = scene_tile_counts(scene, camera, rcfg)
     mean_c = float(counts.mean()) if counts.size else 0.0
     while (auto_tile_w and mean_c > 8.0

@@ -24,7 +24,7 @@ from .. import config as cfg
 from ..camera import Camera, matmul_f32
 from ..ops.preprocess import preprocess
 from ..scene.gaussians import ActivatedGaussians
-from .tiled import RenderOutput
+from .tiled import RenderOutput, background_rgb
 
 
 def blend_pixels(pix_x: torch.Tensor, pix_y: torch.Tensor,
@@ -80,8 +80,7 @@ def render_dense(gaussians: ActivatedGaussians, camera: Camera,
                            prep.opacity, prep.radius))
     rect = [r[order][:, None] for r in prep.rect]
     visible = (radius > 0)[:, None]
-    background = torch.tensor(render_cfg.background, dtype=torch.float32,
-                              device=dev)
+    background = background_rgb(render_cfg, dev)
     xs = torch.arange(w, dtype=torch.float32, device=dev)
 
     rows = []

@@ -29,6 +29,7 @@ cotangents over distinct addresses instead of queueing atomics on one.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
@@ -40,7 +41,8 @@ from ..ops.binning import sort_key
 from ..ops.preprocess import Preprocessed, preprocess
 from ..scene.gaussians import ActivatedGaussians
 from .blend import BlendFunction
-from .tiled import RenderOutput, gather_sorted, untile, untile_cf
+from .tiled import (RenderOutput, background_rgb, gather_sorted, untile,
+                    untile_cf)
 
 
 def feature_rows(prep: Preprocessed) -> torch.Tensor:
@@ -99,6 +101,21 @@ def pack_sorted_features(feat_t: torch.Tensor,
                      dim=0)
 
 
+# The forward's stages as named profiler ranges, `render.<stage>` (what
+# `diag/profile_step.py` splits a step's kernels by, the backward's through
+# the autograd nodes made inside each range): the stages of
+# `benchmark.stage_table`.
+STAGES = ("prep", "binning", "pack", "blend")
+
+
+def span(stage: str):
+    """The profiler range `render.<stage>` while a profiler runs; else
+    nothing, so that an unprofiled render pays no dispatcher calls."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(f"render.{stage}")
+    return contextlib.nullcontext()
+
+
 def render_tiled(gaussians: ActivatedGaussians, camera: Camera,
                  render_cfg: cfg.RenderConfig,
                  mean2d_delta: torch.Tensor | None = None) -> RenderOutput:
@@ -110,27 +127,35 @@ def render_tiled(gaussians: ActivatedGaussians, camera: Camera,
     grid_h, grid_w = render_cfg.grid_shape(camera.height, camera.width)
     num_tiles = grid_h * grid_w
 
-    prep = preprocess(gaussians, camera, render_cfg, mean2d_delta)
+    with span("prep"):
+        prep = preprocess(gaussians, camera, render_cfg, mean2d_delta)
     zero = torch.zeros((), dtype=torch.int32, device=prep.depth.device)
     if render_cfg.tiers:
-        plan = binning.plan_tiers(prep.detach(), grid_h, grid_w, render_cfg)
-        feat, tile_starts = sort_pack(feature_rows(prep), plan, num_tiles)
+        with span("binning"):
+            plan = binning.plan_tiers(prep.detach(), grid_h, grid_w,
+                                      render_cfg)
+        with span("pack"):
+            feat, tile_starts = sort_pack(feature_rows(prep), plan,
+                                          num_tiles)
         bin_stats = {"num_intersections": plan.total,
                      "overflow_capacity": zero,
                      "overflow_tile_cap": plan.overflow_tile_cap}
     else:
-        bins = binning.build_binning(
-            prep.detach(), grid_h, grid_w, render_cfg,
-            render_cfg.capacity(gaussians.means.shape[0]))
-        feat, tile_starts = pack_features(prep, bins), bins.tile_starts
+        with span("binning"):
+            bins = binning.build_binning(
+                prep.detach(), grid_h, grid_w, render_cfg,
+                render_cfg.capacity(gaussians.means.shape[0]))
+        with span("pack"):
+            feat, tile_starts = pack_features(prep, bins), bins.tile_starts
         bin_stats = {"num_intersections": bins.num_intersections,
                      "overflow_capacity": bins.overflow_capacity,
                      "overflow_tile_cap": bins.overflow_tile_cap}
-    rgb_tiles, ft_tiles, nc_tiles = BlendFunction.apply(
-        feat, tile_starts, grid_h, grid_w, tile_h, tile_w, render_cfg.backend)
+    with span("blend"):
+        rgb_tiles, ft_tiles, nc_tiles = BlendFunction.apply(
+            feat, tile_starts, grid_h, grid_w, tile_h, tile_w,
+            render_cfg.backend)
 
-    background = torch.tensor(render_cfg.background, dtype=torch.float32,
-                              device=feat.device)
+    background = background_rgb(render_cfg, feat.device)
     image_cf = untile_cf(rgb_tiles, grid_h, grid_w, render_cfg,
                          camera.height, camera.width)  # (3, H, W)
     final_t = untile(ft_tiles, grid_h, grid_w, render_cfg, camera.height,

@@ -33,6 +33,14 @@ class RenderOutput(NamedTuple):
     stats: dict
 
 
+def background_rgb(render_cfg: cfg.RenderConfig, device) -> torch.Tensor:
+    """(3,) float32 `render_cfg.background` on `device`, written there by
+    fill kernels rather than copied from host memory, which a CUDA graph
+    capture forbids (`benchmark.StepChain`); the same float32 values."""
+    return torch.stack([torch.full((), v, dtype=torch.float32, device=device)
+                        for v in render_cfg.background])
+
+
 def untile(tiles: torch.Tensor, grid_h: int, grid_w: int,
            render_cfg: cfg.RenderConfig, height: int,
            width: int) -> torch.Tensor:
@@ -87,8 +95,7 @@ def blend_sorted_xla(s_mean2d: torch.Tensor, s_conic: torch.Tensor,
     num_tiles = (grid_h if num_local_rows is None else num_local_rows) * grid_w
     k_tile, tile_chunk = render_cfg.max_per_tile, render_cfg.tile_chunk
     dev = s_opacity.device
-    background = torch.tensor(render_cfg.background, dtype=torch.float32,
-                              device=dev)
+    background = background_rgb(render_cfg, dev)
     starts = tile_starts[:-1].long()
     ends = tile_starts[1:].long()
     overflow = torch.clamp(ends - starts - k_tile, min=0).sum()

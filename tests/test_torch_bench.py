@@ -48,7 +48,7 @@ STAGES = ("prep", "binning_fwd", "pack", "pack_blend", "full", "blend_fwd",
           "blend_bwd", "full_fwd")
 BENCH_KEYS = {"metric", "n", "width", "height", "scene", "backend",
               "best_ms", "value", "unit", "median_ms", "iters", "mode",
-              "device"}
+              "device", "chain"}
 
 
 @pytest.fixture(scope="module")
@@ -141,7 +141,9 @@ def test_bench_step_matches_jax_grad(bench_case):
                                          ((32, 64), False)])
 def test_auto_render_config_base_and_auto_tile_w(tile, auto_w):
     """Big splats (17 tiles per Gaussian at 16x32): the tile grows from
-    `base` only where `auto_tile_w`; tiers equal the reference's."""
+    `base` only where `auto_tile_w`; every field but `backend` equals the
+    reference's, the tile, `tiers` and the legacy fallback knobs
+    (`max_tiles_per_gaussian` 512, `heavy_fraction` 0.5) included."""
     ref_scene, port_scene = scenes(seeded_arrays(3, 400))
     jcam, cam = front_camera(256, 192, dist=2.5)
     th, tw = tile
@@ -154,6 +156,15 @@ def test_auto_render_config_base_and_auto_tile_w(tile, auto_w):
         auto_tile_w=auto_w)
     assert (port.tile_h, port.tile_w, port.tiers) == (
         ref.tile_h, ref.tile_w, ref.tiers)
+    for field in dataclasses.fields(port):
+        if field.name != "backend":
+            assert getattr(port, field.name) == getattr(ref, field.name), (
+                field.name)
+    # The reference's one field more is its compute type, float32 as here.
+    assert {f.name for f in dataclasses.fields(ref)} - {
+        f.name for f in dataclasses.fields(port)} == {"dtype"}
+    assert ref.dtype == "float32"
+    assert (port.max_tiles_per_gaussian, port.heavy_fraction) == (512, 0.5)
     assert port.backend == "cuda"  # a given base keeps its backend
     grew = (port.tile_h, port.tile_w) != tile
     assert grew == (auto_w and th * tw < 2048)
@@ -229,6 +240,7 @@ def test_cli_bench_prints_stats_stages_and_json(mode, capsys):
     assert (result["n"], result["width"], result["height"]) == (N, W, H)
     assert (result["backend"], result["device"], result["iters"]) == (
         "torch", "cpu", 2)
+    assert result["chain"] == 1  # one step a call, the default
     assert result["scene"] is None and result["unit"] == "Mpixels/s/chip"
     assert 0 < result["best_ms"] <= result["median_ms"]
     assert result["value"] == pytest.approx(W * H / result["best_ms"] / 1e3)
