@@ -12,11 +12,12 @@ forward render path
 through its user entry points (the CLI on the trained 116k-Gaussian fixture
 at 1920x1080, and `render` on the 1M-Gaussian SH-degree-3 scene of the
 reference benchmark) and the training path (whole-render gradients against
-the CPU, 30 steps at 1080p through the `train.trainer` API, the CLI `train`
-with a checkpoint resume, and the fwd+bwd and train-step times at the
-north-star size), the fault-bisection kernels through their entry point
-(with the probe of what the L2 fetches for kernel B's reads) and against
-their plain versions at the script's shapes and at the size of
+the CPU, 30 steps at 1080p through the `train.trainer` API in its CUDA
+graph, the CLI `train` with a checkpoint resume equal to a straight run,
+and the fwd+bwd and train-step times at the north-star size), the
+fault-bisection kernels through their entry point (with the probe of
+what the L2 fetches for kernel B's reads) and against their plain
+versions at the script's shapes and at the size of
 trained_116k's 1080p plan, training from data through the CLI (a COLMAP
 scene of eight 1080p views of trained_116k with its means as SfM points,
 whose 32x64 tiles the blend kernels are also held at, a cameras.json
@@ -44,8 +45,14 @@ and train step on 2 gloo ranks), and the counterparts of the reference's
 `__graft_entry__.py` and scaling harness (phase 18: the entry point's
 image against the blend's plain versions, the dry run on 2 and 4 gloo ranks sharing the
 card, the scaling harness --quick on 1, 2 and 4 ranks, its share
-control at D = 1 within SHARE_CONTROL_BAND of the one-rank step); and
-checks that each path went through the kernels. Each phase prints its
+control at D = 1 within SHARE_CONTROL_BAND of the one-rank step), and
+the train step as `train` runs it on the card, captured once in a CUDA
+graph and replayed (phase 19: 30 graphed steps against 30 eager ones bit
+for bit under deterministic algorithms on trained_116k with densify
+between replays and on the COLMAP scene's 8 views, 5 on the 1M scene,
+both timed with their peak memory, and a NaN rollback through the graph;
+phases 8, 9 and 12 train through it too); and checks that each path went
+through the kernels. Each phase prints its
 lines before the next begins; the line before the last is the per-kernel
 JSON record, and the last is {"ok": true, "device": {...}}. Any failure
 raises and exits nonzero, as does a run without a card or without the
@@ -793,15 +800,17 @@ def param_bits(scene) -> dict:
 
 
 @contextlib.contextmanager
-def deterministic():
+def deterministic(warn_only: bool = False):
     """PyTorch's deterministic algorithms inside (an op without one
-    raises), the previous setting restored after."""
-    before = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
+    raises, or with `warn_only` warns and runs), the previous setting
+    restored after."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=warn_only)
     try:
         yield
     finally:
-        torch.use_deterministic_algorithms(before)
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
 
 
 def gib_above(base: int) -> float:
@@ -2022,6 +2031,222 @@ def phase_dryrun(dev) -> dict:
     return res
 
 
+# -- phase 19: the train step in a CUDA graph -----------------------------
+
+# Steps of the eager and the graphed run held bit for bit under
+# deterministic algorithms, per cell (1M: fewer, for the time limit).
+TRAIN_EQUAL_STEPS = {"trained_116k": 30, "colmap": 30, "1M": 5}
+TRAIN_TIMED = 30  # steps timed of each of eager and graphed
+TRAIN_READ = 20   # the last of them that the best and median read
+NAN_STEPS = 10    # run_resilient's steps: NaN after step 5, checkpoints at 4
+
+
+def train_bits(state) -> dict:
+    """Copies of `state.tensors()`, float32 as int32 bits."""
+    return {k: (v.detach().clone().view(torch.int32)
+                if v.dtype == torch.float32 else v.detach().clone())
+            for k, v in state.tensors().items()}
+
+
+def train_addresses(state) -> dict:
+    """The storage address of each of `state.tensors()`."""
+    return {k: v.data_ptr() for k, v in state.tensors().items()}
+
+
+def train_run(cell, state, fn, steps: int, dev) -> list:
+    """`steps` calls of fn(state, view, target) over the cell's views round
+    robin, the densify schedule between them; returns each loss (a
+    clone: a replay's metrics are the graph's)."""
+    from gsrast_tpu_torch.train.trainer import maybe_densify, step_generator
+
+    losses = []
+    for _ in range(steps):
+        i = state.step
+        v = i % len(cell.views)
+        losses.append(fn(state, cell.views[v], cell.targets[v])["loss"]
+                      .clone())
+        maybe_densify(state, cell.tc, step_generator(dev, i), cell.extent)
+    return losses
+
+
+def train_graph_cell(label: str, cell, dev) -> dict:
+    """Phase 19 on one cell (a `diag.profile_step.TrainCell`): from two
+    copies of its start, TRAIN_EQUAL_STEPS[label] eager and graphed steps
+    under deterministic algorithms, every loss and state tensor compared
+    bit for bit and the graphed state's addresses held; then, without the
+    flag, on the eager copy, TRAIN_TIMED eager steps and TRAIN_TIMED calls
+    of a new graph, each timed by CUDA events (best and median of the last
+    TRAIN_READ), the peak memory allocated over each run, the launches of
+    one eager step and of the capture, and the launches of the replays."""
+    from gsrast_tpu_torch import _kernels
+    from gsrast_tpu_torch.train.trainer import TrainGraph, make_train_step
+
+    step = make_train_step(cell.rcfg, cell.tc, cell.extent)
+    steps = TRAIN_EQUAL_STEPS[label]
+    t0 = time.perf_counter()
+    with deterministic():
+        eager_state, graph_state = cell.state(), cell.state()
+        eager_losses = train_run(cell, eager_state, step, steps, dev)
+        graph = TrainGraph(step)
+        graph_losses = train_run(cell, graph_state, graph, 2, dev)
+        addresses = train_addresses(graph_state)
+        graph_losses += train_run(cell, graph_state, graph, steps - 2, dev)
+        torch.cuda.synchronize()
+    moved = [k for k, v in train_addresses(graph_state).items()
+             if addresses[k] != v]
+    loss_equal = [bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+                  for a, b in zip(eager_losses, graph_losses)]
+    eager_bits, graph_bits = train_bits(eager_state), train_bits(graph_state)
+    unequal = [k for k in eager_bits
+               if not torch.equal(eager_bits[k], graph_bits[k])]
+    res = {"equal_steps": steps, "equal_seconds": time.perf_counter() - t0,
+           "losses_bit_equal": all(loss_equal),
+           "state_tensors": len(eager_bits), "unequal_tensors": unequal,
+           "moved_tensors": moved,
+           "deterministic_graph": {"captures": graph.captures,
+                                   "replays": graph.replays},
+           "loss": [float(eager_losses[0]), float(eager_losses[-1])]}
+    del graph, graph_state, graph_bits, eager_bits
+
+    view, target = cell.views[0], cell.targets[0]
+    _kernels.reset_launch_counts()
+    step(eager_state, view, target)
+    torch.cuda.synchronize()
+    res["eager_step_launches"] = dict(_kernels.launch_counts)
+    for name, fn in (("eager", step), ("graphed", TrainGraph(step))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, after_capture = [], None
+        for i in range(TRAIN_TIMED):
+            v = i % len(cell.views)
+            ms.append(event_ms(lambda: fn(eager_state, cell.views[v],
+                                          cell.targets[v])))
+            if i == 1:
+                after_capture = sum(_kernels.launch_counts.values())
+        torch.cuda.synchronize()
+        tail = ms[-TRAIN_READ:]
+        res[name] = {"best_ms": min(tail),
+                     "median_ms": statistics.median(tail),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if name == "graphed":
+            res["captured"] = dict(fn.captured)
+            res["replay_launches"] = (sum(_kernels.launch_counts.values())
+                                      - after_capture)
+            res["graphed"].update(captures=fn.captures, replays=fn.replays)
+    res["reserved_gib"] = torch.cuda.memory_reserved() / 2**30
+    res["eager_over_graphed"] = {
+        k: res["eager"][k] / res["graphed"][k] for k in ("best_ms",
+                                                         "median_ms")}
+    del eager_state, fn
+    print(f"phase 19 train step in a CUDA graph, {label} "
+          f"({cell.scene.capacity} slots, {cell.views[0].width}x"
+          f"{cell.views[0].height}, {len(cell.views)} views, tiles "
+          f"{cell.rcfg.tile_h}x{cell.rcfg.tile_w}): eager "
+          f"{res['eager']['best_ms']:.3f} / {res['eager']['median_ms']:.3f}"
+          f" ms, graphed {res['graphed']['best_ms']:.3f} / "
+          f"{res['graphed']['median_ms']:.3f} ms (best / median of the last "
+          f"{TRAIN_READ} of {TRAIN_TIMED}, CUDA events); {json.dumps(res)}",
+          flush=True)
+    assert res["losses_bit_equal"] and not unequal, res
+    assert not moved, moved
+    assert res["deterministic_graph"] == {"captures": 1,
+                                          "replays": steps - 1}
+    assert all(res["eager_step_launches"][k] == 1 for k in PATH_KERNELS)
+    assert res["captured"] == res["eager_step_launches"], res
+    assert res["replay_launches"] == 0, "a replay launched a wrapper"
+    return res
+
+
+def nan_rollback_graphed(cell, dev) -> dict:
+    """`run_resilient` over a TrainGraph with NaN injected after step 5
+    (checkpoints every 4), against the same run uninterrupted, under
+    deterministic algorithms: the rollback restores in place and the
+    graph, captured once, replays on the restored state to the same
+    bits."""
+    from gsrast_tpu_torch.train.resilience import (ResilienceConfig,
+                                                   run_resilient)
+    from gsrast_tpu_torch.train.trainer import (TrainGraph, make_train_step,
+                                                maybe_densify, step_generator)
+
+    step = make_train_step(cell.rcfg, cell.tc, cell.extent)
+    runs = {}
+    with deterministic():
+        for label, inject in (("clean", None), ("nan", 5)):
+            state, graph, log = cell.state(), TrainGraph(step), []
+            held = {}
+
+            def fn(st, i):
+                m = graph(st, cell.views[0], cell.targets[0])
+                maybe_densify(st, cell.tc, step_generator(dev, i),
+                              cell.extent)
+                held.setdefault("addresses", train_addresses(st))
+                return m
+
+            rc = ResilienceConfig(
+                ckpt_dir=os.path.join(OUT_DIR, f"ckpt_graph_{label}"),
+                ckpt_every=4, inject_nan_at_step=inject)
+            shutil.rmtree(rc.ckpt_dir, ignore_errors=True)
+            state, stopped = run_resilient(state, NAN_STEPS, fn, rc,
+                                           log=log.append)
+            torch.cuda.synchronize()
+            runs[label] = {"bits": train_bits(state), "log": log,
+                           "step": state.step, "stopped": stopped,
+                           "captures": graph.captures,
+                           "replays": graph.replays,
+                           "kept_addresses": train_addresses(state) == held[
+                               "addresses"]}
+            del state, graph
+    clean, nan = runs["clean"], runs["nan"]
+    unequal = [k for k in clean["bits"]
+               if not torch.equal(clean["bits"][k], nan["bits"][k])]
+    res = {k: {x: v for x, v in run.items() if x != "bits"}
+           for k, run in runs.items()}
+    res["unequal_tensors"] = unequal
+    print(f"phase 19 NaN rollback through the graph, trained_116k "
+          f"{WIDTH}x{HEIGHT}: {json.dumps(res)}", flush=True)
+    assert nan["log"] == ["step 5: NON-FINITE state detected; rolling back "
+                          "to checkpoint step 4 (1/3)"], nan["log"]
+    assert clean["log"] == [] and nan["step"] == clean["step"] == NAN_STEPS
+    assert nan["captures"] == clean["captures"] == 1
+    assert nan["kept_addresses"] and clean["kept_addresses"]
+    assert not unequal, unequal
+    return res
+
+
+def phase_train_graph(dev, colmap_dir: str) -> dict:
+    """Phase 19: the train step captured once into a CUDA graph and
+    replayed (`trainer.TrainGraph`, as the CLI's `train` runs it on the
+    card) against eager steps on three cells: trained_116k at 1080p from
+    phase 8's start with densify at step 10 between replays, the 1M SH-3
+    scene of phase 10, and the SfM init of phase 12's COLMAP scene with its
+    8 views round robin through the graph's static inputs
+    (`train_graph_cell`); then the NaN rollback through the graph on
+    trained_116k (`nan_rollback_graphed`)."""
+    from gsrast_tpu_torch.diag.profile_step import (TrainCell, scene_extent,
+                                                    train_cell)
+    from gsrast_tpu_torch.render.api import auto_render_config
+    from gsrast_tpu_torch.scene import colmap
+    from gsrast_tpu_torch.train.trainer import TrainConfig
+
+    out = {}
+    cell = train_cell("train_trained_116k", dev)
+    out["trained_116k"] = train_graph_cell("trained_116k", cell, dev)
+    out["nan_rollback"] = nan_rollback_graphed(cell, dev)
+    del cell
+    torch.cuda.empty_cache()
+    ds, xyz, rgb = colmap.load_colmap(colmap_dir, device=dev)
+    init = colmap.init_scene_from_points(xyz, rgb, device=dev)
+    cell = TrainCell(init, list(ds.cameras), list(ds.images),
+                     auto_render_config(init, ds.cameras[0], margin=1.5),
+                     TrainConfig(), scene_extent(init))
+    out["colmap"] = train_graph_cell("colmap", cell, dev)
+    del cell, ds, init
+    torch.cuda.empty_cache()
+    out["1M"] = train_graph_cell("1M", train_cell("train_default", dev), dev)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2045,17 +2270,17 @@ def main() -> int:
                                                tile_order, tile_order_cuda)
     from gsrast_tpu_torch.render.pipeline import feature_rows, sort_pack
     from gsrast_tpu_torch.render.tiled import untile, untile_cf
-    from gsrast_tpu_torch.scene.gaussians import (from_numpy, pad_to_capacity,
-                                                  random_scene)
+    from gsrast_tpu_torch.scene.gaussians import random_scene
     from gsrast_tpu_torch.scene.ply import load_ply
     from gsrast_tpu_torch.train import checkpoint as ckpt
     from gsrast_tpu_torch.train.loss import rgb_loss
-    from gsrast_tpu_torch.train.trainer import (TrainConfig, apply_gradients,
+    from gsrast_tpu_torch.train.trainer import (TrainConfig, TrainGraph,
+                                                apply_gradients,
                                                 init_train_state,
                                                 make_train_step,
                                                 maybe_densify, step_generator)
     from gsrast_tpu_torch.diag import bisect_bwd as bb
-    from gsrast_tpu_torch.diag import bisect_timing
+    from gsrast_tpu_torch.diag import bisect_timing, profile_step
     from gsrast_tpu_torch.ops.sh import SH_C0
     from gsrast_tpu_torch.scene import colmap
     from gsrast_tpu_torch.scene.dataset import orbit_cameras, save_dataset
@@ -2320,30 +2545,24 @@ def main() -> int:
     assert min(launches_grad[k] for k in PATH_KERNELS) > 0, launches_grad
 
     # -- phase 8: training at full width, trained_116k at 1080p ------------
-    base = load_ply(FIXTURE_116K, device=dev)
-    n_116k = base.capacity
-    cam = auto_frame(*base.bbox(), WIDTH, HEIGHT, device=dev)
-    mn, mx = (x.cpu().numpy() for x in base.bbox())
-    extent = float(np.linalg.norm(mx - mn))
-    rcfg = auto_render_config(base, cam, margin=1.5)
-    with torch.no_grad():
-        target = render(base, cam, rcfg).image
-    arrays = {f: p.detach().cpu().numpy()
-              for f, p in base.param_groups().items()}
-    # The reference's perturbation (N(0, 0.03^2) on a scene in [-1, 1]^3)
-    # scaled to this scene's half bbox diagonal.
-    arrays["means"] = arrays["means"] + 0.03 * 0.5 * extent * (
-        np.random.default_rng(2).standard_normal(arrays["means"].shape))
-    arrays["opacity_logits"] = arrays["opacity_logits"] - 0.5
-    scene = pad_to_capacity(from_numpy(arrays, device=dev), n_116k + 4096)
-    tc = TrainConfig(densify_from=10, densify_until=10, densify_every=10)
-    state = init_train_state(scene, tc, extent)
-    step = make_train_step(rcfg, tc, extent)
+    # The train cell of diag/profile_step.py: trained_116k framed at 1080p,
+    # its render the target, the start perturbed, densify at step 10.
+    cell = profile_step.train_cell("train_trained_116k", dev)
+    n_116k = int(cell.scene.num_active())
+    cam, target, rcfg = cell.views[0], cell.targets[0], cell.rcfg
+    tc, extent = cell.tc, cell.extent
+    state = cell.state()
+    graph = TrainGraph(make_train_step(rcfg, tc, extent))
     _kernels.reset_launch_counts()
     metrics, step_ms, dens = [], [], None
+
+    def kept_step():
+        # A replay's metrics are the graph's, rewritten by the next one.
+        out = graph(state, cam, target)
+        metrics.append({k: v.clone() for k, v in out.items()})
+
     for i in range(30):
-        step_ms.append(event_ms(
-            lambda: metrics.append(step(state, cam, target))))
+        step_ms.append(event_ms(kept_step))
         info = maybe_densify(state, tc, step_generator(dev, i), extent)
         if info is not None:
             dens = {k: v for k, v in info.items() if k != "changed_slots"}
@@ -2352,50 +2571,87 @@ def main() -> int:
     loss0, loss30 = float(metrics[0]["loss"]), float(metrics[-1]["loss"])
     psnr30 = float(metrics[-1]["psnr"])
     print(f"phase 8 train trained_116k {WIDTH}x{HEIGHT} tiles "
-          f"{rcfg.tile_h}x{rcfg.tile_w} 30 steps: loss {loss0:.5f} -> "
-          f"{loss30:.5f}, psnr {float(metrics[0]['psnr']):.2f} -> "
-          f"{psnr30:.2f}, densify at step 10 {json.dumps(dens)}; step "
+          f"{rcfg.tile_h}x{rcfg.tile_w} 30 steps (TrainGraph: "
+          f"{graph.captures} capture, {graph.replays} replays): loss "
+          f"{loss0:.5f} -> {loss30:.5f}, psnr {float(metrics[0]['psnr']):.2f}"
+          f" -> {psnr30:.2f}, densify at step 10 {json.dumps(dens)}; step "
           f"{statistics.median(step_ms[-10:]):.3f} ms (median of the last "
           f"10, CUDA events); launches={launches_train}", flush=True)
     assert loss30 < loss0 and np.isfinite(psnr30)
     assert dens is not None and dens["num_active"] == int(
         state.scene.num_active())
-    assert launches_train["blend_backward"] >= 30, launches_train
-    del state, scene, step, metrics, target
-
+    assert graph.captures == 1 and graph.replays == 29
+    # The warm-up step and the capture launch; the replays do not.
+    assert all(launches_train[k] == 2 for k in PATH_KERNELS), launches_train
+    del state, graph, metrics, target, cell
     # -- phase 9: the CLI, train then resume ------------------------------
+    # Under deterministic algorithms (warn_only: the set-up's counting ops
+    # have none, and run as they always do), so that 4 steps, a resume and
+    # 4 more equal 8 uninterrupted steps bit for bit: the resumed run's
+    # graph replays on the restored state.
     ckpt_dir = os.path.join(OUT_DIR, "ckpt")
     ply = os.path.join(OUT_DIR, "trained.ply")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     argv = ["train", "--scene", FIXTURE_116K, "--width", str(WIDTH),
             "--height", str(HEIGHT), "--steps", "4", "--ckpt-dir", ckpt_dir,
             "--ckpt-every", "2", "--save-ply", ply]
+    straight_dir = os.path.join(OUT_DIR, "ckpt_straight")
+    shutil.rmtree(straight_dir, ignore_errors=True)
+    straight_argv = argv[:argv.index("--ckpt-dir")] + [
+        "--ckpt-dir", straight_dir, "--ckpt-every", "2"]
+    straight_argv[straight_argv.index("--steps") + 1] = "8"
     _kernels.reset_launch_counts()
-    log = io.StringIO()
-    with contextlib.redirect_stdout(log):
-        first = cli.main(argv)
+    logs = [io.StringIO() for _ in range(3)]
+    with deterministic(warn_only=True):
+        with contextlib.redirect_stdout(logs[0]):
+            first = cli.main(argv)
         saved_at = ckpt.latest_step(ckpt_dir)
-        argv[argv.index("--steps") + 1] = "6"
-        resumed = cli.main(argv + ["--resume"])
+        argv[argv.index("--steps") + 1] = "8"
+        with contextlib.redirect_stdout(logs[1]):
+            resumed = cli.main(argv + ["--resume"])
+        torch.cuda.synchronize()
+        launches_cli_train = dict(_kernels.launch_counts)
+        replayed_cli_train = dict(_kernels.replayed_counts)
+        with contextlib.redirect_stdout(logs[2]):
+            straight = cli.main(straight_argv)
     torch.cuda.synchronize()
-    launches_cli_train = dict(_kernels.launch_counts)
+    logs = [log.getvalue() for log in logs]
     trained = load_ply(ply)
+    straight_bits = param_bits(straight.scene)
+    resume_equal = {k: bool(torch.equal(v, straight_bits[k]))
+                    for k, v in param_bits(resumed.scene).items()}
     print(f"phase 9 cli train trained_116k {WIDTH}x{HEIGHT}: steps "
           f"{first.step} then resumed to {resumed.step}; checkpoint at "
-          f"{saved_at}; launches={launches_cli_train}; saved "
-          f"{trained.capacity} Gaussians; cli: "
-          f"{' | '.join(log.getvalue().splitlines())}", flush=True)
-    assert first.step == 4 and saved_at == 4 and resumed.step == 6
-    assert "resumed from step 4" in log.getvalue()
+          f"{saved_at}; launches={launches_cli_train}; replayed="
+          f"{replayed_cli_train}; saved "
+          f"{trained.capacity} Gaussians; resumed against 8 straight steps, "
+          f"bit for bit (deterministic algorithms): "
+          f"{json.dumps(resume_equal)}; cli: "
+          f"{' | '.join(' / '.join(log.splitlines()) for log in logs)}",
+          flush=True)
+    assert first.step == 4 and saved_at == 4 and resumed.step == 8
+    assert "resumed from step 4" in logs[1]
+    capture_line = (f"train: step captured in a CUDA graph ({HEIGHT} x "
+                    f"{WIDTH})")
+    assert all(log.count(capture_line) == 1 for log in logs), logs
+    assert logs[1].index("resumed from step 4") < logs[1].index(capture_line)
+    assert all(resume_equal.values()), resume_equal
     assert min(launches_cli_train[k] for k in PATH_KERNELS) > 0, (
         launches_cli_train)
+    # Each 4-step run: an eager warm-up and a capture call the wrappers
+    # (the forward's also render the run's target), and 3 replays run
+    # what the capture recorded, one launch of each path kernel.
+    assert launches_cli_train["blend_backward"] == 4, launches_cli_train
+    assert replayed_cli_train == {k: 6 * (k in PATH_KERNELS)
+                                  for k in replayed_cli_train}, (
+        replayed_cli_train)
     # One order a blend, for its forward and its backward.
     assert launches_cli_train["tile_order"] == launches_cli_train[
         "blend_forward"], launches_cli_train
     assert trained.capacity == n_116k
     assert all(bool(torch.isfinite(p).all())
                for p in trained.param_groups().values())
-    del first, resumed, trained
+    del first, resumed, straight, trained
 
     # -- phase 10: north-star fwd+bwd and train step, 1M SH3 at 1080p -----
     scene = random_scene(N_NORTH_STAR, np.random.default_rng(0), sh_degree=3,
@@ -2605,6 +2861,7 @@ def main() -> int:
     colmap_s = time.perf_counter() - t0
     n_init = base.capacity
     assert f"initialized {n_init} gaussians from COLMAP SfM points" in out
+    assert out.count(capture_line) == 1, out  # 8 views, one graph
     assert sorted(losses) == [0, steps - 1], out  # every 100th and the last
     heartbeat = read_heartbeat(os.path.join(ck_colmap, "heartbeat.json"))
     assert heartbeat is not None and heartbeat["step"] == steps
@@ -2699,6 +2956,7 @@ def main() -> int:
          "--ckpt-dir", os.path.join(OUT_DIR, "ckpt_dataset")])
     assert f"dataset: {N_VIEWS} views {WIDTH}x{HEIGHT}" in out
     assert state.step == 8 and sorted(losses_ds) == [0, 7]
+    assert out.count(capture_line) == 1, out
     target_png = os.path.join(OUT_DIR, "target_116k.png")
     with torch.no_grad():
         cam = auto_frame(*base.bbox(), WIDTH, HEIGHT, device=dev)
@@ -2709,6 +2967,7 @@ def main() -> int:
          "--width", str(WIDTH), "--height", str(HEIGHT), "--ckpt-dir",
          os.path.join(OUT_DIR, "ckpt_target")])
     assert state.step == 8 and sorted(losses_tg) == [0, 7]
+    assert out.count(capture_line) == 1, out
     print(f"phase 12 train --data <cameras.json dir>: losses at steps 0, "
           f"7 {json.dumps(losses_ds)} launches={launches_ds}; train --target "
           f"<png>: {json.dumps(losses_tg)} launches={launches_tg}",
@@ -2773,6 +3032,12 @@ def main() -> int:
     phase_dryrun(dev)
     print(f"phase 18 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- phase 19: the train step in a CUDA graph --------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_train_graph(dev, scene_dir)
+    print(f"phase 19 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     b116 = bwd["trained_116k"]
     rows_full, tiles_full = int(full_starts[-1]) // 8, t
     print(json.dumps({"kernels": [{
@@ -2780,6 +3045,7 @@ def main() -> int:
         "source": "gsrast_tpu_torch/csrc/tile_order.cu",
         "replaces": "gsrast_tpu/render/pallas_blend.py:325",
         "launches": launches_cli_train["tile_order"],
+        "replayed": replayed_cli_train["tile_order"],
         "max_abs_err": order_err116, "ms": order_ms["kernel"],
         "plain_ms": order_ms["plain"],
         **dict(zip(("bound_ms", "bound_by"), order_bound(n_tiles_116k))),
@@ -2799,6 +3065,7 @@ def main() -> int:
         "source": "gsrast_tpu_torch/csrc/blend_backward.cu",
         "replaces": "gsrast_tpu/render/pallas_blend.py:350",
         "launches": launches_cli_train["blend_backward"],
+        "replayed": replayed_cli_train["blend_backward"],
         "max_abs_err": b116["max_abs_err"], "ms": b116["kernel_ms"],
         "plain_ms": b116["plain_ms"],
         "bound_ms": b116["work"]["bwd_bound_ms"],

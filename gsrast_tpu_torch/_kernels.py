@@ -20,6 +20,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Callable
+
+import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -33,9 +36,53 @@ launch_counts = {"tile_order": 0, "blend_forward": 0, "blend_backward": 0,
                  "bisect_a": 0, "bisect_b": 0, "bisect_c": 0, "bisect_d": 0}
 
 
+# Runs per kernel inside CUDA graph replays since the last reset: a replay
+# calls no wrapper, so `replay` adds here the launches its capture recorded.
+# (A capture calls the wrappers, which count, but only records the kernels.)
+replayed_counts = dict.fromkeys(launch_counts, 0)
+
+
 def reset_launch_counts() -> None:
     for name in launch_counts:
-        launch_counts[name] = 0
+        launch_counts[name] = replayed_counts[name] = 0
+
+
+def replay(graph, launches: dict) -> None:
+    """graph.replay(), adding the `launches` its capture recorded (per
+    kernel, as `capture` returns them) to `replayed_counts`."""
+    graph.replay()
+    for name, count in launches.items():
+        replayed_counts[name] += count
+
+
+def on_side_stream(fn: Callable, device):
+    """fn() on a side stream of `device`, ordered after and before the
+    current stream's work: the warm-up of PyTorch's whole-network capture
+    recipe (every kernel has loaded and every allocation has a block
+    before the capture). Returns fn's output."""
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        out = fn()
+    current.wait_stream(side)
+    return out
+
+
+def capture(fn: Callable, what: str) -> tuple:
+    """Capture fn() into a CUDA graph: returns (graph, fn's output, the
+    launches per kernel of `launch_counts` that the capture recorded). The
+    output's tensors are the graph's, rewritten by every replay. A failed
+    capture raises, chained to fn's error, naming `what`."""
+    before = dict(launch_counts)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            out = fn()
+    except RuntimeError as err:
+        raise RuntimeError(
+            f"capturing {what} in a CUDA graph failed: {err}") from err
+    return graph, out, {k: launch_counts[k] - before[k] for k in before}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import statistics
 import time
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -128,21 +128,28 @@ def bench_step(scene: GaussianScene, camera: Camera, rcfg: cfg.RenderConfig,
     return {name: p.grad for name, p in params.items()}
 
 
-def check_chain(backend: str, device, chain: int) -> None:
-    """Raise where a chain of more than one step cannot be captured on
-    `device`: on a card only the blend kernels' path (backend 'cuda') is
+def capture_refusal(backend: str) -> Optional[str]:
+    """Why a step on `backend` cannot be captured in a CUDA graph, or None
+    where it can: only the blend kernels' path (backend 'cuda') is
     capture-safe. The plain versions ('torch') read each tile's segment
     length on the host (`.tolist()` in `render/blend.py`), which a capture
     forbids, and the 'autograd' oracle has not been made capture-safe."""
-    if chain > 1 and torch.device(device).type == "cuda" and (
-            backend != "cuda"):
+    if backend == "cuda":
+        return None
+    return ("the plain blend versions read the tiles' segment lengths on "
+            "the host" if backend == "torch" else
+            "the autograd oracle is not capture-safe")
+
+
+def check_chain(backend: str, device, chain: int) -> None:
+    """Raise where a chain of more than one step cannot be captured on
+    `device` (`capture_refusal`)."""
+    reason = capture_refusal(backend)
+    if chain > 1 and torch.device(device).type == "cuda" and reason:
         raise ValueError(
             f"--chain {chain} on a card captures the steps in a CUDA graph, "
-            f"which backend {backend!r} cannot enter: "
-            + ("the plain blend versions read the tiles' segment lengths on "
-               "the host" if backend == "torch" else
-               "the autograd oracle is not capture-safe")
-            + "; use backend 'cuda' or --chain 1")
+            f"which backend {backend!r} cannot enter: {reason}; use backend "
+            "'cuda' or --chain 1")
 
 
 class StepChain:
@@ -169,7 +176,8 @@ class StepChain:
     `captured`: per kernel of `_kernels.launch_counts`, the launches the
     capture recorded, K times the eager step's; `captures`: the graphs
     captured (one on a card, none on the CPU). A replay launches no
-    wrapper, so it adds nothing to `launch_counts`."""
+    wrapper, so it adds nothing to `launch_counts`, and `captured` to
+    `_kernels.replayed_counts`."""
 
     def __init__(self, scene: GaussianScene, camera: Camera,
                  rcfg: cfg.RenderConfig, fwd_only: bool = False,
@@ -186,7 +194,7 @@ class StepChain:
 
     def __call__(self):
         if self.graph is not None:
-            self.graph.replay()
+            _kernels.replay(self.graph, self.captured)
         else:
             self.out = self._run()
         return self.out
@@ -212,24 +220,9 @@ class StepChain:
         return out
 
     def _capture(self) -> None:
-        dev = self.camera.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._run()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        before = dict(_kernels.launch_counts)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph):
-                out = self._run()
-        except RuntimeError as err:
-            raise RuntimeError(
-                f"capturing the {self.chain}-step bench chain in a CUDA "
-                f"graph failed: {err}") from err
-        self.captured = {k: _kernels.launch_counts[k] - before[k]
-                         for k in before}
-        self.graph, self.out = graph, out
+        _kernels.on_side_stream(self._run, self.camera.device)
+        self.graph, self.out, self.captured = _kernels.capture(
+            self._run, f"the {self.chain}-step bench chain")
         self.captures += 1
 
 

@@ -303,8 +303,13 @@ def cmd_train(argv):
     densify schedule, views round robin; the loop runs
     under `run_resilient` (a checkpoint at the start, every `--ckpt-every`
     steps and at the end; NaN rollback; SIGTERM checkpoint; heartbeat
-    `<ckpt-dir>/heartbeat.json`). `--steps` counts from 0, so a resumed run
-    stops at the same step. Returns the final `TrainState`."""
+    `<ckpt-dir>/heartbeat.json`). On a card with backend 'cuda' the step is
+    captured once per image shape into a CUDA graph and replayed
+    (`train.trainer.TrainGraph`, the reference's jitted step), with
+    densify, checkpoints and rollbacks written into its tensors between
+    replays; the other backends step eagerly and say why. `--steps` counts
+    from 0, so a resumed run stops at the same step. Returns the final
+    `TrainState`."""
     ap = argparse.ArgumentParser(prog="gsrast_tpu_torch train")
     ap.add_argument("--scene", required=True,
                     help=".ply initialization, 'random:N', or 'colmap' "
@@ -338,11 +343,12 @@ def cmd_train(argv):
 
     import numpy as np
 
+    from .benchmark import capture_refusal
     from .scene.gaussians import pad_to_capacity
     from .scene.ply import save_ply
     from .train import checkpoint as ckpt
     from .train.resilience import ResilienceConfig, run_resilient
-    from .train.trainer import (TrainConfig, init_train_state,
+    from .train.trainer import (TrainConfig, TrainGraph, init_train_state,
                                 make_train_step, maybe_densify,
                                 step_generator)
 
@@ -358,10 +364,22 @@ def cmd_train(argv):
     if args.resume and ckpt.restore(args.ckpt_dir, state) is not None:
         print(f"resumed from step {state.step}")
     step_fn = make_train_step(rcfg, tc, extent)
+    graph = None
+    if device.type == "cuda":
+        refusal = capture_refusal(rcfg.backend)
+        if refusal is None:
+            step_fn = graph = TrainGraph(step_fn)
+        else:
+            print(f"train: backend {rcfg.backend!r} steps eagerly, not in "
+                  f"a CUDA graph: {refusal}")
 
     def one_step(st, i):
         camera, target = frames[i % len(frames)]
+        captures = graph.captures if graph else 0
         metrics = step_fn(st, camera, target)
+        if graph is not None and graph.captures > captures:
+            print(f"train: step captured in a CUDA graph ({camera.height} x "
+                  f"{camera.width})")
         maybe_densify(st, tc, step_generator(device, i), extent)
         if i % 100 == 0 or i == args.steps - 1:
             print(f"step {i}: loss={float(metrics['loss']):.5f} "

@@ -1,16 +1,17 @@
-"""Where a bench step's device time goes: one eager step and one chained
-replay of `bench`'s cells, profiled by `utils.profiling.trace`
-(`torch.profiler`).
+"""Where a step's device time goes: one eager step and one chained
+replay of `bench`'s cells, and one eager and one graphed train step of the
+train cells, profiled by `utils.profiling.trace` (`torch.profiler`).
 
     python -m gsrast_tpu_torch.diag.profile_step [--cells default,small,
-        trained_116k] [--out DIR] [--device cuda|cpu]
+        trained_116k,train_trained_116k,train_default] [--out DIR]
+        [--device cuda|cpu]
 
-For each cell (`bench`'s default 1M SH-3 scene at 1920x1080 fwd+bwd,
-`--small` and `--scene tests/fixtures/trained_116k.ply` at 1920x1080, each
-with `cli.bench_inputs`' config), after two warm-up steps and the capture
-of a `benchmark.StepChain` of CHAIN steps and one replay, it times TIMED
-unprofiled calls of each (`benchmark.timeit`), traces one `bench_step` and
-then one replay, and prints one JSON line:
+For each bench cell (`bench`'s default 1M SH-3 scene at 1920x1080
+fwd+bwd, `--small` and `--scene tests/fixtures/trained_116k.ply` at
+1920x1080, each with `cli.bench_inputs`' config), after two warm-up steps
+and the capture of a `benchmark.StepChain` of CHAIN steps and one replay,
+it times TIMED unprofiled calls of each (`benchmark.timeit`), traces one
+`bench_step` and then one replay, and prints one JSON line:
   * `eager`: the device kernels the step launched, the device-busy ms (the
     union of its kernels', copies' and fills' intervals), the unprofiled
     step's best and median ms, and the idle share against each (1 - busy
@@ -21,24 +22,37 @@ then one replay, and prints one JSON line:
     of `render.pipeline.STAGES` its kernels and busy ms, the backward's
     kernels counted to the stage whose forward made the autograd node that
     launched them (by the trace's sequence numbers), the rest (activation,
-    image assembly, loss, optimizer-free glue) as `other`;
+    image assembly, loss, optimizer and glue) as `other`;
   * `chained`: the same numbers of a replay divided by the chain. A replay
     has no host ops, so it has no stage split.
+A train cell (`train_cell`: trained_116k at 1920x1080 from the perturbed
+start of chip_smoke.py's phase 8, and the 1M SH-3 scene of its phase 10)
+is profiled the same way with the train step (`trainer.make_train_step`:
+render, L1 + D-SSIM, backward, Adam, densify statistics) as `eager`, and
+as `graphed` one replay of its `trainer.TrainGraph`, after the graph's
+warm-up and capture and two eager steps; `kernel_diff` holds each kernel
+name whose count differs between the two traces, as [eager, graphed].
 On a CPU run no device events exist and every device number is 0: the
 script is meant for the card, and `--device cpu` only checks its control
-flow. The traces go to `<out>/<cell>_{eager,chained}/trace.json`.
+flow. The traces go to `<out>/<cell>_{eager,chained,graphed}/trace.json`.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import dataclasses
 import json
 import os
 from typing import Optional
 
 import torch
 
+from .. import config as cfg
 from ..render.pipeline import STAGES
+from ..scene.gaussians import GaussianScene
+from ..train.trainer import (TrainConfig, TrainGraph, TrainState,
+                             init_train_state, make_train_step)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -77,15 +91,29 @@ def _inside(ranges, tid, ts):
     return None
 
 
+def _device_events(events: list, marker: str) -> tuple:
+    """(the host range `marker`, the device events traced after it
+    began)."""
+    (mark,) = [e for e in events if e.get("name") == marker
+               and e.get("cat") == "user_annotation"]
+    return mark, [e for e in events if e.get("cat") in DEVICE_CATS
+                  and e["ts"] >= mark["ts"]]
+
+
+def kernel_names(events: list, marker: str) -> collections.Counter:
+    """The kernels traced after the host range `marker` began, counted by
+    name."""
+    return collections.Counter(e["name"] for e in
+                               _device_events(events, marker)[1]
+                               if e["cat"] == "kernel")
+
+
 def summarize(events: list, marker: str, steps: int = 1,
               split: bool = True) -> dict:
     """The device work traced after the host range `marker` began (see the
     module docstring), per step of `steps`."""
-    (mark,) = [e for e in events if e.get("name") == marker
-               and e.get("cat") == "user_annotation"]
+    mark, device = _device_events(events, marker)
     start = mark["ts"]
-    device = [e for e in events if e.get("cat") in DEVICE_CATS
-              and e["ts"] >= start]
     kernels = [e for e in device if e["cat"] == "kernel"]
     end = max([e["ts"] + e["dur"] for e in device]
               + [mark["ts"] + mark["dur"]])
@@ -137,27 +165,14 @@ def summarize(events: list, marker: str, steps: int = 1,
     return out
 
 
-def profile_cell(name: str, out_dir: str, device) -> dict:
+def _profile_parts(name: str, parts: tuple, out_dir: str, device) -> dict:
+    """Time and trace each (label, fn, steps a call, split) of `parts`
+    (see the module docstring); returns {label: numbers}."""
     from .. import benchmark
-    from ..cli import bench_inputs
     from ..utils.profiling import trace
 
-    n, width, height, scene_path = CELLS[name]
-    backend = "cuda" if device.type == "cuda" else "torch"
-    scene, camera, rcfg = bench_inputs(n, width, height, scene_path,
-                                       backend, device)
-    steps = benchmark.StepChain(scene, camera, rcfg, chain=CHAIN)
-    steps()
-    for _ in range(2):
-        benchmark.bench_step(scene, camera, rcfg)
-    res = {"cell": name, "gaussians": scene.capacity, "width": width,
-           "height": height, "tile": [rcfg.tile_h, rcfg.tile_w],
-           "chain": steps.chain, "captured": steps.captures == 1}
-    for label, fn, split in (
-            ("eager", lambda: benchmark.bench_step(scene, camera, rcfg),
-             True),
-            ("chained", steps, False)):
-        per = 1 if label == "eager" else steps.chain
+    res = {}
+    for label, fn, per, split in parts:
         best, median = (t / per for t in benchmark.timeit(fn, TIMED, device))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -176,11 +191,150 @@ def profile_cell(name: str, out_dir: str, device) -> dict:
     return res
 
 
+def profile_cell(name: str, out_dir: str, device) -> dict:
+    from .. import benchmark
+    from ..cli import bench_inputs
+
+    n, width, height, scene_path = CELLS[name]
+    backend = "cuda" if device.type == "cuda" else "torch"
+    scene, camera, rcfg = bench_inputs(n, width, height, scene_path,
+                                       backend, device)
+    steps = benchmark.StepChain(scene, camera, rcfg, chain=CHAIN)
+    steps()
+    for _ in range(2):
+        benchmark.bench_step(scene, camera, rcfg)
+    res = {"cell": name, "gaussians": scene.capacity, "width": width,
+           "height": height, "tile": [rcfg.tile_h, rcfg.tile_w],
+           "chain": steps.chain, "captured": steps.captures == 1}
+    res.update(_profile_parts(name, (
+        ("eager", lambda: benchmark.bench_step(scene, camera, rcfg), 1,
+         True),
+        ("chained", steps, steps.chain, False)), out_dir, device))
+    return res
+
+
+# The train step's cells: name -> (n, width, height, scene), n = 0 for the
+# scene's own count.
+TRAIN_CELLS = {
+    "train_trained_116k": CELLS["trained_116k"],
+    "train_default": CELLS["default"],
+}
+
+
+@dataclasses.dataclass
+class TrainCell:
+    """A train cell's start and inputs: `scene` stays as it was made, and
+    each `state()` trains a copy of it."""
+
+    scene: GaussianScene
+    views: list
+    targets: list
+    rcfg: cfg.RenderConfig
+    tc: TrainConfig
+    extent: float
+
+    def state(self) -> TrainState:
+        """A fresh TrainState on a copy of the start."""
+        copy = GaussianScene(*(p.detach().clone() for p in
+                               self.scene.param_groups().values()),
+                             self.scene.mask.clone())
+        return init_train_state(copy, self.tc, self.extent)
+
+
+def train_cell(name: str, device) -> TrainCell:
+    """The train cell `name` of TRAIN_CELLS on `device`:
+      * `train_trained_116k`: trained_116k framed by its bbox, the target
+        its own render, the start its means moved by N(0, (0.015 d)^2) (d
+        its bbox diagonal: the reference's 0.03 on a scene in [-1, 1]^3)
+        and its opacity logits - 0.5, in 4,096 more slots; config from the
+        scene with margin 1.5; densify at step 10 (chip_smoke.py phase 8);
+      * `train_default`: the bench's 1M SH-3 scene and camera, the target
+        0.25 grey, config from the scene, the reference's TrainConfig
+        (chip_smoke.py phase 10)."""
+    import numpy as np
+
+    from .. import benchmark
+    from ..camera import auto_frame
+    from ..render.api import auto_render_config, render
+    from ..scene.gaussians import from_numpy, pad_to_capacity
+    from ..scene.ply import load_ply
+
+    n, width, height, scene_path = TRAIN_CELLS[name]
+    if scene_path is None:
+        scene, camera = benchmark.bench_scene_camera(
+            n, width, height, device=device)
+        rcfg = auto_render_config(scene, camera)
+        target = torch.full((height, width, 3), 0.25, device=device)
+        tc = TrainConfig()
+        extent = scene_extent(scene)
+    else:
+        base = load_ply(scene_path, device=device)
+        camera = auto_frame(*base.bbox(), width, height, device=device)
+        rcfg = auto_render_config(base, camera, margin=1.5)
+        with torch.no_grad():
+            target = render(base, camera, rcfg).image
+        extent = scene_extent(base)
+        arrays = {f: p.detach().cpu().numpy()
+                  for f, p in base.param_groups().items()}
+        arrays["means"] = arrays["means"] + 0.03 * 0.5 * extent * (
+            np.random.default_rng(2).standard_normal(arrays["means"].shape))
+        arrays["opacity_logits"] = arrays["opacity_logits"] - 0.5
+        scene = pad_to_capacity(from_numpy(arrays, device=device),
+                                base.capacity + 4096)
+        tc = TrainConfig(densify_from=10, densify_until=10, densify_every=10)
+    return TrainCell(scene, [camera], [target], rcfg, tc, extent)
+
+
+def scene_extent(scene) -> float:
+    """The length of the scene's bbox diagonal: the scene extent, as the
+    CLI's `train` takes it."""
+    import numpy as np
+
+    mn, mx = (x.cpu().numpy() for x in scene.bbox())
+    return float(np.linalg.norm(mx - mn))
+
+
+def profile_train_cell(name: str, out_dir: str, device) -> dict:
+    cell = train_cell(name, device)
+    state = cell.state()
+    step = make_train_step(cell.rcfg, cell.tc, cell.extent)
+    graph = TrainGraph(step)
+    camera, target = cell.views[0], cell.targets[0]
+
+    def eager():
+        return step(state, camera, target)
+
+    def graphed():
+        return graph(state, camera, target)
+
+    for fn in (graphed, graphed, eager, eager):  # warm-up, capture
+        fn()
+    res = {"cell": name, "gaussians": state.scene.capacity,
+           "width": camera.width, "height": camera.height,
+           "tile": [cell.rcfg.tile_h, cell.rcfg.tile_w],
+           "captured": graph.captures == 1,
+           "captured_launches": dict(graph.captured)}
+    res.update(_profile_parts(name, (("eager", eager, 1, True),
+                                     ("graphed", graphed, 1, False)),
+                              out_dir, device))
+    names = {}
+    for label in ("eager", "graphed"):
+        with open(os.path.join(out_dir, f"{name}_{label}",
+                               "trace.json")) as f:
+            names[label] = kernel_names(json.load(f)["traceEvents"],
+                                        f"profile.{label}")
+    res["kernel_diff"] = {k: [names["eager"][k], names["graphed"][k]]
+                          for k in sorted(names["eager"] | names["graphed"])
+                          if names["eager"][k] != names["graphed"][k]}
+    return res
+
+
 def main(argv: Optional[list] = None) -> dict:
     ap = argparse.ArgumentParser(
         prog="python -m gsrast_tpu_torch.diag.profile_step")
-    ap.add_argument("--cells", default=",".join(CELLS),
-                    help=f"comma-separated, of {', '.join(CELLS)}")
+    names = (*CELLS, *TRAIN_CELLS)
+    ap.add_argument("--cells", default=",".join(names),
+                    help=f"comma-separated, of {', '.join(names)}")
     ap.add_argument("--out", default=os.path.join(
         ROOT, "gsrast_tpu_torch", "_build", "profile"))
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -190,7 +344,8 @@ def main(argv: Optional[list] = None) -> dict:
     device = _device(args.device)
     results = {}
     for name in args.cells.split(","):
-        results[name] = profile_cell(name, args.out, device)
+        profile = profile_train_cell if name in TRAIN_CELLS else profile_cell
+        results[name] = profile(name, args.out, device)
         print(json.dumps(results[name]), flush=True)
     return results
 

@@ -4,7 +4,8 @@
 A checkpoint is `ckpt_dir/step_%08d/state.pt`, holding the five parameter
 tensors, the mask, the Adam state, the densify statistics and the step.
 Restoring into a state built for the same scene capacity continues exactly:
-k steps, save, restore and m steps equal k + m steps.
+k steps, save, restore and m steps equal k + m steps. A restore writes into
+the state's tensors, so a captured train step goes on with them.
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ from typing import Optional
 
 import torch
 
-from .densify import DensifyState
 from .trainer import TrainState
 
 STATE_FILE = "state.pt"
@@ -55,28 +55,67 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _saved_tensors(payload: dict, optimizer: torch.optim.Adam) -> dict:
+    """A checkpoint's tensors under `TrainState.tensors()`' names."""
+    out = {f"param.{k}": v for k, v in payload["params"].items()}
+    out["mask"] = payload["mask"]
+    # Adam's state_dict numbers the parameters in group order, one a group.
+    adam = payload["optimizer"]["state"]
+    for index, group in enumerate(optimizer.param_groups):
+        for key, v in adam.get(index, {}).items():
+            out[f"adam.{group['name']}.{key}"] = v
+    out.update({f"densify.{k}": v for k, v in payload["densify"].items()})
+    return out
+
+
+def _make_adam_state(optimizer: torch.optim.Adam) -> None:
+    """Adam's state where the optimizer has not stepped yet, made as its
+    lazy initialization makes it: a zero count (on the device where Adam
+    is capturable) and zero moments."""
+    for group in optimizer.param_groups:
+        (param,) = group["params"]
+        st = optimizer.state[param]
+        if not st:
+            st["step"] = torch.zeros(
+                (), device=param.device if group["capturable"] else "cpu")
+            st["exp_avg"] = torch.zeros_like(
+                param, memory_format=torch.preserve_format)
+            st["exp_avg_sq"] = torch.zeros_like(
+                param, memory_format=torch.preserve_format)
+
+
 def restore(ckpt_dir: str, state: TrainState,
             step: Optional[int] = None) -> Optional[TrainState]:
     """Load the given (or the newest) checkpoint into `state` in place and
     return it; None when there is none. `state` must hold a scene of the
-    checkpoint's capacity and SH degree, with its optimizer."""
+    checkpoint's capacity and SH degree, with its optimizer.
+
+    Every tensor of `state.tensors()` is written into in place (`copy_`):
+    the parameters, the mask, Adam's counts and moments and the densify
+    statistics keep their storage, so a CUDA graph of the train step
+    (`trainer.TrainGraph`) replays on the restored values. A checkpoint
+    saved before the first update holds no Adam state: restoring it zeroes
+    the counts and moments, which is a fresh optimizer. The learning rates
+    are not restored: they are the schedule's, from the count."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         return None
     device = state.scene.means.device
     payload = torch.load(os.path.join(_step_dir(ckpt_dir, step), STATE_FILE),
                          map_location=device, weights_only=True)
+    saved = _saved_tensors(payload, state.optimizer)
+    if payload["optimizer"]["state"]:
+        _make_adam_state(state.optimizer)
     with torch.no_grad():
-        for name, p in state.scene.param_groups().items():
-            saved = payload["params"][name]
-            if saved.shape != p.shape:
+        for name, t in state.tensors().items():
+            if name not in saved:  # Adam's, absent from the checkpoint
+                t.zero_()
+            elif saved[name].shape != t.shape:
                 raise ValueError(f"checkpoint {name} has shape "
-                                 f"{tuple(saved.shape)}, the scene "
-                                 f"{tuple(p.shape)}")
-            p.copy_(saved)
-        state.scene.mask.copy_(payload["mask"])
-    state.optimizer.load_state_dict(payload["optimizer"])
-    state.densify_state = DensifyState(**payload["densify"])
+                                 f"{tuple(saved[name].shape)}, the state "
+                                 f"{tuple(t.shape)}")
+            else:
+                t.copy_(saved[name])
     state.step = int(payload["step"])
     return state
 

@@ -44,15 +44,24 @@ def init_densify_state(capacity: int, device="cpu") -> DensifyState:
 
 def accumulate_stats(state: DensifyState, mean2d_grad: torch.Tensor,
                      radii: torch.Tensor) -> DensifyState:
-    """Add one view: `mean2d_grad` (M, 2), `radii` (M,) int32 (0 = not
-    visible)."""
+    """Add one view into `state` in place and return it: `mean2d_grad`
+    (M, 2), `radii` (M,) int32 (0 = not visible). The statistics keep
+    their storage, so a CUDA graph of the train step reads and writes the
+    same tensors on every replay."""
     with torch.no_grad():
         visible = radii > 0
         norm = torch.linalg.vector_norm(mean2d_grad, dim=-1)
-        return DensifyState(
-            grad_accum=state.grad_accum + torch.where(visible, norm, 0.0),
-            denom=state.denom + visible.float(),
-            max_radii=torch.maximum(state.max_radii, radii.float()))
+        state.grad_accum.add_(torch.where(visible, norm, 0.0))
+        state.denom.add_(visible.float())
+        torch.maximum(state.max_radii, radii.float(), out=state.max_radii)
+    return state
+
+
+def reset_stats(state: DensifyState) -> DensifyState:
+    """Zero the statistics in place (after a densify) and return them."""
+    for f in dataclasses.fields(state):
+        getattr(state, f.name).zero_()
+    return state
 
 
 def _first_true(flags: torch.Tensor, limit: int) -> torch.Tensor:
@@ -71,13 +80,12 @@ def densify_and_prune(
     max_screen_radius: float = 0.0,  # 0 disables screen-size pruning
     max_new: int = 4096,
 ) -> Tuple[GaussianScene, DensifyState, dict]:
-    """One adaptive-density step on `scene`, in place. Returns (scene, reset
-    statistics, info). `max_new` bounds the new Gaussians (clones plus split
-    children) per step; demand beyond it is counted in
+    """One adaptive-density step on `scene`, in place. Returns (scene,
+    `state` zeroed in place, info). `max_new` bounds the new Gaussians
+    (clones plus split children) per step; demand beyond it is counted in
     info["densify_overflow"]. info["changed_slots"] (M,) bool marks every
     slot whose parameters were written or freed: only those lose their
     optimizer moments."""
-    m = scene.capacity
     with torch.no_grad():
         avg_grad = state.grad_accum / torch.clamp(state.denom, min=1.0)
         high_grad = (avg_grad > grad_threshold) & scene.mask
@@ -142,7 +150,7 @@ def densify_and_prune(
         "num_active": int(scene.num_active()),
         "changed_slots": changed,
     }
-    return scene, init_densify_state(m, scene.means.device), info
+    return scene, reset_stats(state), info
 
 
 def reset_opacity(scene: GaussianScene,

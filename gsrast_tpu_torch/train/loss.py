@@ -5,7 +5,9 @@ SSIM uses the 11x11 sigma-1.5 Gaussian window as a depthwise convolution
 with zero "same" padding. On a CUDA device a float32 convolution goes
 through cuDNN in TF32 unless told otherwise, which keeps about three
 decimal digits; the filter turns TF32 off for its own forward and backward
-convolutions only and restores the flags afterwards.
+convolutions only and restores the flags afterwards. The window is built
+once per device and kept: a host-to-device copy per call would stall the
+step and is refused inside a CUDA graph capture.
 """
 
 from __future__ import annotations
@@ -20,11 +22,13 @@ from ..camera import no_tf32
 
 
 @functools.lru_cache()
-def _gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
+def _gaussian_window(device: torch.device, size: int = 11,
+                     sigma: float = 1.5) -> torch.Tensor:
+    """The window on `device`, copied there once."""
     x = np.arange(size) - size // 2
     g = np.exp(-(x**2) / (2 * sigma**2))
     g = g / g.sum()
-    return np.outer(g, g).astype(np.float32)
+    return torch.from_numpy(np.outer(g, g).astype(np.float32)).to(device)
 
 
 def _conv(x: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
@@ -62,7 +66,7 @@ def _filter2d(img: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
 def ssim(img0: torch.Tensor, img1: torch.Tensor, c1: float = 0.01**2,
          c2: float = 0.03**2) -> torch.Tensor:
     """Mean SSIM over an (H, W, C) pair in [0, 1]."""
-    window = torch.as_tensor(_gaussian_window(), device=img0.device)
+    window = _gaussian_window(img0.device)
     mu0 = _filter2d(img0, window)
     mu1 = _filter2d(img1, window)
     mu00, mu11, mu01 = mu0 * mu0, mu1 * mu1, mu0 * mu1
