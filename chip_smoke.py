@@ -51,9 +51,13 @@ graph and replayed (phase 19: 30 graphed steps against 30 eager ones bit
 for bit under deterministic algorithms on trained_116k with densify
 between replays and on the COLMAP scene's 8 views, 5 on the 1M scene,
 both timed with their peak memory, and a NaN rollback through the graph;
-phases 8, 9 and 12 train through it too); and checks that each path went
-through the kernels. Each phase prints its
-lines before the next begins; the line before the last is the per-kernel
+phases 8, 9 and 12 train through it too), and the preprocess kernels
+(phase 20: forward and backward against their plain versions on the 1M
+scene, trained_116k and the COLMAP init, integer flips held to ties, the
+backward bit for bit over two launches, a capture replayed with a second
+camera, their times beside their bounds, and the 1M bench step's `prep`
+stage profiled); and checks that each path went through the kernels.
+Each phase prints its lines before the next begins; the line before the last is the per-kernel
 JSON record, and the last is {"ok": true, "device": {...}}. Any failure
 raises and exits nonzero, as does a run without a card or without the
 package beside the script. It imports no JAX.
@@ -100,7 +104,9 @@ GRAD_RTOL = 1e-4
 BISECT_RTOL = 1e-5
 RAW_REPS = 20  # back-to-back raw launches per timed interval
 N_VIEWS = 8  # views of the COLMAP scene of phase 12
-PATH_KERNELS = ("tile_order", "blend_forward", "blend_backward")
+# The kernels a forward render launches, and those of a fwd+bwd step.
+FORWARD_KERNELS = ("preprocess_forward", "tile_order", "blend_forward")
+PATH_KERNELS = (*FORWARD_KERNELS, "preprocess_backward", "blend_backward")
 # Bounds: NVIDIA's H100 SXM figures at 700 W (FP32 outside the tensor
 # cores, HBM3), and the flops of one needed (pixel, position) pair at which
 # the splat blends, read off the kernels: the forward's alpha and blend
@@ -594,7 +600,7 @@ def phase_viewer(dev) -> dict:
           f"{report['scene']['bytes']['total']}, depth {peek['depth']:.4f}, "
           f"radius {peek['radius']}, tiles {peek['tiles_touched']}",
           flush=True)
-    assert names == ["home"] and min(launches[k] for k in PATH_KERNELS[:2])
+    assert names == ["home"] and min(launches[k] for k in FORWARD_KERNELS)
     assert report["scene"]["num_active"] == scene.capacity
 
     # The four apps, in this process.
@@ -692,7 +698,7 @@ def phase_bench(dev) -> dict:
         assert math.isfinite(out["value"]) and out["value"] > 0, out
         if kernels:
             need = PATH_KERNELS if out["mode"] == "fwd+bwd" else (
-                PATH_KERNELS[:2])
+                FORWARD_KERNELS)
             assert min(launches[k] for k in need) > 0, launches
         else:
             assert not any(_kernels.launch_counts.values()), launches
@@ -917,7 +923,7 @@ def bench_chain(label: str, argv: list, spec: tuple) -> dict:
     assert steps.captured == {k: CHAIN * v for k, v in eager_counts.items()}
     assert cli_per_step == {k: v for k, v in eager_counts.items() if v}
     assert min(eager_counts[k] for k in (
-        PATH_KERNELS[:2] if steps.fwd_only else PATH_KERNELS)) == 1
+        FORWARD_KERNELS if steps.fwd_only else PATH_KERNELS)) == 1
     assert replay_launches == 0, "a replay launched a wrapper"
     assert unchanged, "the zero updates changed a parameter"
     bound = max(CHAIN_GRAD_RTOL, SPREAD_FACTOR * spread)
@@ -2247,6 +2253,300 @@ def phase_train_graph(dev, colmap_dir: str) -> dict:
     return out
 
 
+# -- phase 20: the preprocess kernels --------------------------------------
+
+# The preprocess kernels (csrc/preprocess.cu) against their plain versions
+# (ops/preprocess.py): float outputs within PRE_RTOL / PRE_ATOL (the forward
+# rounds op by op as the plain version does, but a short sum may run in
+# another order); radius, rect and visibility equal but at ties, each
+# Gaussian that differs within PRE_TIE (relative) of an integer or a cull
+# threshold in a float64 recomputation (`preprocess_margins`); gradients
+# within PRE_GRAD_RTOL of each group's largest magnitude (the backward's
+# products contract into FMAs and its derivatives are taken in closed
+# form), non-finite exactly where the plain VJP is.
+PRE_RTOL, PRE_ATOL, PRE_TIE, PRE_GRAD_RTOL = 1e-5, 1e-6, 1e-5, 1e-5
+# Float operations a Gaussian, read off csrc/preprocess.cu: the forward's
+# projection, covariance, conic, direction and extents, the backward's
+# recomputation and chain rule, and per evaluated SH coefficient and
+# channel (a product and a sum forward; basis, gradient and direction terms
+# backward). The kernels are bound by bytes many times over.
+PRE_FWD_FLOPS, PRE_BWD_FLOPS = 150, 400
+PRE_OUTPUTS = ("mean2d", "depth", "conic", "color", "opacity")
+PRE_GRADS = ("means", "scales", "quats", "opacities", "sh")
+PRE_SH_FLOPS = {"forward": 3, "backward": 10}
+ROT_Y = 0.05  # radians: phase 20's second camera turns the first about y
+# The most kernels the bench step's `prep` stage may launch (996 before the
+# preprocess kernels): the camera block's ops (camera.device_camera) and
+# the two kernels, forward and backward.
+PREP_STAGE_KERNELS = 64
+
+
+def preprocess_bound(kind: str, n: int, used: int, k: int) -> tuple:
+    """bound() of one preprocess kernel over n Gaussians with `used` SH
+    coefficients evaluated of their k, as phase 20 launches it (no
+    mean2d_delta, a cotangent on every output): each input read once, each
+    output written once. Forward: means 12 B, scales 12, quats 16, opacity
+    4, mask 1, the used SH 12 each, writing mean2d, depth, conic, colour,
+    opacity, radius and rect (60 B); backward: the same inputs but the
+    opacity, the 10 cotangent floats (40 B), writing the five gradients
+    (44 B and 12 k of SH)."""
+    inputs = 45 + 12 * used
+    if kind == "forward":
+        nbytes = inputs + 60
+        flops = PRE_FWD_FLOPS + PRE_SH_FLOPS[kind] * 3 * used
+    else:
+        nbytes = inputs - 4 + 40 + 44 + 12 * k
+        flops = PRE_BWD_FLOPS + PRE_SH_FLOPS[kind] * 3 * used
+    return bound(n * nbytes, n * flops)
+
+
+def preprocess_margins(act, cam, rcfg) -> dict:
+    """The quantities that decide each Gaussian's radius, rect and
+    visibility, recomputed in float64 by the plain version's ops: the
+    distance of each ceil or floor argument from the nearest integer and of
+    each cull test from its threshold, relative to the argument, (N,) each;
+    the smallest per Gaussian is its margin."""
+    from gsrast_tpu_torch import config as cfg
+    from gsrast_tpu_torch.ops import covariance, projection
+
+    def f64(x):
+        return x.detach().double()
+
+    means = f64(act.means)
+    view = f64(cam.view)
+    mv = projection.to_camera(means, view)
+    _, ndc = projection.project(means, f64(cam.full_projection()),
+                                cam.width, cam.height)
+    front = projection.in_frustum(mv[:, 2], ndc) & act.mask
+    safe = torch.cat([mv[:, :2], torch.where(front, mv[:, 2], 1.0)[:, None]],
+                     dim=1)
+    a, b, c = covariance.compute_cov2d(
+        safe, covariance.compute_cov3d(f64(act.scales), f64(act.quats)),
+        view[:3, :3], f64(cam.focal_x), f64(cam.focal_y),
+        f64(cam.tan_fov_x), f64(cam.tan_fov_y)).unbind(-1)
+    cfac = torch.clamp(2.0 * torch.log(f64(act.opacities)
+                                       / (0.98 * cfg.ALPHA_MIN)),
+                       0.0, cfg.GAUSSIAN_EXTENT_SIGMA ** 2)
+    ext = [torch.sqrt(cfac * torch.clamp(v, min=0.0)) for v in (a, c)]
+    px = ((ndc[:, 0] + 1.0) * cam.width - 1.0) * 0.5
+    py = ((ndc[:, 1] + 1.0) * cam.height - 1.0) * 0.5
+
+    def to_int(x):
+        return (x - torch.round(x)).abs() / torch.clamp(x.abs(), min=1.0)
+
+    def to_edge(x, edge):
+        return (x - edge).abs() / max(abs(edge), 1.0)
+
+    m = cfg.NDC_CULL_MARGIN
+    det = a * c - b * b
+    margins = {"ext_x": to_int(ext[0]), "ext_y": to_int(ext[1]),
+               "depth": to_edge(mv[:, 2], cfg.NEAR_CULL_DEPTH),
+               "det": det.abs() / torch.clamp(a * c, min=1e-30)}
+    for sign in (-1.0, 1.0):
+        margins[f"ndc_x{sign:+.0f}"] = to_edge(ndc[:, 0], sign * m)
+        margins[f"ndc_y{sign:+.0f}"] = to_edge(ndc[:, 1], sign * m)
+    for axis, (p, e, tile) in {"x": (px, ext[0], rcfg.tile_w),
+                               "y": (py, ext[1], rcfg.tile_h)}.items():
+        # The rect's floor and ceil arguments, with the extent or with 0
+        # (culled), as either version may have taken it.
+        args = [(p + sign * r + (sign > 0)) / tile for sign in (-1, 1)
+                for r in (torch.ceil(e), torch.zeros_like(e))]
+        margins[f"rect_{axis}"] = torch.stack([to_int(x) for x in args]).amin(0)
+    return margins
+
+
+def compare_preprocess(got, ref, act, cam, rcfg) -> dict:
+    """The forward kernel's outputs `got` against the plain version's `ref`:
+    per float output the largest difference and the count beyond PRE_RTOL /
+    PRE_ATOL; the Gaussians whose radius, rect or visibility (the masked
+    opacity) differ, and the largest of their margins
+    (`preprocess_margins`), which must stay within PRE_TIE."""
+    res = {}
+    for name in PRE_OUTPUTS:
+        a, b = getattr(got, name), getattr(ref, name)
+        err = (a - b).abs()
+        both = torch.isfinite(a) & torch.isfinite(b)
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        res[name] = {
+            "max_abs_err": float(torch.where(both, err, 0.0).max()),
+            "beyond": int(((~both & ~same)
+                           | (both & (err > PRE_ATOL + PRE_RTOL * b.abs())))
+                          .sum())}
+    flips = (got.radius != ref.radius) | (got.opacity != ref.opacity)
+    for a, b in zip(got.rect, ref.rect):
+        flips |= a != b
+    idx = torch.nonzero(flips).flatten()
+    res["flips"] = int(len(idx))
+    res["flip_margin"] = 0.0
+    if len(idx):
+        margins = preprocess_margins(act, cam, rcfg)
+        res["flip_margin"] = float(torch.stack(
+            [v[idx] for v in margins.values()]).amin(0).max())
+    return res
+
+
+def preprocess_cell(label: str, scene, cam, rcfg, gen) -> dict:
+    """Phase 20 on one scene and camera: the forward kernel against
+    `preprocess_torch` (`compare_preprocess`); the backward through
+    `PreprocessFunction` with seeded cotangents on every output of every
+    Gaussian against `preprocess_vjp_torch`, mean2d_delta's gradient
+    against its cotangent, and the wrapper's second launch bit for bit;
+    both kernels captured in a CUDA graph and replayed with a second camera
+    (`cam` turned by ROT_Y) copied into the captured camera's tensors,
+    against eager calls on it; the raw launches' and the plain versions'
+    ms by CUDA events, with their bounds and shares."""
+    from gsrast_tpu_torch import _kernels
+    from gsrast_tpu_torch.camera import (CAMERA_TENSORS, device_camera,
+                                         matmul_f32)
+    from gsrast_tpu_torch.ops import preprocess as pp
+
+    dev = cam.device
+    with torch.no_grad():
+        act = scene.activated()
+    n, k = act.sh.shape[:2]
+    used = (pp.sh_degree(act, rcfg) + 1) ** 2
+    dcam = device_camera(cam)
+    got = pp.preprocess_forward_cuda(act, dcam, rcfg)
+    with torch.no_grad():
+        ref = pp.preprocess_torch(act, cam, rcfg)
+    res = {"gaussians": n, "sh_rows": k, "sh_used": used,
+           "visible": int((ref.radius > 0).sum()),
+           "forward": compare_preprocess(got, ref, act, cam, rcfg)}
+
+    cot = pp.Cotangents(*(torch.randn((n, *shape), generator=gen,
+                                      device=dev)
+                          for shape in ((2,), (), (3,), (3,), ())))
+    leaves = [getattr(act, f).detach().requires_grad_()
+              for f in pp.INPUT_FIELDS]
+    delta = torch.zeros((n, 2), device=dev, requires_grad=True)
+    outs = pp.PreprocessFunction.apply(pp.PREPROCESS_CUDA, cam, rcfg, delta,
+                                       *leaves, act.mask)
+    grads = torch.autograd.grad(outs[:5], [*leaves, delta], list(cot))
+    again = pp.preprocess_backward_cuda(act, dcam, rcfg, cot)
+    plain = pp.preprocess_vjp_torch(act, cam, rcfg, cot, delta)
+    torch.cuda.synchronize()
+    bwd = {"same_bits_twice": all(torch.equal(a, b)
+                                  for a, b in zip(grads[:5], again[:5])),
+           "delta_is_cotangent": bool(torch.equal(grads[5], cot.mean2d))}
+    for name, a, b in zip(PRE_GRADS, grads, plain):
+        finite = torch.isfinite(b)
+        scale = float(torch.where(finite, b, 0.0).abs().max())
+        err = float(torch.where(finite, a - b, 0.0).abs().max())
+        bwd[name] = {"rel_err": err / max(scale, 1e-30), "scale": scale,
+                     "max_abs_err": err,
+                     "non_finite": int((~finite).sum()),
+                     "non_finite_agree": bool(torch.equal(
+                         finite, torch.isfinite(a)))}
+    res["backward"] = bwd
+
+    # One capture, replayed with a second camera copied in.
+    turn = torch.eye(4, device=dev)
+    cs, sn = math.cos(ROT_Y), math.sin(ROT_Y)
+    turn[0, 0], turn[0, 2], turn[2, 0], turn[2, 2] = cs, sn, -sn, cs
+    second = cam.replace(view=matmul_f32(turn, cam.view))
+    static = cam.replace(**{f: getattr(cam, f).clone()
+                            for f in CAMERA_TENSORS})
+
+    def both():
+        d = device_camera(static)
+        return (pp.preprocess_forward_cuda(act, d, rcfg),
+                pp.preprocess_backward_cuda(act, d, rcfg, cot))
+
+    _kernels.on_side_stream(both, dev)
+    graph, (fwd_g, bwd_g), recorded = _kernels.capture(
+        both, "the preprocess kernels")
+    for f in CAMERA_TENSORS:
+        getattr(static, f).copy_(getattr(second, f))
+    graph.replay()
+    d2 = device_camera(second)
+    fwd_e = pp.preprocess_forward_cuda(act, d2, rcfg)
+    bwd_e = pp.preprocess_backward_cuda(act, d2, rcfg, cot)
+    torch.cuda.synchronize()
+    res["capture"] = {
+        "recorded": {k: v for k, v in recorded.items() if v},
+        "replay_equals_eager": all(
+            torch.equal(a, b) for a, b in zip(
+                [*fwd_g[:6], *fwd_g.rect, *bwd_g[:5]],
+                [*fwd_e[:6], *fwd_e.rect, *bwd_e[:5]])),
+        "moved": float((fwd_g.mean2d - got.mean2d).abs().max())}
+    del graph, fwd_g, bwd_g, fwd_e, bwd_e
+
+    launches = {"forward": pp.forward_launch(act, dcam, rcfg),
+                "backward": pp.backward_launch(act, dcam, rcfg, cot)}
+    plains = {"forward": lambda: pp.preprocess_torch(act, cam, rcfg),
+              "backward": lambda: pp.preprocess_vjp_torch(act, cam, rcfg,
+                                                          cot)}
+    for kind, launch in launches.items():
+        assert launch.fn(*launch.args) == 0, kind
+        ms = cuda_ms(lambda: [launch.fn(*launch.args)
+                              for _ in range(RAW_REPS)]) / RAW_REPS
+        bound_ms, by = preprocess_bound(kind, n, used, k)
+        res[kind].update(ms=ms, bound_ms=bound_ms, bound_by=by,
+                         share=bound_ms / ms,
+                         plain_ms=cuda_ms(plains[kind], iters=3, warmup=1))
+    print(f"phase 20 preprocess kernels, {label} ({n} Gaussians, SH "
+          f"{used} of {k} rows, {cam.width}x{cam.height}, tiles "
+          f"{rcfg.tile_h}x{rcfg.tile_w}): forward {res['forward']['ms']:.4f}"
+          f" ms (plain {res['forward']['plain_ms']:.3f}), backward "
+          f"{res['backward']['ms']:.4f} ms (plain "
+          f"{res['backward']['plain_ms']:.3f}); {json.dumps(res)}",
+          flush=True)
+    fwd = res["forward"]
+    assert all(fwd[name]["beyond"] == 0 for name in PRE_OUTPUTS), fwd
+    assert fwd["flip_margin"] <= PRE_TIE, fwd
+    assert bwd["same_bits_twice"] and bwd["delta_is_cotangent"], bwd
+    for name in PRE_GRADS:
+        assert bwd[name]["non_finite_agree"], (name, bwd[name])
+        assert bwd[name]["rel_err"] <= PRE_GRAD_RTOL, (name, bwd[name])
+    cap = res["capture"]
+    assert cap["replay_equals_eager"] and cap["moved"] > 0, cap
+    assert cap["recorded"] == {"preprocess_forward": 1,
+                               "preprocess_backward": 1}, cap
+    return res
+
+
+def phase_preprocess(dev, colmap_dir: str) -> dict:
+    """Phase 20: the preprocess kernels (`preprocess_cell`) on the 1M SH-3
+    bench scene at 1080p, trained_116k at 1080p and the SfM init of phase
+    12's COLMAP scene (view 0); then the bench step's profile at 1M
+    (`diag.profile_step`), whose `prep` stage now holds the camera block's
+    ops and the two kernels."""
+    from gsrast_tpu_torch import benchmark
+    from gsrast_tpu_torch.camera import auto_frame
+    from gsrast_tpu_torch.diag import profile_step
+    from gsrast_tpu_torch.render.api import auto_render_config
+    from gsrast_tpu_torch.scene import colmap
+    from gsrast_tpu_torch.scene.ply import load_ply
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    out = {}
+    scene, cam = benchmark.bench_scene_camera(N_NORTH_STAR, WIDTH, HEIGHT,
+                                              device=dev)
+    out["1M"] = preprocess_cell("1M SH3", scene, cam,
+                                auto_render_config(scene, cam), gen)
+    scene = load_ply(FIXTURE_116K, device=dev)
+    cam = auto_frame(*scene.bbox(), WIDTH, HEIGHT, device=dev)
+    out["trained_116k"] = preprocess_cell(
+        "trained_116k", scene, cam, auto_render_config(scene, cam), gen)
+    ds, xyz, rgb = colmap.load_colmap(colmap_dir, device=dev)
+    scene = colmap.init_scene_from_points(xyz, rgb, device=dev)
+    out["colmap"] = preprocess_cell(
+        "COLMAP SfM init, view 0", scene, ds.cameras[0],
+        auto_render_config(scene, ds.cameras[0], margin=1.5), gen)
+    del scene, ds
+    torch.cuda.empty_cache()
+    prof = profile_step.profile_cell(
+        "default", os.path.join(OUT_DIR, "profile"), dev)
+    out["profile"] = {k: prof[k] for k in ("eager", "chained")}
+    prep = prof["eager"]["stages"]["prep"]
+    print(f"phase 20 profile_step default (1M SH3 {WIDTH}x{HEIGHT} bench "
+          f"step): prep {prep['kernels']} kernels, {prep['busy_ms']:.3f} "
+          f"busy ms; eager {json.dumps(prof['eager'])}; chained "
+          f"{json.dumps(prof['chained'])}", flush=True)
+    assert prep["kernels"] <= PREP_STAGE_KERNELS, prep
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2386,7 +2686,7 @@ def main() -> int:
                     "--height", str(HEIGHT), "--out", png])
     torch.cuda.synchronize()
     launches_cli = dict(_kernels.launch_counts)
-    assert min(launches_cli[k] for k in PATH_KERNELS[:2]) > 0, launches_cli
+    assert min(launches_cli[k] for k in FORWARD_KERNELS) > 0, launches_cli
     assert img.device == dev and img.shape == (HEIGHT, WIDTH, 3)
     assert bool(torch.isfinite(img).all())
     assert float(img.amax()) > 0.05, "image is all background"
@@ -2410,7 +2710,7 @@ def main() -> int:
         out = render(scene, cam, rcfg)
         torch.cuda.synchronize()
         launches_1m = dict(_kernels.launch_counts)
-        assert min(launches_1m[k] for k in PATH_KERNELS[:2]) > 0, launches_1m
+        assert min(launches_1m[k] for k in FORWARD_KERNELS) > 0, launches_1m
         assert bool(torch.isfinite(out.image).all())
         overflow = int(out.stats["overflow_tile_cap"])
         isect = int(out.stats["num_intersections"])
@@ -3038,6 +3338,12 @@ def main() -> int:
     phase_train_graph(dev, scene_dir)
     print(f"phase 19 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- phase 20: the preprocess kernels ----------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pre = phase_preprocess(dev, scene_dir)
+    print(f"phase 20 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     b116 = bwd["trained_116k"]
     rows_full, tiles_full = int(full_starts[-1]) // 8, t
     print(json.dumps({"kernels": [{
@@ -3083,7 +3389,21 @@ def main() -> int:
         **dict(zip(("bound_ms", "bound_by"),
                    bisect_bound(name, rows_full, tiles_full))),
         "library_ms": bisect[name]["full"].get("library_ms"),
-    } for name, line in (("a", 48), ("b", 71), ("c", 105), ("d", 152))]}))
+    } for name, line in (("a", 48), ("b", 71), ("c", 105), ("d", 152))] + [{
+        "name": f"preprocess_{kind}", "route": "cuda",
+        "source": "gsrast_tpu_torch/csrc/preprocess.cu",
+        "replaces": "gsrast_tpu/ops/preprocess.py:38",
+        "launches": launches_cli_train[f"preprocess_{kind}"],
+        "replayed": replayed_cli_train[f"preprocess_{kind}"],
+        "max_abs_err": max(pre["1M"][kind][o]["max_abs_err"] for o in (
+            PRE_OUTPUTS if kind == "forward" else PRE_GRADS)),
+        **{key: pre["1M"][kind][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "cells": {cell: {key: pre[cell][kind][key] for key in (
+            "ms", "plain_ms", "bound_ms", "share")}
+            for cell in ("1M", "trained_116k", "colmap")},
+    } for kind in ("forward", "backward")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

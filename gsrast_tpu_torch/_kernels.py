@@ -33,7 +33,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # Launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else.
 launch_counts = {"tile_order": 0, "blend_forward": 0, "blend_backward": 0,
-                 "bisect_a": 0, "bisect_b": 0, "bisect_c": 0, "bisect_d": 0}
+                 "bisect_a": 0, "bisect_b": 0, "bisect_c": 0, "bisect_d": 0,
+                 "preprocess_forward": 0, "preprocess_backward": 0}
 
 
 # Runs per kernel inside CUDA graph replays since the last reset: a replay
@@ -163,5 +164,12 @@ def load() -> Library:
     fn.restype = ctypes.c_int
     fn = lib.gsrast_bisect_d
     fn.argtypes = [vp, i32, vp, vp, vp, vp, vp, vp, vp]
+    fn.restype = ctypes.c_int
+    fn = lib.gsrast_preprocess_forward
+    fn.argtypes = [*[vp] * 8, *[i32] * 9, *[f32] * 5, *[vp] * 8]
+    fn.restype = ctypes.c_int
+    fn = lib.gsrast_preprocess_backward
+    fn.argtypes = [*[vp] * 6, *[i32] * 5, *[f32] * 3, vp, i64, i64, vp, i64,
+                   vp, i64, i64, vp, i64, i64, vp, i64, *[vp] * 6]
     fn.restype = ctypes.c_int
     return Library(lib=lib, path=path, build_seconds=seconds, build_log=log)

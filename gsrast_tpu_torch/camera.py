@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -114,6 +115,38 @@ class Camera:
                             fov_y=self.fov_y.to(device),
                             znear=self.znear.to(device),
                             zfar=self.zfar.to(device))
+
+
+# A Camera's tensor fields.
+CAMERA_TENSORS = ("view", "fov_x", "fov_y", "znear", "zfar")
+
+# The floats of a camera block (`device_camera`), in order: view (4x4,
+# row-major), full projection (4x4), position (3), focal_x, focal_y,
+# tan_fov_x, tan_fov_y; csrc/preprocess.cu reads them at these offsets.
+CAMERA_FLOATS = 39
+
+
+class DeviceCamera(NamedTuple):
+    """A camera as the preprocess kernels read it: its floats in one device
+    tensor, and the image size, which a launch takes as host ints."""
+
+    block: torch.Tensor  # (CAMERA_FLOATS,) float32
+    width: int
+    height: int
+
+
+def device_camera(camera: Camera) -> DeviceCamera:
+    """The camera's block, built by torch ops from its device tensors, each
+    float as `Camera`'s properties round it (focal = size / (2 tan), which
+    PyTorch takes as reciprocal(2 tan) * size). A CUDA graph that captures
+    this call rebuilds the block from the camera's tensors at each replay:
+    the kernels never take the camera as host scalars."""
+    tan = torch.tan(torch.stack([camera.fov_x, camera.fov_y]) * 0.5)
+    inv = (2.0 * tan).reciprocal()
+    block = torch.cat([camera.view.reshape(16),
+                       camera.full_projection().reshape(16), camera.position,
+                       inv[:1] * camera.width, inv[1:] * camera.height, tan])
+    return DeviceCamera(block, camera.width, camera.height)
 
 
 def make_camera(view, fov_x, fov_y, width: int, height: int,

@@ -126,9 +126,7 @@ def _render_cfg(args, scene, camera) -> cfg.RenderConfig:
     sh_degree = min(args.sh_degree, scene.sh_degree)
     if args.backend == "dense":
         return cfg.RenderConfig(backend="dense", sh_degree=sh_degree)
-    rcfg = auto_render_config(scene, camera)
-    if args.backend:
-        rcfg = rcfg.replace(backend=args.backend)
+    rcfg = auto_render_config(scene, camera, backend=args.backend)
     return rcfg.replace(sh_degree=sh_degree)
 
 
@@ -256,9 +254,8 @@ def _train_frames(args, scene, device):
     def auto_cfg(camera):
         # The wide margin covers densification reshaping the tile counts;
         # a view that still overflows a tier counts it in overflow_tile_cap.
-        rcfg = auto_render_config(scene, camera, margin=1.5)
-        if args.backend:
-            rcfg = rcfg.replace(backend=args.backend)
+        rcfg = auto_render_config(scene, camera, margin=1.5,
+                                  backend=args.backend)
         return rcfg.replace(sh_degree=min(args.sh_degree, scene.sh_degree))
 
     if args.data:

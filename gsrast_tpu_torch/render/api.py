@@ -48,14 +48,16 @@ def scene_tile_counts(scene, camera: Camera,
 def auto_render_config(scene, camera: Camera,
                        base: cfg.RenderConfig | None = None,
                        margin: float = 1.12,
-                       auto_tile_w: bool = True) -> cfg.RenderConfig:
+                       auto_tile_w: bool = True,
+                       backend: str | None = None) -> cfg.RenderConfig:
     """The product-default RenderConfig for (scene, camera): the tier plan
     derived from the scene's own tile-count distribution, and the tile shape
     of the reference's big-splat rule: start from `base`'s tile and, where
     `auto_tile_w`, double the tile area, up to P = 2048, while the mean
-    tiles per Gaussian is above 8. `base` defaults to 16x32 with backend
-    'cuda' where the scene or the camera lies on a CUDA device, else
-    'torch' (so make the config from the tensors it will render). A given
+    tiles per Gaussian is above 8. `base` defaults to 16x32 with
+    `backend`, by default 'cuda' where the scene or the camera lies on a
+    CUDA device, else 'torch' (so make the config from the tensors it will
+    render); the tile counts are taken on that backend. A given
     `base` keeps its backend and every other field but the legacy
     binning's fallback knobs, which are set as the reference sets them on
     every config it returns (`gsrast_tpu/render/api.py:76-78`):
@@ -69,8 +71,9 @@ def auto_render_config(scene, camera: Camera,
     for parity with the reference; `diag/tile_sweep.py` times the tile
     shapes on the card."""
     if base is None:
-        base = cfg.RenderConfig(tile_h=16, tile_w=32,
-                                backend=_on_card(scene, camera, "torch"))
+        base = cfg.RenderConfig(
+            tile_h=16, tile_w=32,
+            backend=backend or _on_card(scene, camera, "torch"))
     rcfg = base.replace(max_tiles_per_gaussian=512, heavy_fraction=0.5)
     counts = scene_tile_counts(scene, camera, rcfg)
     mean_c = float(counts.mean()) if counts.size else 0.0

@@ -22,7 +22,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..camera import Camera, look_at, make_camera
+from ..camera import CAMERA_TENSORS, Camera, look_at, make_camera
 from ..utils.image import load_png, save_png
 
 
@@ -44,7 +44,7 @@ class Dataset:
         cams = [self.cameras[i] for i in idx]
         return cams[0].replace(**{
             f: torch.stack([getattr(c, f) for c in cams])
-            for f in _CAMERA_TENSORS})
+            for f in CAMERA_TENSORS})
 
     def batch_images(self, idx) -> torch.Tensor:
         """Images of frames `idx`, (B, H, W, 3)."""
@@ -52,12 +52,9 @@ class Dataset:
                                            device=self.images.device)]
 
 
-_CAMERA_TENSORS = ("view", "fov_x", "fov_y", "znear", "zfar")
-
-
 def camera_at(batch: Camera, i: int) -> Camera:
     """Camera i of a batched Camera (`Dataset.batch_cameras`)."""
-    return batch.replace(**{f: getattr(batch, f)[i] for f in _CAMERA_TENSORS})
+    return batch.replace(**{f: getattr(batch, f)[i] for f in CAMERA_TENSORS})
 
 
 def save_dataset(path: str, cameras: List[Camera], images) -> str:

@@ -19,7 +19,7 @@ import torch
 
 from .. import _kernels
 from .. import config as cfg
-from ..camera import Camera
+from ..camera import CAMERA_TENSORS, Camera
 from ..render.api import render
 from ..scene.gaussians import GaussianScene
 from . import densify as densify_mod
@@ -193,10 +193,6 @@ def make_train_step(render_cfg: cfg.RenderConfig, tc: TrainConfig,
                 "num_active": scene.num_active()}
 
     return train_step
-
-
-# The camera's tensors, which a graph's static camera takes from each call.
-CAMERA_TENSORS = ("view", "fov_x", "fov_y", "znear", "zfar")
 
 
 @dataclasses.dataclass
