@@ -53,10 +53,13 @@ between replays and on the COLMAP scene's 8 views, 5 on the 1M scene,
 both timed with their peak memory, and a NaN rollback through the graph;
 phases 8, 9 and 12 train through it too), and the preprocess kernels
 (phase 20: forward and backward against their plain versions on the 1M
-scene, trained_116k and the COLMAP init, integer flips held to ties, the
-backward bit for bit over two launches, a capture replayed with a second
-camera, their times beside their bounds, and the 1M bench step's `prep`
-stage profiled); and checks that each path went through the kernels.
+scene, trained_116k, the COLMAP init and an edge cell of 1,013 Gaussians
+whose SH-3 rows are evaluated at degree 1 from an unaligned address,
+integer flips held to ties, the backward bit for bit over two launches, a
+capture replayed with a second camera, their times beside their bounds,
+the backward's registers, spills, shared bytes and resident warps an SM,
+and the 1M bench step's `prep` stage profiled); and checks that each path
+went through the kernels.
 Each phase prints its lines before the next begins; the line before the last is the per-kernel
 JSON record, and the last is {"ok": true, "device": {...}}. Any failure
 raises and exits nonzero, as does a run without a card or without the
@@ -67,6 +70,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -2281,6 +2285,22 @@ ROT_Y = 0.05  # radians: phase 20's second camera turns the first about y
 PREP_STAGE_KERNELS = 64
 
 
+def colmap_views(base, dev) -> tuple:
+    """Phase 12's COLMAP views of the scene `base`: (N_VIEWS orbit cameras
+    at 1080p around its bounding box, fov_x, fov_y)."""
+    import numpy as np
+
+    from gsrast_tpu_torch.scene.dataset import orbit_cameras
+
+    mn, mx = (x.cpu().numpy() for x in base.bbox())
+    fov_y = 1.0
+    fov_x = float(2.0 * np.arctan(np.tan(fov_y / 2) * WIDTH / HEIGHT))
+    views = orbit_cameras((mn + mx) / 2, float(np.linalg.norm(mx - mn)) * 1.1,
+                          WIDTH, HEIGHT, N_VIEWS, fov_x=fov_x, fov_y=fov_y,
+                          device=dev)
+    return views, fov_x, fov_y
+
+
 def preprocess_bound(kind: str, n: int, used: int, k: int) -> tuple:
     """bound() of one preprocess kernel over n Gaussians with `used` SH
     coefficients evaluated of their k, as phase 20 launches it (no
@@ -2385,8 +2405,9 @@ def compare_preprocess(got, ref, act, cam, rcfg) -> dict:
     return res
 
 
-def preprocess_cell(label: str, scene, cam, rcfg, gen) -> dict:
-    """Phase 20 on one scene and camera: the forward kernel against
+def preprocess_cell(label: str, act, cam, rcfg, gen) -> dict:
+    """Phase 20 on one cell's activated Gaussians and camera (from
+    `preprocess_cells`): the forward kernel against
     `preprocess_torch` (`compare_preprocess`); the backward through
     `PreprocessFunction` with seeded cotangents on every output of every
     Gaussian against `preprocess_vjp_torch`, mean2d_delta's gradient
@@ -2394,22 +2415,23 @@ def preprocess_cell(label: str, scene, cam, rcfg, gen) -> dict:
     both kernels captured in a CUDA graph and replayed with a second camera
     (`cam` turned by ROT_Y) copied into the captured camera's tensors,
     against eager calls on it; the raw launches' and the plain versions'
-    ms by CUDA events, with their bounds and shares."""
+    ms by CUDA events, with their bounds and shares; and the backward's
+    launch (`backward_occupancy`)."""
     from gsrast_tpu_torch import _kernels
     from gsrast_tpu_torch.camera import (CAMERA_TENSORS, device_camera,
                                          matmul_f32)
     from gsrast_tpu_torch.ops import preprocess as pp
 
     dev = cam.device
-    with torch.no_grad():
-        act = scene.activated()
     n, k = act.sh.shape[:2]
-    used = (pp.sh_degree(act, rcfg) + 1) ** 2
+    degree = pp.sh_degree(act, rcfg)
+    used = (degree + 1) ** 2
     dcam = device_camera(cam)
     got = pp.preprocess_forward_cuda(act, dcam, rcfg)
     with torch.no_grad():
         ref = pp.preprocess_torch(act, cam, rcfg)
     res = {"gaussians": n, "sh_rows": k, "sh_used": used,
+           "sh_offset_bytes": act.sh.data_ptr() % 16,
            "visible": int((ref.radius > 0).sum()),
            "forward": compare_preprocess(got, ref, act, cam, rcfg)}
 
@@ -2484,13 +2506,19 @@ def preprocess_cell(label: str, scene, cam, rcfg, gen) -> dict:
         res[kind].update(ms=ms, bound_ms=bound_ms, bound_by=by,
                          share=bound_ms / ms,
                          plain_ms=cuda_ms(plains[kind], iters=3, warmup=1))
+    launch = res["backward"]["launch"] = backward_occupancy(k, degree)
     print(f"phase 20 preprocess kernels, {label} ({n} Gaussians, SH "
           f"{used} of {k} rows, {cam.width}x{cam.height}, tiles "
           f"{rcfg.tile_h}x{rcfg.tile_w}): forward {res['forward']['ms']:.4f}"
           f" ms (plain {res['forward']['plain_ms']:.3f}), backward "
           f"{res['backward']['ms']:.4f} ms (plain "
-          f"{res['backward']['plain_ms']:.3f}); {json.dumps(res)}",
-          flush=True)
+          f"{res['backward']['plain_ms']:.3f}, "
+          f"{res['backward']['share']:.3f} of its bound); backward launch: "
+          f"{launch['registers']} registers, {launch['local_bytes']} B "
+          f"local (spills), shared {launch['static_shared']} + "
+          f"{launch['dynamic_shared']} B a block of {launch['threads']} "
+          f"threads, {launch['resident_warps']} resident warps an SM; "
+          f"{json.dumps(res)}", flush=True)
     fwd = res["forward"]
     assert all(fwd[name]["beyond"] == 0 for name in PRE_OUTPUTS), fwd
     assert fwd["flip_margin"] <= PRE_TIE, fwd
@@ -2505,35 +2533,99 @@ def preprocess_cell(label: str, scene, cam, rcfg, gen) -> dict:
     return res
 
 
-def phase_preprocess(dev, colmap_dir: str) -> dict:
-    """Phase 20: the preprocess kernels (`preprocess_cell`) on the 1M SH-3
-    bench scene at 1080p, trained_116k at 1080p and the SfM init of phase
-    12's COLMAP scene (view 0); then the bench step's profile at 1M
-    (`diag.profile_step`), whose `prep` stage now holds the camera block's
-    ops and the two kernels."""
+# Phase 20's edge cell: a Gaussian count that leaves the backward's last
+# warp 21 of its 32 lanes.
+EDGE_N = 1_013
+def preprocess_cells(dev, colmap_dir=None) -> list:
+    """Phase 20's cells, (key, label, activated Gaussians, camera, config)
+    each: the 1M SH-3 bench scene and trained_116k at 1080p; the SfM init
+    of phase 12's COLMAP scene at its view 0, read from `colmap_dir` (or,
+    without one, made from trained_116k's means and colours as phase 12
+    writes them, without the files' rounding); and the edge cell: EDGE_N
+    Gaussians of the bench scene's kind, SH 3, under a config of degree 1,
+    their SH rows a view 4 bytes into its storage, so that neither the
+    count nor the rows' address is aligned."""
+    import numpy as np
+
     from gsrast_tpu_torch import benchmark
     from gsrast_tpu_torch.camera import auto_frame
-    from gsrast_tpu_torch.diag import profile_step
+    from gsrast_tpu_torch.ops.sh import SH_C0
     from gsrast_tpu_torch.render.api import auto_render_config
     from gsrast_tpu_torch.scene import colmap
     from gsrast_tpu_torch.scene.ply import load_ply
 
-    gen = torch.Generator(device=dev).manual_seed(20)
-    out = {}
+    cells = []
+
+    def add(key, label, scene, cam, rcfg, sh_offset=0):
+        with torch.no_grad():
+            act = scene.activated()
+        if sh_offset:  # the SH rows a view sh_offset floats into storage
+            sh = torch.empty(act.sh.numel() + sh_offset, device=dev)
+            sh = sh[sh_offset:].view_as(act.sh).copy_(act.sh)
+            act = dataclasses.replace(act, sh=sh)
+        cells.append((key, label, act, cam, rcfg))
+
     scene, cam = benchmark.bench_scene_camera(N_NORTH_STAR, WIDTH, HEIGHT,
                                               device=dev)
-    out["1M"] = preprocess_cell("1M SH3", scene, cam,
-                                auto_render_config(scene, cam), gen)
-    scene = load_ply(FIXTURE_116K, device=dev)
-    cam = auto_frame(*scene.bbox(), WIDTH, HEIGHT, device=dev)
-    out["trained_116k"] = preprocess_cell(
-        "trained_116k", scene, cam, auto_render_config(scene, cam), gen)
-    ds, xyz, rgb = colmap.load_colmap(colmap_dir, device=dev)
-    scene = colmap.init_scene_from_points(xyz, rgb, device=dev)
-    out["colmap"] = preprocess_cell(
-        "COLMAP SfM init, view 0", scene, ds.cameras[0],
-        auto_render_config(scene, ds.cameras[0], margin=1.5), gen)
-    del scene, ds
+    add("1M", "1M SH3", scene, cam, auto_render_config(scene, cam))
+    base = load_ply(FIXTURE_116K, device=dev)
+    cam = auto_frame(*base.bbox(), WIDTH, HEIGHT, device=dev)
+    add("trained_116k", "trained_116k", base, cam,
+        auto_render_config(base, cam))
+    if colmap_dir is None:
+        cam = colmap_views(base, dev)[0][0]
+        sh0 = base.sh.detach()[:, 0].cpu().numpy()
+        scene = colmap.init_scene_from_points(
+            base.means.detach().cpu().numpy(),
+            np.clip(sh0 * SH_C0 + 0.5, 0.0, 1.0), device=dev)
+    else:
+        ds, xyz, rgb = colmap.load_colmap(colmap_dir, device=dev)
+        scene, cam = colmap.init_scene_from_points(xyz, rgb, device=dev), \
+            ds.cameras[0]
+    add("colmap", "COLMAP SfM init, view 0", scene, cam,
+        auto_render_config(scene, cam, margin=1.5))
+    scene, cam = benchmark.bench_scene_camera(EDGE_N, WIDTH, HEIGHT,
+                                              device=dev)
+    add("edge", f"edge: {EDGE_N} Gaussians, SH 3 rows at degree 1, rows 4 "
+        "bytes off", scene, cam,
+        auto_render_config(scene, cam).replace(sh_degree=1), sh_offset=1)
+    return cells
+
+
+def backward_occupancy(k: int, degree: int) -> dict:
+    """The preprocess backward's launch for SH rows of k coefficients at SH
+    degree `degree`, as the library reports it
+    (`gsrast_preprocess_backward_occupancy`): threads and dynamic shared
+    bytes a block; the kernel's registers and local (spilled) bytes a
+    thread and static shared bytes a block (cudaFuncGetAttributes); and the
+    warps that one SM holds at once (CUDA's occupancy calculator)."""
+    import ctypes
+
+    from gsrast_tpu_torch import _kernels
+
+    keys = ("threads", "dynamic_shared", "blocks_per_sm", "registers",
+            "local_bytes", "static_shared")
+    out = [ctypes.c_int(0) for _ in keys]
+    code = _kernels.load().lib.gsrast_preprocess_backward_occupancy(
+        k, degree, *(ctypes.byref(x) for x in out))
+    assert code == 0, f"CUDA error {code}"
+    res = dict(zip(keys, (x.value for x in out)))
+    res["resident_warps"] = res["blocks_per_sm"] * res["threads"] // 32
+    return res
+
+
+def phase_preprocess(dev, colmap_dir: str) -> dict:
+    """Phase 20: the preprocess kernels (`preprocess_cell`) on each cell of
+    `preprocess_cells`; then the bench step's profile at 1M
+    (`diag.profile_step`), whose `prep` stage holds the camera block's ops
+    and the two kernels."""
+    from gsrast_tpu_torch.diag import profile_step
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    out = {}
+    for key, label, act, cam, rcfg in preprocess_cells(dev, colmap_dir):
+        out[key] = preprocess_cell(label, act, cam, rcfg, gen)
+    del act
     torch.cuda.empty_cache()
     prof = profile_step.profile_cell(
         "default", os.path.join(OUT_DIR, "profile"), dev)
@@ -2583,7 +2675,7 @@ def main() -> int:
     from gsrast_tpu_torch.diag import bisect_timing, profile_step
     from gsrast_tpu_torch.ops.sh import SH_C0
     from gsrast_tpu_torch.scene import colmap
-    from gsrast_tpu_torch.scene.dataset import orbit_cameras, save_dataset
+    from gsrast_tpu_torch.scene.dataset import save_dataset
     from gsrast_tpu_torch.train.resilience import (ResilienceConfig,
                                                    all_finite,
                                                    read_heartbeat,
@@ -3104,12 +3196,7 @@ def main() -> int:
 
     # -- phase 12: training from data at full width, through the CLI ------
     base = load_ply(FIXTURE_116K, device=dev)
-    mn, mx = (x.cpu().numpy() for x in base.bbox())
-    fov_y = 1.0
-    fov_x = float(2.0 * np.arctan(np.tan(fov_y / 2) * WIDTH / HEIGHT))
-    views = orbit_cameras((mn + mx) / 2, float(np.linalg.norm(mx - mn)) * 1.1,
-                          WIDTH, HEIGHT, N_VIEWS, fov_x=fov_x, fov_y=fov_y,
-                          device=dev)
+    views, fov_x, fov_y = colmap_views(base, dev)
     with torch.no_grad():
         rcfg_gt = auto_render_config(base, views[0])
         photos = [render(base, c, rcfg_gt).image for c in views]
@@ -3402,7 +3489,7 @@ def main() -> int:
         "library_ms": None,
         "cells": {cell: {key: pre[cell][kind][key] for key in (
             "ms", "plain_ms", "bound_ms", "share")}
-            for cell in ("1M", "trained_116k", "colmap")},
+            for cell in ("1M", "trained_116k", "colmap", "edge")},
     } for kind in ("forward", "backward")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -172,4 +172,7 @@ def load() -> Library:
     fn.argtypes = [*[vp] * 6, *[i32] * 5, *[f32] * 3, vp, i64, i64, vp, i64,
                    vp, i64, i64, vp, i64, i64, vp, i64, *[vp] * 6]
     fn.restype = ctypes.c_int
+    fn = lib.gsrast_preprocess_backward_occupancy
+    fn.argtypes = [i32, i32, *[vp] * 6]
+    fn.restype = ctypes.c_int
     return Library(lib=lib, path=path, build_seconds=seconds, build_log=log)

@@ -24,19 +24,25 @@
 // below the FP32 rate at 3.35 TB/s.
 //
 // The design:
-// - One thread a Gaussian over all N, 256 a block; the camera is copied from device
-//   memory into shared memory once a block. The camera is a block of kCamFloats
-//   floats that torch ops build each call from the Camera's device tensors
-//   (camera.py::device_camera), never host scalars: a CUDA graph that captured a
-//   launch reads the camera copied into its static tensors at each replay.
+// - The camera is a block of kCamFloats floats that torch ops build each call from the
+//   Camera's device tensors (camera.py::device_camera), never host scalars, copied into
+//   shared memory once a block: a CUDA graph that captured a launch reads the camera
+//   copied into its static tensors at each replay.
+// - The forward: one thread a Gaussian over all N, 256 a block, the SH rows read in
+//   place, (N, K, 3) with K the scene's stride.
 // - The backward recomputes the forward's intermediates from the saved inputs and
 //   the camera (the reference CUDA rasterizer's recipe): nothing per Gaussian is
 //   kept between the two. It writes each Gaussian's gradients once, with no atomics,
 //   so two launches on the same inputs give the same bits. The cotangents come with
 //   their strides (autograd hands the transposed views of render/pipeline.py's
 //   feature rows, or the zero-stride expansions of a sum); a null cotangent is zero.
-// - The SH degree is a template parameter (0-3); the SH rows are read in place,
-//   (N, K, 3) with K the scene's stride.
+// - The backward's SH rows go through shared memory (preprocess_backward_kernel).
+//   They are 384 of its 509 bytes a Gaussian at K = 16, and a thread reading its own
+//   row from device memory makes each warp-wide access touch 32 rows 192 B apart, 144
+//   such accesses a Gaussian (the colour, the direction's gradient, the row's
+//   gradient). A warp's 32 consecutive rows are one contiguous chunk, copied in and
+//   stored back with consecutive lanes on consecutive words.
+// - The SH degree is a template parameter (0-3).
 //
 // Rounding: the forward is written in the plain version's order of operations on R
 // (below), whose products, sums and differences are the _rn intrinsics, which nvcc
@@ -48,6 +54,7 @@
 // axis (matmul_f32, the direction's norm) is taken left to right. The backward's own
 // arithmetic may contract: it is held to the plain VJP within a tolerance.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -162,14 +169,12 @@ __device__ __forceinline__ void eval_sh(const float* __restrict__ sh, const R* d
   }
 }
 
-// The plain version's forward for Gaussian i, up to the colour: everything but
-// the extents, which carry no gradient.
-template <int D>
-__device__ __forceinline__ void forward_geometry(
+// The plain version's forward for Gaussian i up to the conic: everything but the
+// colour (shade) and the extents, which carry no gradient.
+__device__ __forceinline__ void project_geometry(
     long long i, const float* cam, const float* __restrict__ means,
     const float* __restrict__ scales, const float* __restrict__ quats,
-    const unsigned char* __restrict__ mask, const float* __restrict__ sh, int sh_stride,
-    const Consts& k, Geometry& g) {
+    const unsigned char* __restrict__ mask, const Consts& k, Geometry& g) {
   const float* view = cam + kCamView;
   const float* proj = cam + kCamProj;
   const R p[3] = {means[3 * i], means[3 * i + 1], means[3 * i + 2]};
@@ -254,8 +259,16 @@ __device__ __forceinline__ void forward_geometry(
   const R det = g.a * g.c - g.b * g.b;
   g.valid = det.v > 0.0f;
   g.inv_det = R(1.0f) / (g.valid ? det : R(1.0f));
+}
 
-  // The view direction and ops/sh.py::eval_sh.
+// The view direction of Gaussian i and ops/sh.py::eval_sh of its SH row `sh_row`
+// (K rows of 3 channels, in device or shared memory).
+template <int D>
+__device__ __forceinline__ void shade(long long i, const float* cam,
+                                      const float* __restrict__ means,
+                                      const float* __restrict__ sh_row,
+                                      Geometry& g) {
+  const R p[3] = {means[3 * i], means[3 * i + 1], means[3 * i + 2]};
   const float* pos = cam + kCamPos;
 #pragma unroll
   for (int j = 0; j < 3; ++j) g.dvec[j] = p[j] - pos[j];
@@ -263,7 +276,7 @@ __device__ __forceinline__ void forward_geometry(
   const R s = g.norm + 1e-12f;
 #pragma unroll
   for (int j = 0; j < 3; ++j) g.dir[j] = g.dvec[j] / s;
-  eval_sh<D>(sh + i * sh_stride * 3, g.dir, g.rgb);
+  eval_sh<D>(sh_row, g.dir, g.rgb);
 }
 
 template <int D>
@@ -284,7 +297,8 @@ preprocess_forward_kernel(const float* __restrict__ cam_g, const float* __restri
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
   Geometry g;
-  forward_geometry<D>(i, cam, means, scales, quats, mask, sh, sh_stride, k, g);
+  project_geometry(i, cam, means, scales, quats, mask, k, g);
+  shade<D>(i, cam, means, sh + i * sh_stride * 3, g);
   const bool visible = g.frustum && g.valid;
 
   R px = g.px, py = g.py;
@@ -329,12 +343,46 @@ struct Cot {
   }
 };
 
+// ops/sh.py::eval_sh's VJP for one staged SH row `row` (K = sh_stride coefficients
+// of 3 channels): the direction's gradient ddir from the row's coefficients, then the
+// row's gradient written over the row: basis x dres for the `used` coefficients, 0
+// past them.
 template <int D>
-__device__ __forceinline__ void sh_backward(const float* __restrict__ sh, const R* dir,
-                                            const float* dres, float* __restrict__ g_sh,
+__device__ __forceinline__ void sh_backward(float* row, const R* dir, const float* dres,
                                             int sh_stride, float* ddir) {
   const float x = dir[0].v, y = dir[1].v, z = dir[2].v;
   const float xx = x * x, yy = y * y, zz = z * z, xy = x * y, yz = y * z, xz = x * z;
+  ddir[0] = ddir[1] = ddir[2] = 0.0f;
+  if constexpr (D >= 1) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const float* s = row + ch;
+      const float gr = dres[ch];
+      float dx = -kC1 * s[9], dy = -kC1 * s[3], dz = kC1 * s[6];
+      if constexpr (D >= 2) {
+        dx += kC2_0 * y * s[12] - kC2_2 * 2.0f * x * s[18] + kC2_3 * z * s[21] +
+              kC2_4 * 2.0f * x * s[24];
+        dy += kC2_0 * x * s[12] + kC2_1 * z * s[15] - kC2_2 * 2.0f * y * s[18] -
+              kC2_4 * 2.0f * y * s[24];
+        dz += kC2_1 * y * s[15] + kC2_2 * 4.0f * z * s[18] + kC2_3 * x * s[21];
+      }
+      if constexpr (D >= 3) {
+        dx += kC3_0 * 6.0f * xy * s[27] + kC3_1 * yz * s[30] - kC3_2 * 2.0f * xy * s[33] -
+              kC3_3 * 6.0f * xz * s[36] + kC3_4 * (4.0f * zz - 3.0f * xx - yy) * s[39] +
+              kC3_5 * 2.0f * xz * s[42] + kC3_6 * 3.0f * (xx - yy) * s[45];
+        dy += kC3_0 * 3.0f * (xx - yy) * s[27] + kC3_1 * xz * s[30] +
+              kC3_2 * (4.0f * zz - xx - 3.0f * yy) * s[33] - kC3_3 * 6.0f * yz * s[36] -
+              kC3_4 * 2.0f * xy * s[39] - kC3_5 * 2.0f * yz * s[42] -
+              kC3_6 * 6.0f * xy * s[45];
+        dz += kC3_1 * xy * s[30] + kC3_2 * 8.0f * yz * s[33] +
+              kC3_3 * 3.0f * (2.0f * zz - xx - yy) * s[36] + kC3_4 * 8.0f * xz * s[39] +
+              kC3_5 * (xx - yy) * s[42];
+      }
+      ddir[0] += gr * dx;
+      ddir[1] += gr * dy;
+      ddir[2] += gr * dz;
+    }
+  }
   float basis[16];
   basis[0] = kC0;
   if constexpr (D >= 1) {
@@ -362,48 +410,62 @@ __device__ __forceinline__ void sh_backward(const float* __restrict__ sh, const 
 #pragma unroll
   for (int kk = 0; kk < used; ++kk) {
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) g_sh[3 * kk + ch] = basis[kk] * dres[ch];
+    for (int ch = 0; ch < 3; ++ch) row[3 * kk + ch] = basis[kk] * dres[ch];
   }
   for (int kk = used; kk < sh_stride; ++kk) {
-    g_sh[3 * kk] = 0.0f;
-    g_sh[3 * kk + 1] = 0.0f;
-    g_sh[3 * kk + 2] = 0.0f;
+    row[3 * kk] = 0.0f;
+    row[3 * kk + 1] = 0.0f;
+    row[3 * kk + 2] = 0.0f;
   }
-  ddir[0] = ddir[1] = ddir[2] = 0.0f;
-  if constexpr (D >= 1) {
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      const float* s = sh + ch;
-      const float gr = dres[ch];
-      float dx = -kC1 * s[9], dy = -kC1 * s[3], dz = kC1 * s[6];
-      if constexpr (D >= 2) {
-        dx += kC2_0 * y * s[12] - kC2_2 * 2.0f * x * s[18] + kC2_3 * z * s[21] +
-              kC2_4 * 2.0f * x * s[24];
-        dy += kC2_0 * x * s[12] + kC2_1 * z * s[15] - kC2_2 * 2.0f * y * s[18] -
-              kC2_4 * 2.0f * y * s[24];
-        dz += kC2_1 * y * s[15] + kC2_2 * 4.0f * z * s[18] + kC2_3 * x * s[21];
-      }
-      if constexpr (D >= 3) {
-        dx += kC3_0 * 6.0f * xy * s[27] + kC3_1 * yz * s[30] - kC3_2 * 2.0f * xy * s[33] -
-              kC3_3 * 6.0f * xz * s[36] + kC3_4 * (4.0f * zz - 3.0f * xx - yy) * s[39] +
-              kC3_5 * 2.0f * xz * s[42] + kC3_6 * 3.0f * (xx - yy) * s[45];
-        dy += kC3_0 * 3.0f * (xx - yy) * s[27] + kC3_1 * xz * s[30] +
-              kC3_2 * (4.0f * zz - xx - 3.0f * yy) * s[33] - kC3_3 * 6.0f * yz * s[36] -
-              kC3_4 * 2.0f * xy * s[39] - kC3_5 * 2.0f * yz * s[42] -
-              kC3_6 * 6.0f * xy * s[45];
-        dz += kC3_1 * xy * s[30] + kC3_2 * 8.0f * yz * s[33] +
-              kC3_3 * 3.0f * (2.0f * zz - xx - yy) * s[36] + kC3_4 * 8.0f * xz * s[39] +
-              kC3_5 * (xx - yy) * s[42];
-      }
-      ddir[0] += gr * dx;
-      ddir[1] += gr * dy;
-      ddir[2] += gr * dz;
+}
+
+// The backward's warps a block (PERF.md: 8, or a minimum of blocks an SM, was slower).
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+static_assert(kBwdThreads >= kCamFloats, "a block loads the camera one float a thread");
+
+// Floats between two staged SH rows of K coefficients: 3K made odd, so that the 32
+// lanes reading coefficient c of their own rows (words t * stride + c) fall in 32
+// different banks; 3K = 48 apart they would fall in two. (Rows stored coefficient-
+// major would serve those reads as well, but would put the copy's consecutive words
+// 32 floats apart, in one bank.)
+__host__ __device__ constexpr int staged_stride(int sh_stride) { return (3 * sh_stride) | 1; }
+
+// The backward block's dynamic shared memory: each warp's 32 staged rows.
+inline size_t bwd_shared_bytes(int sh_stride) {
+  return sizeof(float) * kBwdWarps * 32 * staged_stride(sh_stride);
+}
+
+// f(w, s) for the words w = lane, lane + 32, ... < words of a warp's chunk of SH rows
+// (rf = 3K floats a row, contiguous in device memory), s the word's offset in the
+// staged chunk: row w / rf at `stride` floats a row, column w % rf. Consecutive lanes
+// take consecutive words, so each warp-wide access is one contiguous 128-byte run.
+template <class F>
+__device__ __forceinline__ void for_chunk_words(int lane, int words, int rf, int stride,
+                                                F f) {
+  const int dr = 32 / rf, dc = 32 % rf;  // a step of 32 words in rows and columns
+  int r = lane / rf, c = lane % rf;
+  for (int w = lane; w < words; w += 32) {
+    f(w, r * stride + c);
+    r += dr;
+    c += dc;
+    if (c >= rf) {
+      c -= rf;
+      ++r;
     }
   }
 }
 
+// One warp takes 32 consecutive Gaussians. It copies their SH rows, one contiguous
+// chunk, into shared memory (cp.async, coalesced) and, while the copy runs, each lane
+// recomputes its Gaussian's projection and covariance and runs their chain rule to
+// the scales', quaternions' and opacity's gradients and the mean's first part. Then
+// each lane shades and differentiates from its staged row and writes the row's
+// gradient over it, and the warp stores the chunk as g_sh, coalesced. The SH part
+// needs only the mean and the camera, so the covariance chain's registers are free
+// by then.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads)
 preprocess_backward_kernel(const float* __restrict__ cam_g, const float* __restrict__ means,
                            const float* __restrict__ scales, const float* __restrict__ quats,
                            const float* __restrict__ sh, const unsigned char* __restrict__ mask,
@@ -412,150 +474,201 @@ preprocess_backward_kernel(const float* __restrict__ cam_g, const float* __restr
                            float* __restrict__ g_means, float* __restrict__ g_scales,
                            float* __restrict__ g_quats, float* __restrict__ g_opacities,
                            float* __restrict__ g_sh) {
+  extern __shared__ float staged[];  // per warp 32 rows, staged_stride(K) floats apart
   __shared__ float cam[kCamFloats];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long first = static_cast<long long>(blockIdx.x) * kBwdThreads + 32 * warp;
+  const long long left = n - first;
+  const int rows = left <= 0 ? 0 : (left < 32 ? static_cast<int>(left) : 32);
+  const int rf = 3 * sh_stride, stride = staged_stride(sh_stride);
+  float* chunk = staged + warp * 32 * stride;
+  if (rows > 0) {
+    const float* src = sh + first * rf;
+    for_chunk_words(lane, rows * rf, rf, stride, [&](int w, int s) {
+      __pipeline_memcpy_async(chunk + s, src + w, 4);
+    });
+  }
+  __pipeline_commit();
   if (threadIdx.x < kCamFloats) cam[threadIdx.x] = cam_g[threadIdx.x];
   __syncthreads();
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
-  Geometry g;
-  forward_geometry<D>(i, cam, means, scales, quats, mask, sh, sh_stride, k, g);
+  if (rows == 0) return;
+  const long long i = first + lane;
+  const bool live = lane < rows;
   const float* view = cam + kCamView;
   const float* proj = cam + kCamProj;
   const float fx = cam[kCamFocalX], fy = cam[kCamFocalY];
+  Geometry g;
   float gm[3];
+  if (live) {
+    project_geometry(i, cam, means, scales, quats, mask, k, g);
 
-  // mean2d = ((hom / (hom3 + 1e-7) + 1) size - 1) / 2 (+ mean2d_delta).
-  const float w = g.w.v;
-  const float dndc0 = d_mean2d.at(i, 0) * 0.5f * static_cast<float>(k.width);
-  const float dndc1 = d_mean2d.at(i, 1) * 0.5f * static_cast<float>(k.height);
-  const float dhom0 = dndc0 * w, dhom1 = dndc1 * w;
-  const float dhom3 = -(dndc0 * g.hom0.v + dndc1 * g.hom1.v) * w * w;
+    // mean2d = ((hom / (hom3 + 1e-7) + 1) size - 1) / 2 (+ mean2d_delta).
+    const float w = g.w.v;
+    const float dndc0 = d_mean2d.at(i, 0) * 0.5f * static_cast<float>(k.width);
+    const float dndc1 = d_mean2d.at(i, 1) * 0.5f * static_cast<float>(k.height);
+    const float dhom0 = dndc0 * w, dhom1 = dndc1 * w;
+    const float dhom3 = -(dndc0 * g.hom0.v + dndc1 * g.hom1.v) * w * w;
 #pragma unroll
-  for (int j = 0; j < 3; ++j) gm[j] = dhom0 * proj[j] + dhom1 * proj[4 + j] + dhom3 * proj[12 + j];
+    for (int j = 0; j < 3; ++j) {
+      gm[j] = dhom0 * proj[j] + dhom1 * proj[4 + j] + dhom3 * proj[12 + j];
+    }
 
-  // conic = (c, -b, a) / where(valid, det, 1), det = a c - b^2.
-  const float dA = d_conic.at(i, 0), dB = d_conic.at(i, 1), dC = d_conic.at(i, 2);
-  const float a = g.a.v, b = g.b.v, c = g.c.v, inv_det = g.inv_det.v;
-  float da = dC * inv_det, db = -dB * inv_det, dc = dA * inv_det;
-  if (g.valid) {
-    const float ddet = -(dA * c - dB * b + dC * a) * inv_det * inv_det;
-    da += ddet * c;
-    dc += ddet * a;
-    db -= 2.0f * b * ddet;
-  }
+    // conic = (c, -b, a) / where(valid, det, 1), det = a c - b^2.
+    const float dA = d_conic.at(i, 0), dB = d_conic.at(i, 1), dC = d_conic.at(i, 2);
+    const float a = g.a.v, b = g.b.v, c = g.c.v, inv_det = g.inv_det.v;
+    float da = dC * inv_det, db = -dB * inv_det, dc = dA * inv_det;
+    if (g.valid) {
+      const float ddet = -(dA * c - dB * b + dC * a) * inv_det * inv_det;
+      da += ddet * c;
+      dc += ddet * a;
+      db -= 2.0f * b * ddet;
+    }
 
-  // a = t0 Sigma t0 + 0.3, b = t1 Sigma t0, c = t1 Sigma t1 + 0.3 (v0 = Sigma t0,
-  // v1 = Sigma t1), Sigma symmetric from its six entries.
-  float t0[3], t1[3], v0[3], v1[3], dv0[3], dv1[3], dt0[3], dt1[3];
+    // a = t0 Sigma t0 + 0.3, b = t1 Sigma t0, c = t1 Sigma t1 + 0.3 (v0 = Sigma t0,
+    // v1 = Sigma t1), Sigma symmetric from its six entries.
+    float t0[3], t1[3], v0[3], v1[3], dv0[3], dv1[3], dt0[3], dt1[3];
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    t0[j] = g.t0[j].v; t1[j] = g.t1[j].v; v0[j] = g.v0[j].v; v1[j] = g.v1[j].v;
-  }
+    for (int j = 0; j < 3; ++j) {
+      t0[j] = g.t0[j].v; t1[j] = g.t1[j].v; v0[j] = g.v0[j].v; v1[j] = g.v1[j].v;
+    }
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    dv0[j] = da * t0[j] + db * t1[j];
-    dv1[j] = dc * t1[j];
-    dt0[j] = da * v0[j];
-    dt1[j] = db * v0[j] + dc * v1[j];
-  }
-  const float sig[9] = {g.cov6[0].v, g.cov6[1].v, g.cov6[2].v, g.cov6[1].v, g.cov6[3].v,
-                        g.cov6[4].v, g.cov6[2].v, g.cov6[4].v, g.cov6[5].v};
+    for (int j = 0; j < 3; ++j) {
+      dv0[j] = da * t0[j] + db * t1[j];
+      dv1[j] = dc * t1[j];
+      dt0[j] = da * v0[j];
+      dt1[j] = db * v0[j] + dc * v1[j];
+    }
+    const float sig[9] = {g.cov6[0].v, g.cov6[1].v, g.cov6[2].v, g.cov6[1].v, g.cov6[3].v,
+                          g.cov6[4].v, g.cov6[2].v, g.cov6[4].v, g.cov6[5].v};
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    dt0[j] += sig[j] * dv0[0] + sig[3 + j] * dv0[1] + sig[6 + j] * dv0[2];
-    dt1[j] += sig[j] * dv1[0] + sig[3 + j] * dv1[1] + sig[6 + j] * dv1[2];
-  }
-  const float ds00 = dv0[0] * t0[0] + dv1[0] * t1[0];
-  const float ds01 = dv0[0] * t0[1] + dv0[1] * t0[0] + dv1[0] * t1[1] + dv1[1] * t1[0];
-  const float ds02 = dv0[0] * t0[2] + dv0[2] * t0[0] + dv1[0] * t1[2] + dv1[2] * t1[0];
-  const float ds11 = dv0[1] * t0[1] + dv1[1] * t1[1];
-  const float ds12 = dv0[1] * t0[2] + dv0[2] * t0[1] + dv1[1] * t1[2] + dv1[2] * t1[1];
-  const float ds22 = dv0[2] * t0[2] + dv1[2] * t1[2];
+    for (int j = 0; j < 3; ++j) {
+      dt0[j] += sig[j] * dv0[0] + sig[3 + j] * dv0[1] + sig[6 + j] * dv0[2];
+      dt1[j] += sig[j] * dv1[0] + sig[3 + j] * dv1[1] + sig[6 + j] * dv1[2];
+    }
+    const float ds00 = dv0[0] * t0[0] + dv1[0] * t1[0];
+    const float ds01 = dv0[0] * t0[1] + dv0[1] * t0[0] + dv1[0] * t1[1] + dv1[1] * t1[0];
+    const float ds02 = dv0[0] * t0[2] + dv0[2] * t0[0] + dv1[0] * t1[2] + dv1[2] * t1[0];
+    const float ds11 = dv0[1] * t0[1] + dv1[1] * t1[1];
+    const float ds12 = dv0[1] * t0[2] + dv0[2] * t0[1] + dv1[1] * t1[2] + dv1[2] * t1[1];
+    const float ds22 = dv0[2] * t0[2] + dv1[2] * t1[2];
 
-  // T = J W: t0 = jx W0 + jxz W2, t1 = jy W1 + jyz W2, with jx = fx / z,
-  // jxz = -fx tx / z^2, tx = clamp(x / z, +-1.3 tan_fov_x) z; z = where(frustum,
-  // depth, 1).
-  float djx = 0.0f, djy = 0.0f, djxz = 0.0f, djyz = 0.0f;
+    // T = J W: t0 = jx W0 + jxz W2, t1 = jy W1 + jyz W2, with jx = fx / z,
+    // jxz = -fx tx / z^2, tx = clamp(x / z, +-1.3 tan_fov_x) z; z = where(frustum,
+    // depth, 1).
+    float djx = 0.0f, djy = 0.0f, djxz = 0.0f, djyz = 0.0f;
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    djx += dt0[j] * view[j];
-    djxz += dt0[j] * view[8 + j];
-    djy += dt1[j] * view[4 + j];
-    djyz += dt1[j] * view[8 + j];
-  }
-  const float inv_z = g.inv_z.v, inv_z2 = g.inv_z2.v, tz = g.tz.v;
-  const float dinv_z2 = -(djxz * fx * g.tx.v + djyz * fy * g.ty.v);
-  const float dinv_z = djx * fx + djy * fy + 2.0f * inv_z * dinv_z2;
-  const float dtx = -djxz * fx * inv_z2, dty = -djyz * fy * inv_z2;
-  float dtz = -dinv_z * inv_z * inv_z + dtx * g.cux.v + dty * g.cuy.v;
-  const float ux = g.ux.v, uy = g.uy.v;
-  const float dux = (ux >= -g.lim_x.v && ux <= g.lim_x.v) ? dtx * tz : 0.0f;
-  const float duy = (uy >= -g.lim_y.v && uy <= g.lim_y.v) ? dty * tz : 0.0f;
-  dtz -= dux * (ux / tz) + duy * (uy / tz);
-  const float dmv[3] = {dux / tz, duy / tz, d_depth.at(i, 0) + (g.frustum ? dtz : 0.0f)};
+    for (int j = 0; j < 3; ++j) {
+      djx += dt0[j] * view[j];
+      djxz += dt0[j] * view[8 + j];
+      djy += dt1[j] * view[4 + j];
+      djyz += dt1[j] * view[8 + j];
+    }
+    const float inv_z = g.inv_z.v, inv_z2 = g.inv_z2.v, tz = g.tz.v;
+    const float dinv_z2 = -(djxz * fx * g.tx.v + djyz * fy * g.ty.v);
+    const float dinv_z = djx * fx + djy * fy + 2.0f * inv_z * dinv_z2;
+    const float dtx = -djxz * fx * inv_z2, dty = -djyz * fy * inv_z2;
+    float dtz = -dinv_z * inv_z * inv_z + dtx * g.cux.v + dty * g.cuy.v;
+    const float ux = g.ux.v, uy = g.uy.v;
+    const float dux = (ux >= -g.lim_x.v && ux <= g.lim_x.v) ? dtx * tz : 0.0f;
+    const float duy = (uy >= -g.lim_y.v && uy <= g.lim_y.v) ? dty * tz : 0.0f;
+    dtz -= dux * (ux / tz) + duy * (uy / tz);
+    const float dmv[3] = {dux / tz, duy / tz, d_depth.at(i, 0) + (g.frustum ? dtz : 0.0f)};
 #pragma unroll
-  for (int j = 0; j < 3; ++j) gm[j] += dmv[0] * view[j] + dmv[1] * view[4 + j] + dmv[2] * view[8 + j];
+    for (int j = 0; j < 3; ++j) {
+      gm[j] += dmv[0] * view[j] + dmv[1] * view[4 + j] + dmv[2] * view[8 + j];
+    }
 
-  // Sigma = M M^T (rows m_r), M = R diag(s).
-  const float dsig[9] = {ds00, ds01, ds02, ds01, ds11, ds12, ds02, ds12, ds22};
-  float dm[9];
+    // Sigma = M M^T (rows m_r), M = R diag(s).
+    const float dsig[9] = {ds00, ds01, ds02, ds01, ds11, ds12, ds02, ds12, ds22};
+    float dm[9];
 #pragma unroll
-  for (int r = 0; r < 3; ++r) {
+    for (int r = 0; r < 3; ++r) {
 #pragma unroll
-    for (int cc = 0; cc < 3; ++cc) {
-      float acc = 0.0f;
+      for (int cc = 0; cc < 3; ++cc) {
+        float acc = 0.0f;
 #pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        acc += (q == r ? 2.0f : 1.0f) * dsig[3 * r + q] * g.m[3 * q + cc].v;
+        for (int q = 0; q < 3; ++q) {
+          acc += (q == r ? 2.0f : 1.0f) * dsig[3 * r + q] * g.m[3 * q + cc].v;
+        }
+        dm[3 * r + cc] = acc;
       }
-      dm[3 * r + cc] = acc;
     }
-  }
-  float dr[9], dscale[3] = {0.0f, 0.0f, 0.0f};
+    float dr[9], dscale[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int r = 0; r < 3; ++r) {
+    for (int r = 0; r < 3; ++r) {
 #pragma unroll
-    for (int cc = 0; cc < 3; ++cc) {
-      dr[3 * r + cc] = dm[3 * r + cc] * scales[3 * i + cc];
-      dscale[cc] += dm[3 * r + cc] * g.rot[3 * r + cc].v;
+      for (int cc = 0; cc < 3; ++cc) {
+        dr[3 * r + cc] = dm[3 * r + cc] * scales[3 * i + cc];
+        dscale[cc] += dm[3 * r + cc] * g.rot[3 * r + cc].v;
+      }
     }
-  }
-  const float qw = quats[4 * i], qx = quats[4 * i + 1], qy = quats[4 * i + 2],
-              qz = quats[4 * i + 3];
-  const float dqw = 2.0f * (-qz * dr[1] + qy * dr[2] + qz * dr[3] - qx * dr[5] - qy * dr[6] +
-                            qx * dr[7]);
-  const float dqx = 2.0f * (qy * dr[1] + qz * dr[2] + qy * dr[3] - 2.0f * qx * dr[4] -
-                            qw * dr[5] + qz * dr[6] + qw * dr[7] - 2.0f * qx * dr[8]);
-  const float dqy = 2.0f * (-2.0f * qy * dr[0] + qx * dr[1] + qw * dr[2] + qx * dr[3] +
-                            qz * dr[5] - qw * dr[6] + qz * dr[7] - 2.0f * qy * dr[8]);
-  const float dqz = 2.0f * (-2.0f * qz * dr[0] - qw * dr[1] + qx * dr[2] + qw * dr[3] -
-                            2.0f * qz * dr[4] + qy * dr[5] + qx * dr[6] + qy * dr[7]);
-
-  // colour = max(rgb + 0.5, 0), rgb the SH sum along dir = dvec / (|dvec| + 1e-12).
-  float dres[3];
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    dres[ch] = (g.rgb[ch] + 0.5f).v >= 0.0f ? d_color.at(i, ch) : 0.0f;
-  }
-  float ddir[3];
-  sh_backward<D>(sh + i * sh_stride * 3, g.dir, dres, g_sh + i * sh_stride * 3, sh_stride,
-                 ddir);
-  const float s = (g.norm + 1e-12f).v;
-  const float dnorm = -(ddir[0] * g.dir[0].v + ddir[1] * g.dir[1].v + ddir[2] * g.dir[2].v) / s;
-  const float dsq = dnorm / (2.0f * g.norm.v);
-#pragma unroll
-  for (int j = 0; j < 3; ++j) gm[j] += ddir[j] / s + 2.0f * g.dvec[j].v * dsq;
+    const float qw = quats[4 * i], qx = quats[4 * i + 1], qy = quats[4 * i + 2],
+                qz = quats[4 * i + 3];
+    const float dqw = 2.0f * (-qz * dr[1] + qy * dr[2] + qz * dr[3] - qx * dr[5] - qy * dr[6] +
+                              qx * dr[7]);
+    const float dqx = 2.0f * (qy * dr[1] + qz * dr[2] + qy * dr[3] - 2.0f * qx * dr[4] -
+                              qw * dr[5] + qz * dr[6] + qw * dr[7] - 2.0f * qx * dr[8]);
+    const float dqy = 2.0f * (-2.0f * qy * dr[0] + qx * dr[1] + qw * dr[2] + qx * dr[3] +
+                              qz * dr[5] - qw * dr[6] + qz * dr[7] - 2.0f * qy * dr[8]);
+    const float dqz = 2.0f * (-2.0f * qz * dr[0] - qw * dr[1] + qx * dr[2] + qw * dr[3] -
+                              2.0f * qz * dr[4] + qy * dr[5] + qx * dr[6] + qy * dr[7]);
 
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    g_means[3 * i + j] = gm[j];
-    g_scales[3 * i + j] = dscale[j];
+    for (int j = 0; j < 3; ++j) {
+      g_scales[3 * i + j] = dscale[j];
+    }
+    g_quats[4 * i] = dqw;
+    g_quats[4 * i + 1] = dqx;
+    g_quats[4 * i + 2] = dqy;
+    g_quats[4 * i + 3] = dqz;
+    g_opacities[i] = (g.frustum && g.valid) ? d_opacity.at(i, 0) : 0.0f;
   }
-  g_quats[4 * i] = dqw;
-  g_quats[4 * i + 1] = dqx;
-  g_quats[4 * i + 2] = dqy;
-  g_quats[4 * i + 3] = dqz;
-  g_opacities[i] = (g.frustum && g.valid) ? d_opacity.at(i, 0) : 0.0f;
+
+  __pipeline_wait_prior(0);
+  __syncwarp();
+  float* row = chunk + lane * stride;
+  if (live) {
+    // colour = max(rgb + 0.5, 0), rgb the SH sum along dir = dvec / (|dvec| + 1e-12).
+    shade<D>(i, cam, means, row, g);
+    float dres[3];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      dres[ch] = (g.rgb[ch] + 0.5f).v >= 0.0f ? d_color.at(i, ch) : 0.0f;
+    }
+    float ddir[3];
+    sh_backward<D>(row, g.dir, dres, sh_stride, ddir);
+    const float s = (g.norm + 1e-12f).v;
+    const float dnorm =
+        -(ddir[0] * g.dir[0].v + ddir[1] * g.dir[1].v + ddir[2] * g.dir[2].v) / s;
+    const float dsq = dnorm / (2.0f * g.norm.v);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      g_means[3 * i + j] = gm[j] + (ddir[j] / s + 2.0f * g.dvec[j].v * dsq);
+    }
+  }
+  __syncwarp();
+  float* dst = g_sh + first * rf;
+  for_chunk_words(lane, rows * rf, rf, stride, [&](int w, int s) { dst[w] = chunk[s]; });
+}
+
+using BackwardKernel = decltype(&preprocess_backward_kernel<0>);
+
+// The backward kernel of SH degree `degree` and its dynamic shared memory for SH rows
+// of sh_stride coefficients, the kernel's limit raised where that exceeds the default
+// 48 KB; cudaErrorInvalidValue for a degree outside 0-3 or rows shorter than it reads.
+cudaError_t prepare_backward(int degree, int sh_stride, BackwardKernel* kernel,
+                             size_t* shared) {
+  const BackwardKernel kernels[] = {
+      preprocess_backward_kernel<0>, preprocess_backward_kernel<1>,
+      preprocess_backward_kernel<2>, preprocess_backward_kernel<3>};
+  if (degree < 0 || degree > 3 || sh_stride < (degree + 1) * (degree + 1)) {
+    return cudaErrorInvalidValue;
+  }
+  *kernel = kernels[degree];
+  *shared = bwd_shared_bytes(sh_stride);
+  if (*shared <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*shared));
 }
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -615,18 +728,38 @@ extern "C" int gsrast_preprocess_backward(
   const Cot cm{d_mean2d, d_mean2d_s0, d_mean2d_s1}, cd{d_depth, d_depth_s0, 0},
       cc{d_conic, d_conic_s0, d_conic_s1}, cl{d_color, d_color_s0, d_color_s1},
       co{d_opacity, d_opacity_s0, 0};
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (degree) {
-#define GSRAST_LAUNCH(D)                                                                  \
-  case D:                                                                                 \
-    preprocess_backward_kernel<D><<<blocks_for(n), kThreads, 0, s>>>(                     \
-        cam, means, scales, quats, sh, mask, n, sh_stride, k, cm, cd, cc, cl, co, g_means, \
-        g_scales, g_quats, g_opacities, g_sh);                                            \
-    break;
-    GSRAST_LAUNCH(0) GSRAST_LAUNCH(1) GSRAST_LAUNCH(2) GSRAST_LAUNCH(3)
-#undef GSRAST_LAUNCH
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  BackwardKernel kernel;
+  size_t shared;
+  const cudaError_t e = prepare_backward(degree, sh_stride, &kernel, &shared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<(n + kBwdThreads - 1) / kBwdThreads, kBwdThreads, shared,
+           static_cast<cudaStream_t>(stream)>>>(cam, means, scales, quats, sh, mask, n,
+                                                sh_stride, k, cm, cd, cc, cl, co, g_means,
+                                                g_scales, g_quats, g_opacities, g_sh);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's launch for SH rows of sh_stride coefficients at SH degree `degree`:
+// threads and dynamic shared bytes a block, and the blocks of it that one SM of the
+// current device holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor); and
+// the kernel's registers a thread, local (spilled) bytes a thread and static shared
+// bytes a block (cudaFuncGetAttributes).
+extern "C" int gsrast_preprocess_backward_occupancy(int sh_stride, int degree, int* threads,
+                                                    int* shared_bytes, int* blocks_per_sm,
+                                                    int* registers, int* local_bytes,
+                                                    int* static_shared_bytes) {
+  BackwardKernel kernel;
+  size_t shared;
+  cudaError_t e = prepare_backward(degree, sh_stride, &kernel, &shared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *threads = kBwdThreads;
+  *shared_bytes = static_cast<int>(shared);
+  *registers = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *static_shared_bytes = static_cast<int>(attr.sharedSizeBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, kBwdThreads, shared));
 }

@@ -4,18 +4,20 @@
 
 Makes phase 11's inputs once with this checkout (`chip_smoke.bisect_sizes`:
 trained_116k's 1080p plan, 2,040 tiles, and its longest tile alone) and
-saves them under `_build/`. Then it runs the trees in the order given and
-back (A, B, B, A for two), each in a process of its own that imports that
-tree's package and its `chip_smoke.py`, builds its kernels and times each
-kernel as that tree's phase 11 does: `bisect_launch` (C and D in the
-tree's own tile order), `RAW_REPS` raw launches per interval, the median
-of `cuda_ms`; and the tile order kernel alone on the full plan. Each run
-prints one JSON line: the tree, the card's name and power limit, per
-kernel the ms at both sizes, and per kernel of the library its SASS
-instruction count and a hash of its SASS with addresses and parameter
-offsets left out (where `cuobjdump` runs). A tree must lie inside this
-checkout (for the parent, `git archive` unpacked under `_archive/`, which
-git ignores). Default tree: this checkout.
+saves them under `_build/`. It builds every tree's kernels at once and
+prints one JSON line a tree: the card's name and power limit, and per
+bisection kernel of its library the `cuobjdump -res-usage` line and the
+SASS instruction count and a hash of its SASS with addresses and parameter
+offsets left out (where `cuobjdump` runs). Then it runs the trees in turns
+(`diag/turns.py`: in the order given and back, A, B, B, A for two), each
+in a process of its own that imports that tree's package and its
+`chip_smoke.py` and times each kernel as that tree's phase 11 does:
+`bisect_launch` (C and D in the tree's own tile order), `RAW_REPS` raw
+launches per interval, the median of `cuda_ms`; and the tile order kernel
+alone on the full plan. Each run prints one JSON line: the tree and per
+kernel the ms at both sizes. A tree must lie inside this checkout (for the
+parent, `git archive` unpacked under `_archive/`, which git ignores).
+Default tree: this checkout.
 
 With `--probe`, it then builds `diag/bisect_probe.cu` and prints one more
 JSON line: the L2 fetch-granularity limit, and the ms of a streaming read
@@ -31,7 +33,6 @@ import functools
 import hashlib
 import json
 import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -56,16 +57,10 @@ def make_inputs() -> None:
                INPUTS)
 
 
-def sass_digest(path: Path) -> dict:
-    """Per bisection kernel of the library at `path`: its SASS instruction
-    count and a hash of the instructions without addresses, encodings and
-    constant-bank parameter offsets; {} where cuobjdump does not run."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    try:
-        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
-                              text=True, timeout=120).stdout
-    except (OSError, subprocess.SubprocessError):
-        return {}
+def sass_digest(sass: str) -> dict:
+    """Per bisection kernel in `sass` (`cuobjdump -sass` of a library): its
+    SASS instruction count and a hash of the instructions without
+    addresses, encodings and constant-bank parameter offsets."""
     out = {}
     for body in sass.split("Function : ")[1:]:
         m = re.search(r"(bisect|carry)_kernelILi(\d)E|lanes_kernelE",
@@ -93,7 +88,7 @@ def run_tree(tree: Path) -> dict:
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
-    built = _kernels.load()
+    _kernels.load()
     inputs = {k: {n: x.to(dev) for n, x in v.items()}
               for k, v in torch.load(INPUTS).items()}
 
@@ -107,14 +102,7 @@ def run_tree(tree: Path) -> dict:
         for name in "abcd"}
     res["tile_order"] = {"full": raw_ms(smoke.order_launch(
         inputs["full"]["starts"]))}
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    return {"tree": str(tree), "card": smi, "raw_reps": smoke.RAW_REPS,
-            "ptxas": [ln.strip() for ln in built.build_log.splitlines()
-                      if "bisect" in ln or "carry" in ln or "lanes" in ln
-                      or "registers" in ln],
-            "ms": res, "sass": sass_digest(built.path)}
+    return {"tree": str(tree), "raw_reps": smoke.RAW_REPS, "ms": res}
 
 
 @functools.cache
@@ -170,6 +158,7 @@ def run_probe() -> dict:
 
     sys.path.insert(0, str(HERE))
     import chip_smoke as smoke
+    from gsrast_tpu_torch.diag import turns
 
     def raw_ms(launch) -> float:
         assert launch() == 0
@@ -177,10 +166,7 @@ def run_probe() -> dict:
             smoke.RAW_REPS)]) / smoke.RAW_REPS
 
     feat = torch.load(INPUTS)["full"]["feat"].to("cuda:0")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    return {"probe": {"card": smi, "raw_reps": smoke.RAW_REPS,
+    return {"probe": {"card": turns.card(), "raw_reps": smoke.RAW_REPS,
                       "feat_55MB": probe_memory(feat, raw_ms),
                       "x8_440MB": probe_memory(feat.repeat(8, 1), raw_ms)}}
 
@@ -198,11 +184,11 @@ def main(argv=None) -> int:
     if args.worker:
         print(json.dumps(run_tree(Path(args.worker))), flush=True)
         return 0
-    trees = [Path(t).resolve() for t in (args.tree or [HERE])]
-    outside = [str(t) for t in trees if not t.is_relative_to(HERE)]
-    if outside:
-        print(f"bisect_timing: trees outside {HERE}: {outside}",
-              file=sys.stderr)
+    sys.path.insert(0, str(HERE))
+    from gsrast_tpu_torch.diag import turns
+
+    trees = turns.resolve("bisect_timing", args.tree)
+    if trees is None:
         return 2
     import torch
 
@@ -210,11 +196,15 @@ def main(argv=None) -> int:
         print("bisect_timing: no CUDA device", file=sys.stderr)
         return 1
     make_inputs()
-    for tree in trees + trees[::-1]:
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                               "--worker", str(tree)], cwd=tree, timeout=900)
-        if proc.returncode != 0:
-            return proc.returncode
+    names = ("bisect", "carry", "lanes")
+    for tree, path in turns.build(trees).items():
+        sass = sass_digest(turns.cuobjdump(path, "-sass"))
+        print(json.dumps({"tree": str(tree), "card": turns.card(),
+                          "res_usage": turns.resource_usage(path, names),
+                          "sass": sass}), flush=True)
+    code = turns.in_turns(Path(__file__).resolve(), trees)
+    if code != 0:
+        return code
     if args.probe:
         print(json.dumps(run_probe()), flush=True)
     return 0

@@ -8,6 +8,10 @@ kernels of `csrc/preprocess.cu` against the plain pair.
 `gsrast_tpu` and JAX are imported inside the tests that need them, so that
 the `cuda` cases run where only the port imports."""
 
+import dataclasses
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +27,10 @@ from gsrast_tpu_torch.scene.gaussians import ActivatedGaussians
 
 from torch_parity import (SCENE_FIELDS, TRAINED_SMALL, port_front_camera,
                           seeded_arrays, t2n)
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -125,6 +133,35 @@ def test_function_torch_pair_matches_autograd(sh_degree, with_delta,
         assert torch.equal(g_got[-1], cot.mean2d)
 
 
+@pytest.mark.parametrize("sh_degree,config_degree",
+                         [(1, 0), (2, 0), (2, 1), (3, 0), (3, 1), (3, 2)])
+def test_function_torch_pair_below_scene_degree(sh_degree, config_degree):
+    """The Function with the plain pair under a config of lower SH degree
+    than the scene's: outputs and every group's gradients bit-equal to
+    autograd through `preprocess_torch`, and the SH rows past the
+    (config_degree + 1)^2 evaluated ones zero gradients, the evaluated ones
+    reached."""
+    n = 300
+    arrays = _culled_scene(40 + sh_degree, n, sh_degree)
+    cam = port_front_camera(128, 96)
+    rcfg = gt.RenderConfig(tile_h=16, tile_w=32, sh_degree=config_degree)
+    _, inputs, leaves = _inputs(arrays)
+    wrt = list(leaves.values())
+    cot = _cotangents(n, 9)
+    ref = preprocess_torch(inputs, cam, rcfg)
+    got = _through(PREPROCESS_TORCH, inputs, cam, rcfg)
+    for name in pp.Preprocessed._fields[:6]:
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    g_got = _pullback(got, cot, wrt)
+    for name, a, b in zip(pp.INPUT_FIELDS, g_got, _pullback(ref, cot, wrt)):
+        assert torch.equal(a, b), name
+    used = (config_degree + 1) ** 2
+    g_sh = g_got[pp.INPUT_FIELDS.index("sh")]
+    assert g_sh.shape[1] == (sh_degree + 1) ** 2
+    assert not g_sh[:, used:].any()
+    assert bool((g_sh[:, :used].abs().amax(0) > 0).all())
+
+
 def _jax_vjp(arrays: dict, jcam, jcfg, cot: Cotangents) -> dict:
     """jax.vjp of the reference's preprocess over the activated inputs."""
     import jax
@@ -144,24 +181,31 @@ def _jax_vjp(arrays: dict, jcam, jcfg, cot: Cotangents) -> dict:
     return dict(zip(pp.INPUT_FIELDS, (np.asarray(g) for g in grads)))
 
 
-@pytest.mark.parametrize("case", ["sh3_aniso", "trained_small"])
+@pytest.mark.parametrize("case", ["sh3_aniso", "trained_small",
+                                  "sh3_at_degree1", "sh3_at_degree0",
+                                  "sh3_at_degree2", "sh2_at_degree1"])
 def test_plain_vjp_matches_jax(case):
     """`preprocess_vjp_torch` against jax.vjp of the reference's
     preprocess, the cases of test_torch_preprocess.py with seeded
-    cotangents on every output and Gaussian."""
+    cotangents on every output and Gaussian; and scenes of SH degree d
+    under a config of degree c < d (`shd_at_degreec`), whose SH rows past
+    the (c + 1)^2 evaluated get zero gradients in both."""
     import gsrast_tpu as gs
     from torch_parity import camera_to_torch, front_camera, jax_scene_arrays
 
-    if case == "sh3_aniso":
-        arrays = seeded_arrays(11, 200, sh_degree=3, extent=2.5)
-        jcam, cam = front_camera(128, 96)
-    else:
+    scene_degree, degree = 3, 3
+    if "_at_degree" in case:
+        scene_degree, degree = int(case[2]), int(case[-1])
+    if case == "trained_small":
         ref_scene = gs.load_ply(TRAINED_SMALL)
         arrays = jax_scene_arrays(ref_scene)
         jcam = gs.auto_frame(*ref_scene.bbox(), 128, 128)
         cam = camera_to_torch(jcam)
-    jcfg = gs.RenderConfig(tile_h=16, tile_w=32)
-    rcfg = gt.RenderConfig(tile_h=16, tile_w=32)
+    else:
+        arrays = seeded_arrays(11, 200, sh_degree=scene_degree, extent=2.5)
+        jcam, cam = front_camera(128, 96)
+    jcfg = gs.RenderConfig(tile_h=16, tile_w=32, sh_degree=degree)
+    rcfg = gt.RenderConfig(tile_h=16, tile_w=32, sh_degree=degree)
     scene = gt.from_numpy(arrays)
     n = scene.capacity
     cot = _cotangents(n, 3)
@@ -173,6 +217,11 @@ def test_plain_vjp_matches_jax(case):
         assert scale > 0, name
         np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL_REL * scale,
                                    err_msg=name)
+    if degree < scene_degree:
+        used = (degree + 1) ** 2
+        assert got.sh.shape[1] == (scene_degree + 1) ** 2
+        assert not np.any(t2n(got.sh)[:, used:])
+        assert not np.any(ref["sh"][:, used:])
     assert got.mean2d_delta is None
 
 
@@ -336,6 +385,64 @@ def test_cotangent_strides():
     assert args[6:8] == [1, n] and args[9:11] == [1, n] and args[12] == 1
 
 
+def _staged_shared(k: int) -> int:
+    """The backward's dynamic shared bytes a block at K SH rows, as
+    csrc/preprocess.cu stages them: 4 warps of 32 rows, 3K | 1 floats a
+    row."""
+    return 4 * 32 * ((3 * k) | 1) * 4
+
+
+def test_preprocess_timing_refuses_trees_outside_the_checkout(tmp_path,
+                                                            capsys):
+    """`diag.preprocess_timing` builds and runs each tree it times in
+    place, so it takes only trees inside this checkout."""
+    from gsrast_tpu_torch.diag import preprocess_timing
+
+    assert preprocess_timing.main(["--tree", str(tmp_path)]) == 2
+    assert "outside" in capsys.readouterr().err
+
+
+def test_preprocess_timing_summary(tmp_path, monkeypatch, capsys):
+    """`preprocess_timing.summarise` on two trees' saved outputs and
+    readings: each tree's ms of every run, its share of the bound at its
+    best run, and each output against the first tree's (NaN equal to NaN)."""
+    import json
+
+    from gsrast_tpu_torch.diag import preprocess_timing as pt
+
+    monkeypatch.setattr(pt, "HERE", tmp_path)
+    monkeypatch.setattr(pt, "OUT", tmp_path / "out")
+    pt.OUT.mkdir()
+    trees = [tmp_path, tmp_path / "_archive" / "parent"]
+    grads = torch.tensor([1.0, float("nan"), 3.0])
+    for tree, shift, ms in zip(trees, (0.0, 0.25), ([0.2, 0.3], [0.8, 0.9])):
+        torch.save({"1M": {"forward": {"depth": grads.clone()},
+                           "backward": {"sh": grads + torch.tensor(
+                               [0.0, 0.0, shift])}}},
+                   pt.OUT / f"{pt.tag(tree)}.pt")
+        (pt.OUT / f"{pt.tag(tree)}.jsonl").write_text("".join(
+            json.dumps({"ms": {"1M": {"forward": 0.1, "backward": t}}}) + "\n"
+            for t in ms))
+    info = {"1M": {"label": "1M SH3", "gaussians": 3,
+                   "bounds": {"forward": (0.05, "bytes"),
+                              "backward": (0.1, "bytes")}}}
+    pt.summarise(trees, info)
+    line = json.loads(capsys.readouterr().out)
+    assert line["cell"] == "1M" and line["gaussians"] == 3
+    assert "bounds" not in line
+    bwd = line["backward"]
+    assert bwd["bound_ms"] == 0.1 and bwd["bound_by"] == "bytes"
+    here, parent = bwd["trees"]["."], bwd["trees"]["_archive/parent"]
+    assert here["ms"] == [0.2, 0.3] and parent["ms"] == [0.8, 0.9]
+    assert here["share"] == pytest.approx(0.5)
+    assert parent["share"] == pytest.approx(0.125)
+    assert here["against_first"]["sh"] == {"differ": 0, "max_abs_diff": 0.0}
+    assert parent["against_first"]["sh"] == {"differ": 1,
+                                             "max_abs_diff": 0.25}
+    assert line["forward"]["trees"]["_archive/parent"]["against_first"] == {
+        "depth": {"differ": 0, "max_abs_diff": 0.0}}
+
+
 # -- on the card ------------------------------------------------------------
 
 def _card():
@@ -344,11 +451,20 @@ def _card():
     return torch.device("cuda")
 
 
-def _card_case(dev, sh_degree=3, n=3000):
+def _card_case(dev, sh_degree=3, n=3000, config_degree=3, sh_offset=0):
+    """A culled scene's inputs on the card, the front camera and a config
+    of `config_degree`; the SH rows a view `sh_offset` floats into their
+    storage."""
     arrays = _culled_scene(31, n, sh_degree)
     _, inputs, _ = _inputs(arrays, device=dev)
+    if sh_offset:
+        sh = inputs.sh.detach()
+        shifted = torch.empty(sh.numel() + sh_offset, device=dev)
+        shifted = shifted[sh_offset:].view_as(sh).copy_(sh)
+        inputs = dataclasses.replace(inputs, sh=shifted)
     cam = port_front_camera(256, 128, device=dev)
-    return inputs, cam, gt.RenderConfig(tile_h=16, tile_w=32)
+    return inputs, cam, gt.RenderConfig(tile_h=16, tile_w=32,
+                                        sh_degree=config_degree)
 
 
 def _close_or_tie(got, ref):
@@ -364,14 +480,25 @@ def _close_or_tie(got, ref):
     assert int(bad.sum()) <= max(1, bad.numel() // 1000), int(bad.sum())
 
 
+# (scene SH degree, config SH degree, N, SH rows' offset in floats) of the
+# card cases: every degree, a config below the scene's (rows past the ones
+# evaluated), a count that leaves one warp of the backward 31 lanes, one
+# that leaves it 1, and rows that start 4 bytes past a 16-byte boundary.
+CARD_CASES = [(*degrees, n, 0)
+              for degrees in ((0, 0), (1, 1), (2, 2), (3, 3), (3, 1))
+              for n in (31, 257, 3000)] + [(3, 1, 257, 1)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("sh_degree", [0, 3])
-def test_cuda_kernels_match_plain(sh_degree):
+@pytest.mark.parametrize("sh_degree,config_degree,n,sh_offset", CARD_CASES)
+def test_cuda_kernels_match_plain(sh_degree, config_degree, n, sh_offset):
     """The forward kernel against `preprocess_torch` and the backward
     against `preprocess_vjp_torch` on the same card inputs, seeded
     cotangents on every Gaussian; the backward's two launches bit-equal."""
     dev = _card()
-    inputs, cam, rcfg = _card_case(dev, sh_degree)
+    inputs, cam, rcfg = _card_case(dev, sh_degree, n, config_degree,
+                                   sh_offset)
+    assert inputs.sh.data_ptr() % 16 == 4 * sh_offset
     delta = torch.zeros((inputs.means.shape[0], 2), device=dev)
     _kernels.reset_launch_counts()
     got = PREPROCESS_CUDA.forward(inputs, device_camera(cam), rcfg, delta)
@@ -432,3 +559,24 @@ def test_cuda_capture_follows_camera():
         assert torch.equal(a, b)
     assert not torch.equal(fwd.mean2d, PREPROCESS_CUDA.forward(
         inputs, device_camera(cam), rcfg).mean2d)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_occupancy():
+    """The backward's launch as the library reports it for K = 1..16 and
+    each degree whose rows fit: 128 threads and `_staged_shared(k)`
+    dynamic bytes a block, the camera's 39 floats of static shared memory
+    (padded to 16 bytes before the dynamic rows), registers within the 255
+    a thread, and at least one block an SM."""
+    _card()
+    for k in range(1, 17):
+        for degree in range(4):
+            if (degree + 1) ** 2 > k:
+                continue
+            launch = chip_smoke.backward_occupancy(k, degree)
+            assert launch["threads"] == 128, launch
+            assert launch["dynamic_shared"] == _staged_shared(k), launch
+            camera = 4 * CAMERA_FLOATS
+            assert camera <= launch["static_shared"] < camera + 16, launch
+            assert 0 < launch["registers"] <= 255, launch
+            assert launch["resident_warps"] >= 4, launch
