@@ -58,8 +58,14 @@ whose SH-3 rows are evaluated at degree 1 from an unaligned address,
 integer flips held to ties, the backward bit for bit over two launches, a
 capture replayed with a second camera, their times beside their bounds,
 the backward's registers, spills, shared bytes and resident warps an SM,
-and the 1M bench step's `prep` stage profiled); and checks that each path
-went through the kernels.
+and the 1M bench step's `prep` stage profiled), and the loss kernels
+(phase 21: forward and backward against the plain version, both held to
+the plain version run in float64, on trained_116k's render against its
+target at 1080p, the COLMAP view against its photo, a 512x512 pair and
+edge cells of 5x7 and a row-strided 1081x1919, two launches bit for bit, a
+capture replayed on a new input, their times beside their bounds and the
+plain version's; phases 8, 9, 10, 12, 16 and 19 train through them); and
+checks that each path went through the kernels.
 Each phase prints its lines before the next begins; the line before the last is the per-kernel
 JSON record, and the last is {"ok": true, "device": {...}}. Any failure
 raises and exits nonzero, as does a run without a card or without the
@@ -111,6 +117,8 @@ N_VIEWS = 8  # views of the COLMAP scene of phase 12
 # The kernels a forward render launches, and those of a fwd+bwd step.
 FORWARD_KERNELS = ("preprocess_forward", "tile_order", "blend_forward")
 PATH_KERNELS = (*FORWARD_KERNELS, "preprocess_backward", "blend_backward")
+# A train step's kernels: the render's and the loss's.
+TRAIN_KERNELS = (*PATH_KERNELS, "loss_forward", "loss_backward")
 # Bounds: NVIDIA's H100 SXM figures at 700 W (FP32 outside the tensor
 # cores, HBM3), and the flops of one needed (pixel, position) pair at which
 # the splat blends, read off the kernels: the forward's alpha and blend
@@ -1233,7 +1241,8 @@ def phase16_nccl_rank(world: int, dev) -> dict:
     grads = {k: v.clone() for k, v in grads.items()}
     for p in scene.param_groups().values():
         p.grad = None
-    ref_loss = rgb_loss(render(scene, cam, rcfg).image, target)
+    ref_loss = rgb_loss(render(scene, cam, rcfg).image, target,
+                        backend=rcfg.backend)
     ref_loss.backward()
     res["train_loss"] = [float(loss), float(ref_loss.detach())]
     res["train_grads"] = {k: _grad_compare(grads[k], p.grad)
@@ -1387,7 +1396,7 @@ def phase_sharded_ranks() -> dict:
               f"{json.dumps(out)}", flush=True)
         assert out["losses"] == train[0]["losses"], "ranks disagree"
         assert out["losses"][-1] < out["losses"][0], out["losses"]
-        assert min(out["launches"][k] for k in PATH_KERNELS) > 0, out
+        assert min(out["launches"][k] for k in TRAIN_KERNELS) > 0, out
         assert not any(out["plain_calls"].values()), out
 
     t0 = time.perf_counter()
@@ -2161,7 +2170,7 @@ def train_graph_cell(label: str, cell, dev) -> dict:
     assert not moved, moved
     assert res["deterministic_graph"] == {"captures": 1,
                                           "replays": steps - 1}
-    assert all(res["eager_step_launches"][k] == 1 for k in PATH_KERNELS)
+    assert all(res["eager_step_launches"][k] == 1 for k in TRAIN_KERNELS)
     assert res["captured"] == res["eager_step_launches"], res
     assert res["replay_launches"] == 0, "a replay launched a wrapper"
     return res
@@ -2288,17 +2297,9 @@ PREP_STAGE_KERNELS = 64
 def colmap_views(base, dev) -> tuple:
     """Phase 12's COLMAP views of the scene `base`: (N_VIEWS orbit cameras
     at 1080p around its bounding box, fov_x, fov_y)."""
-    import numpy as np
+    from gsrast_tpu_torch.diag.profile_step import colmap_views as views
 
-    from gsrast_tpu_torch.scene.dataset import orbit_cameras
-
-    mn, mx = (x.cpu().numpy() for x in base.bbox())
-    fov_y = 1.0
-    fov_x = float(2.0 * np.arctan(np.tan(fov_y / 2) * WIDTH / HEIGHT))
-    views = orbit_cameras((mn + mx) / 2, float(np.linalg.norm(mx - mn)) * 1.1,
-                          WIDTH, HEIGHT, N_VIEWS, fov_x=fov_x, fov_y=fov_y,
-                          device=dev)
-    return views, fov_x, fov_y
+    return views(base, WIDTH, HEIGHT, N_VIEWS, dev)
 
 
 def preprocess_bound(kind: str, n: int, used: int, k: int) -> tuple:
@@ -2639,6 +2640,214 @@ def phase_preprocess(dev, colmap_dir: str) -> dict:
     return out
 
 
+# -- phase 21: the loss kernels --------------------------------------------
+
+# Float operations a value (a pixel's channel), read off csrc/loss.cu: the
+# forward's three products, two 11-tap passes of five quantities, S, and
+# |x - y| with the two sums; the backward's recomputed forward but the sums,
+# the three dS terms, their two passes and d_x. The least work (each value
+# filtered once), without the tiles' halos.
+LOSS_FWD_FLOPS, LOSS_BWD_FLOPS = 246, 402
+# The kernels against the plain version, both held to the plain version run
+# in float64 on the same inputs: the loss within max(LOSS_ATOL, 2 |plain32
+# - plain64|), d_pred within max(LOSS_GRAD_RTOL max |g64|, 2 max |g32 -
+# g64|). The card's float32 sums over millions of values, taken in another
+# order, and E[x x] - mu mu cancelling where the image is flat make a fixed
+# float32 tolerance arbitrary.
+LOSS_ATOL, LOSS_GRAD_RTOL = 1e-6, 1e-5
+LOSS_WEIGHT = 0.2  # TrainConfig().ssim_weight
+LOSS_STRIDE_PAD = 6  # pixels past the edge cell's 1919 in its rows
+LOSS_CELLS = ("trained_116k", "colmap", "512", "edge_5x7", "edge")
+
+
+def loss_work(height: int, width: int, channels: int) -> dict:
+    """Bytes, operations and bound() of each loss kernel on an (H, W, C)
+    pair: the forward reads pred and target and writes the loss; the
+    backward reads them and the cotangent and writes d_pred."""
+    n = height * width * channels
+    work = {}
+    for kind, nbytes, per in (("forward", 8 * n + 4, LOSS_FWD_FLOPS),
+                              ("backward", 12 * n + 4, LOSS_BWD_FLOPS)):
+        bound_ms, by = bound(nbytes, n * per)
+        work[kind] = {"bytes": nbytes, "flops": n * per,
+                      "bound_ms": bound_ms, "bound_by": by}
+    return work
+
+
+def compare_loss(pred, target, weight: float) -> dict:
+    """The kernels' loss and d_pred (cotangent 1) against the plain
+    version's in float32 and both against the plain version in float64,
+    with the tolerances those give (see LOSS_ATOL); and the kernels' second
+    launches bit for bit."""
+    from gsrast_tpu_torch.train import loss as L
+
+    ones = torch.ones((), device=pred.device)
+
+    def kernels():
+        return (L.loss_forward_cuda(pred, target, weight),
+                L.loss_backward_cuda(pred, target, weight, ones))
+
+    def plain(x, y, one):
+        return (L.rgb_loss_torch(x, y, weight),
+                L.rgb_loss_vjp_torch(x, y, weight, one))
+
+    got, again = kernels(), kernels()
+    p32 = plain(pred, target, ones)
+    p64 = plain(pred.double(), target.double(), ones.double())
+    torch.cuda.synchronize()
+
+    def gap(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    res = {"loss": float(got[0]), "plain_loss": float(p32[0]),
+           "loss64": float(p64[0]), "loss_err": gap(got[0], p64[0]),
+           "plain_loss_err": gap(p32[0], p64[0]),
+           "grad_scale": float(p64[1].abs().max()),
+           "grad_err": gap(got[1], p64[1]),
+           "plain_grad_err": gap(p32[1], p64[1]),
+           "max_abs_err": max(gap(got[0], p32[0]), gap(got[1], p32[1])),
+           "same_bits_twice": all(torch.equal(a, b)
+                                  for a, b in zip(got, again)),
+           "finite": all(bool(torch.isfinite(t).all()) for t in got)}
+    res["loss_tol"] = max(LOSS_ATOL, 2.0 * res["plain_loss_err"])
+    res["grad_tol"] = max(LOSS_GRAD_RTOL * res["grad_scale"],
+                          2.0 * res["plain_grad_err"])
+    return res
+
+
+def loss_capture(pred, target, weight: float) -> dict:
+    """Both kernels captured once in a CUDA graph on a copy of pred, then
+    replayed after a second image is copied in: the replay's loss and
+    d_pred against eager calls on the second image."""
+    from gsrast_tpu_torch import _kernels
+    from gsrast_tpu_torch.train import loss as L
+
+    static, ones = pred.clone(), torch.ones((), device=pred.device)
+    second = (pred * 0.5 + 0.25).contiguous()
+
+    def both():
+        return (L.loss_forward_cuda(static, target, weight),
+                L.loss_backward_cuda(static, target, weight, ones))
+
+    first = [t.clone() for t in _kernels.on_side_stream(both, pred.device)]
+    graph, out, recorded = _kernels.capture(both, "the loss kernels")
+    static.copy_(second)
+    graph.replay()
+    eager = (L.loss_forward_cuda(second, target, weight),
+             L.loss_backward_cuda(second, target, weight, ones))
+    torch.cuda.synchronize()
+    return {"recorded": {k: v for k, v in recorded.items() if v},
+            "replay_equals_eager": all(torch.equal(a, b)
+                                       for a, b in zip(out, eager)),
+            "moved": float((out[0] - first[0]).abs())}
+
+
+def loss_cell(label: str, pred, target, weight: float = LOSS_WEIGHT
+              ) -> dict:
+    """Phase 21 on one (pred, target) pair: `compare_loss`; the raw
+    launches of each kernel (RAW_REPS back to back, without the wrapper's
+    checks) and the plain version's forward and VJP timed by CUDA events,
+    with their bounds (`loss_work`) and shares."""
+    from gsrast_tpu_torch.train import loss as L
+
+    h, w, c = pred.shape
+    res = {"shape": [h, w, c], "row_stride": pred.stride(0),
+           **compare_loss(pred, target, weight)}
+    ones = torch.ones((), device=pred.device)
+    launches = {"forward": L.forward_launch(pred, target, weight),
+                "backward": L.backward_launch(pred, target, weight, ones)}
+    plains = {"forward": lambda: L.rgb_loss_torch(pred, target, weight),
+              "backward": lambda: L.rgb_loss_vjp_torch(pred, target, weight,
+                                                       ones)}
+    work = loss_work(h, w, c)
+    for kind, launch in launches.items():
+        assert launch.fn(*launch.args) == 0, kind
+        ms = cuda_ms(lambda: [launch.fn(*launch.args)
+                              for _ in range(RAW_REPS)]) / RAW_REPS
+        res[kind] = dict(work[kind], ms=ms,
+                         share=work[kind]["bound_ms"] / ms,
+                         plain_ms=cuda_ms(plains[kind], iters=5, warmup=1))
+    print(f"phase 21 loss kernels, {label} ({h}x{w}x{c}, row stride "
+          f"{pred.stride(0)}): forward {res['forward']['ms']:.4f} ms (plain "
+          f"{res['forward']['plain_ms']:.3f}, {res['forward']['share']:.3f} "
+          f"of its bound), backward {res['backward']['ms']:.4f} ms (plain "
+          f"{res['backward']['plain_ms']:.3f}, "
+          f"{res['backward']['share']:.3f} of its bound); loss "
+          f"{res['loss']:.7f}, error {res['loss_err']:.3g} (tolerance "
+          f"{res['loss_tol']:.3g}), d_pred error {res['grad_err']:.3g} "
+          f"(tolerance {res['grad_tol']:.3g}); {json.dumps(res)}",
+          flush=True)
+    assert res["finite"] and res["same_bits_twice"], res
+    assert res["loss_err"] <= res["loss_tol"], res
+    assert res["grad_err"] <= res["grad_tol"], res
+    return res
+
+
+def loss_cells(dev, colmap_dir: str) -> list:
+    """Phase 21's cells, (key, label, pred, target) each: the render of
+    phase 8's perturbed trained_116k start against its target at 1080p;
+    the SfM init of phase 12's COLMAP scene at view 0 against its photo;
+    the same two scenes framed at 512x512 (phase 15's dataset size); and
+    edge cells of seeded images, 5x7 (smaller than the window) and
+    1081x1919 (ragged against both kernels' tiles), pred a view into rows
+    LOSS_STRIDE_PAD pixels longer, a third of its rows equal to the
+    target."""
+    from gsrast_tpu_torch.camera import auto_frame
+    from gsrast_tpu_torch.diag.profile_step import train_cell
+    from gsrast_tpu_torch.render.api import auto_render_config, render
+    from gsrast_tpu_torch.scene import colmap
+    from gsrast_tpu_torch.scene.ply import load_ply
+
+    cells = []
+    cell = train_cell("train_trained_116k", dev)
+    base = load_ply(FIXTURE_116K, device=dev)
+    cam = auto_frame(*base.bbox(), 512, 512, device=dev)
+    ds, xyz, rgb = colmap.load_colmap(colmap_dir, device=dev)
+    init = colmap.init_scene_from_points(xyz, rgb, device=dev)
+    with torch.no_grad():
+        cells.append(("trained_116k", f"trained_116k {WIDTH}x{HEIGHT}, the "
+                      "perturbed start against its target",
+                      render(cell.scene, cell.views[0], cell.rcfg).image,
+                      cell.targets[0]))
+        cells.append(("colmap", "COLMAP SfM init, view 0, against its photo",
+                      render(init, ds.cameras[0], auto_render_config(
+                          init, ds.cameras[0], margin=1.5)).image,
+                      ds.images[0]))
+        cells.append(("512", "512x512: the perturbed trained_116k against "
+                      "trained_116k",
+                      render(cell.scene, cam, auto_render_config(
+                          cell.scene, cam, margin=1.5)).image,
+                      render(base, cam, auto_render_config(base, cam)).image))
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for key, (h, w) in (("edge_5x7", (5, 7)), ("edge", (1081, 1919))):
+        target = torch.rand((h, w, 3), generator=gen, device=dev)
+        rows = torch.empty((h, w + LOSS_STRIDE_PAD, 3), device=dev)
+        pred = rows[:, :w].copy_((target + 0.1 * torch.randn(
+            (h, w, 3), generator=gen, device=dev)).clamp(0.0, 1.0))
+        pred[: h // 3] = target[: h // 3]
+        cells.append((key, f"edge: {h}x{w}, seeded, a row stride of "
+                      f"{w + LOSS_STRIDE_PAD} pixels", pred, target))
+    return cells
+
+
+def phase_loss(dev, colmap_dir: str) -> dict:
+    """Phase 21: the loss kernels (`loss_cell`) on each cell of
+    `loss_cells`, and one capture of both on the 512x512 cell
+    (`loss_capture`)."""
+    out = {}
+    for key, label, pred, target in loss_cells(dev, colmap_dir):
+        out[key] = loss_cell(label, pred, target)
+        if key == "512":
+            cap = out["capture"] = loss_capture(pred, target, LOSS_WEIGHT)
+            print(f"phase 21 loss kernels captured in a CUDA graph and "
+                  f"replayed on a second image (512x512): "
+                  f"{json.dumps(cap)}", flush=True)
+            assert cap["replay_equals_eager"] and cap["moved"] > 0, cap
+            assert cap["recorded"] == {"loss_forward": 1,
+                                       "loss_backward": 1}, cap
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2974,7 +3183,7 @@ def main() -> int:
         state.scene.num_active())
     assert graph.captures == 1 and graph.replays == 29
     # The warm-up step and the capture launch; the replays do not.
-    assert all(launches_train[k] == 2 for k in PATH_KERNELS), launches_train
+    assert all(launches_train[k] == 2 for k in TRAIN_KERNELS), launches_train
     del state, graph, metrics, target, cell
     # -- phase 9: the CLI, train then resume ------------------------------
     # Under deterministic algorithms (warn_only: the set-up's counting ops
@@ -3028,13 +3237,15 @@ def main() -> int:
     assert all(log.count(capture_line) == 1 for log in logs), logs
     assert logs[1].index("resumed from step 4") < logs[1].index(capture_line)
     assert all(resume_equal.values()), resume_equal
-    assert min(launches_cli_train[k] for k in PATH_KERNELS) > 0, (
+    assert min(launches_cli_train[k] for k in TRAIN_KERNELS) > 0, (
         launches_cli_train)
     # Each 4-step run: an eager warm-up and a capture call the wrappers
     # (the forward's also render the run's target), and 3 replays run
-    # what the capture recorded, one launch of each path kernel.
-    assert launches_cli_train["blend_backward"] == 4, launches_cli_train
-    assert replayed_cli_train == {k: 6 * (k in PATH_KERNELS)
+    # what the capture recorded, one launch of each train kernel.
+    assert all(launches_cli_train[k] == 4 for k in (
+        "blend_backward", "loss_forward", "loss_backward")), (
+        launches_cli_train)
+    assert replayed_cli_train == {k: 6 * (k in TRAIN_KERNELS)
                                   for k in replayed_cli_train}, (
         replayed_cli_train)
     # One order a blend, for its forward and its backward.
@@ -3058,8 +3269,13 @@ def main() -> int:
     step = make_train_step(rcfg, tc, extent)
     target = torch.full((HEIGHT, WIDTH, 3), 0.25, device=dev)
     torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
     train_ms = cuda_ms(lambda: step(state, cam, target))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches_1m_train = dict(_kernels.launch_counts)
+    # cuda_ms: 2 warm-up steps and 10 timed, each through every kernel.
+    assert all(launches_1m_train[k] == 12 for k in TRAIN_KERNELS), (
+        launches_1m_train)
 
     # The reference benchmark's step (grad of mean(img^2)), timed by the
     # benchmark's own definition, the one `bench` prints.
@@ -3069,12 +3285,14 @@ def main() -> int:
     split = {"forward": cuda_ms(lambda: render(scene, cam, rcfg,
                                                mean2d_delta=delta))}
     out = render(scene, cam, rcfg, mean2d_delta=delta)
-    split["loss"] = cuda_ms(lambda: rgb_loss(out.image, target))
+    split["loss"] = cuda_ms(lambda: rgb_loss(out.image, target,
+                                             backend=rcfg.backend))
     backward = []
     for _ in range(12):
         state.optimizer.zero_grad(set_to_none=True)
         loss = rgb_loss(render(scene, cam, rcfg,
-                               mean2d_delta=delta).image, target)
+                               mean2d_delta=delta).image, target,
+                        backend=rcfg.backend)
         backward.append(event_ms(loss.backward))
     split["backward"] = statistics.median(backward[2:])
     with torch.no_grad():
@@ -3097,7 +3315,8 @@ def main() -> int:
           f"{fwd_bwd_best:.3f} ms = {fwd_bwd_mpix:.3f} Mpix/s, median "
           f"{fwd_bwd_ms:.3f} ms (benchmark.run_bench, as bench); split ms "
           f"{json.dumps({k: round(v, 3) for k, v in split.items()})}; "
-          f"peak allocated {peak_gib:.2f} GiB (train step)", flush=True)
+          f"peak allocated {peak_gib:.2f} GiB (train step); launches of the "
+          f"12 train steps {json.dumps(launches_1m_train)}", flush=True)
     assert all(bool(torch.isfinite(p.grad).all())
                for p in scene.param_groups().values())
 
@@ -3234,7 +3453,7 @@ def main() -> int:
         losses = {int(m[0]): float(m[1]) for m in re.findall(
             r"step (\d+): loss=(\S+)", out)}
         assert np.all(np.isfinite(list(losses.values()))), out
-        assert min(_kernels.launch_counts[k] for k in PATH_KERNELS) > 0, (
+        assert min(_kernels.launch_counts[k] for k in TRAIN_KERNELS) > 0, (
             _kernels.launch_counts)
         return st, out, losses, dict(_kernels.launch_counts)
 
@@ -3268,7 +3487,8 @@ def main() -> int:
     with torch.no_grad():
         for name, sc in (("init", init), ("trained", state.scene)):
             outs = [render(sc, c, rcfg0) for c in ds.cameras]
-            view_loss[name] = [float(rgb_loss(o.image, img, tc.ssim_weight))
+            view_loss[name] = [float(rgb_loss(o.image, img, tc.ssim_weight,
+                                              backend=rcfg0.backend))
                                for o, img in zip(outs, ds.images)]
             overflow[name] = [int(o.stats["overflow_tile_cap"]) for o in outs]
     # The blend kernels at the tiles of the SfM init (32x64), on view 0,
@@ -3431,6 +3651,12 @@ def main() -> int:
     pre = phase_preprocess(dev, scene_dir)
     print(f"phase 20 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- phase 21: the loss kernels ----------------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    loss_res = phase_loss(dev, scene_dir)
+    print(f"phase 21 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     b116 = bwd["trained_116k"]
     rows_full, tiles_full = int(full_starts[-1]) // 8, t
     print(json.dumps({"kernels": [{
@@ -3490,6 +3716,19 @@ def main() -> int:
         "cells": {cell: {key: pre[cell][kind][key] for key in (
             "ms", "plain_ms", "bound_ms", "share")}
             for cell in ("1M", "trained_116k", "colmap", "edge")},
+    } for kind in ("forward", "backward")] + [{
+        "name": f"loss_{kind}", "route": "cuda",
+        "source": "gsrast_tpu_torch/csrc/loss.cu",
+        "replaces": "gsrast_tpu/train/loss.py:43",
+        "launches": launches_cli_train[f"loss_{kind}"],
+        "replayed": replayed_cli_train[f"loss_{kind}"],
+        "max_abs_err": max(loss_res[cell]["max_abs_err"]
+                           for cell in LOSS_CELLS),
+        **{key: loss_res["trained_116k"][kind][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "cells": {cell: {key: loss_res[cell][kind][key] for key in (
+            "ms", "plain_ms", "bound_ms", "share")} for cell in LOSS_CELLS},
     } for kind in ("forward", "backward")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

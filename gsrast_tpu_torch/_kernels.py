@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -34,7 +34,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # launches its kernel, and nowhere else.
 launch_counts = {"tile_order": 0, "blend_forward": 0, "blend_backward": 0,
                  "bisect_a": 0, "bisect_b": 0, "bisect_c": 0, "bisect_d": 0,
-                 "preprocess_forward": 0, "preprocess_backward": 0}
+                 "preprocess_forward": 0, "preprocess_backward": 0,
+                 "loss_forward": 0, "loss_backward": 0}
 
 
 # Runs per kernel inside CUDA graph replays since the last reset: a replay
@@ -84,6 +85,29 @@ def capture(fn: Callable, what: str) -> tuple:
         raise RuntimeError(
             f"capturing {what} in a CUDA graph failed: {err}") from err
     return graph, out, {k: launch_counts[k] - before[k] for k in before}
+
+
+class Launch(NamedTuple):
+    """One kernel launch made ready: the C function, its arguments (the
+    inputs' and outputs' pointers and the current stream), and the outputs,
+    which are written by each `fn(*args)`. It holds its inputs, so that
+    their memory lives as long as it."""
+
+    fn: Callable
+    args: tuple
+    out: object
+    held: dict
+    device: torch.device
+
+
+def run(launch: Launch, name: str) -> None:
+    """Launch on its device, count it under `name`, and raise if CUDA
+    refused it."""
+    with torch.cuda.device(launch.device):
+        code = launch.fn(*launch.args)
+    launch_counts[name] += 1
+    if code != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {code}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,5 +198,16 @@ def load() -> Library:
     fn.restype = ctypes.c_int
     fn = lib.gsrast_preprocess_backward_occupancy
     fn.argtypes = [i32, i32, *[vp] * 6]
+    fn.restype = ctypes.c_int
+    fn = lib.gsrast_loss_partials
+    fn.argtypes = [i32, i32]
+    fn.restype = ctypes.c_int
+    fn = lib.gsrast_loss_forward
+    fn.argtypes = [vp, *[i64] * 3, vp, *[i64] * 3, *[i32] * 3, vp, f32, f32,
+                   vp, vp, vp]
+    fn.restype = ctypes.c_int
+    fn = lib.gsrast_loss_backward
+    fn.argtypes = [vp, *[i64] * 3, vp, *[i64] * 3, *[i32] * 3, vp, f32, f32,
+                   vp, vp, *[i64] * 3, vp]
     fn.restype = ctypes.c_int
     return Library(lib=lib, path=path, build_seconds=seconds, build_log=log)

@@ -3,7 +3,8 @@ replay of `bench`'s cells, and one eager and one graphed train step of the
 train cells, profiled by `utils.profiling.trace` (`torch.profiler`).
 
     python -m gsrast_tpu_torch.diag.profile_step [--cells default,small,
-        trained_116k,train_trained_116k,train_default] [--out DIR]
+        trained_116k,train_trained_116k,train_default,train_colmap]
+        [--out DIR]
         [--device cuda|cpu]
 
 For each bench cell (`bench`'s default 1M SH-3 scene at 1920x1080
@@ -22,14 +23,18 @@ it times TIMED unprofiled calls of each (`benchmark.timeit`), traces one
     of `render.pipeline.STAGES` its kernels and busy ms, the backward's
     kernels counted to the stage whose forward made the autograd node that
     launched them (by the trace's sequence numbers), the rest (activation,
-    image assembly, loss, optimizer and glue) as `other`;
+    image assembly, the bench's mean(img^2) and glue) as `other`;
   * `chained`: the same numbers of a replay divided by the chain. A replay
     has no host ops, so it has no stage split.
 A train cell (`train_cell`: trained_116k at 1920x1080 from the perturbed
-start of chip_smoke.py's phase 8, and the 1M SH-3 scene of its phase 10)
+start of chip_smoke.py's phase 8, the 1M SH-3 scene of its phase 10, and
+the COLMAP scene of its phase 12 made in memory)
 is profiled the same way with the train step (`trainer.make_train_step`:
-render, L1 + D-SSIM, backward, Adam, densify statistics) as `eager`, and
-as `graphed` one replay of its `trainer.TrainGraph`, after the graph's
+render, L1 + D-SSIM, backward, Adam, densify statistics) as `eager`, its
+split adding a `loss` stage (the `train.loss` range around `rgb_loss`,
+its backward counted as the render stages' are; `other` is then Adam,
+image assembly and glue), and as `graphed` one replay of its
+`trainer.TrainGraph`, after the graph's
 warm-up and capture and two eager steps; `kernel_diff` holds each kernel
 name whose count differs between the two traces, as [eager, graphed].
 On a CPU run no device events exist and every device number is 0: the
@@ -66,6 +71,11 @@ CELLS = {
 CHAIN = 8  # steps of the chained replay, as phase 15 of chip_smoke.py
 TIMED = 10  # unprofiled calls timed of each part, as `bench --iters`
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# The host ranges a step's kernels are split by, range name -> stage: the
+# forward's stages (`render.pipeline.span`) and, in a train step, the loss
+# (`train.loss`, `trainer.make_train_step`).
+RENDER_RANGES = {f"render.{s}": s for s in STAGES}
+TRAIN_RANGES = {**RENDER_RANGES, "train.loss": "loss"}
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
 
@@ -109,7 +119,7 @@ def kernel_names(events: list, marker: str) -> collections.Counter:
 
 
 def summarize(events: list, marker: str, steps: int = 1,
-              split: bool = True) -> dict:
+              split: bool = True, ranges: dict = RENDER_RANGES) -> dict:
     """The device work traced after the host range `marker` began (see the
     module docstring), per step of `steps`."""
     mark, device = _device_events(events, marker)
@@ -124,12 +134,12 @@ def summarize(events: list, marker: str, steps: int = 1,
            "traced_idle_share": 1.0 - busy / window if window > 0 else 0.0}
     if not split:
         return out
-    # The forward's stage ranges; the autograd nodes made inside each (by
+    # The stage ranges of `ranges`; the autograd nodes made inside each (by
     # sequence number), whose backward ranges launch that stage's kernels.
     # A forward op ("Fwd thread id" 0) that makes no node carries the
     # number the next node will take, so a number's node is made by the
     # last forward op that carries it.
-    stage_of = {f"render.{s}": s for s in STAGES}
+    stage_of = ranges
     stage_ranges = _ranges(events, lambda e: e.get("name") in stage_of)
     seq_stage = {}
     for e in sorted(events, key=lambda e: e.get("ts", 0.0)):
@@ -144,7 +154,7 @@ def summarize(events: list, marker: str, steps: int = 1,
     launches = {e["args"]["correlation"]: e for e in events
                 if e.get("cat") in LAUNCH_CATS
                 and "correlation" in e.get("args", {})}
-    stages = {s: [] for s in (*STAGES, "other")}
+    stages = {s: [] for s in (*stage_of.values(), "other")}
     for k in device:
         launch = launches.get(k.get("args", {}).get("correlation"))
         stage = "other"
@@ -165,9 +175,11 @@ def summarize(events: list, marker: str, steps: int = 1,
     return out
 
 
-def _profile_parts(name: str, parts: tuple, out_dir: str, device) -> dict:
+def _profile_parts(name: str, parts: tuple, out_dir: str, device,
+                   ranges: dict = RENDER_RANGES) -> dict:
     """Time and trace each (label, fn, steps a call, split) of `parts`
-    (see the module docstring); returns {label: numbers}."""
+    (see the module docstring), split by `ranges`; returns {label:
+    numbers}."""
     from .. import benchmark
     from ..utils.profiling import trace
 
@@ -184,7 +196,7 @@ def _profile_parts(name: str, parts: tuple, out_dir: str, device) -> dict:
                 torch.cuda.synchronize(device)
         with open(os.path.join(logdir, "trace.json")) as f:
             events = json.load(f)["traceEvents"]
-        part = summarize(events, f"profile.{label}", per, split)
+        part = summarize(events, f"profile.{label}", per, split, ranges)
         part.update(ms=[best, median], idle_share=[
             1.0 - part["busy_ms"] / t for t in (best, median)])
         res[label] = part
@@ -214,11 +226,14 @@ def profile_cell(name: str, out_dir: str, device) -> dict:
 
 
 # The train step's cells: name -> (n, width, height, scene), n = 0 for the
-# scene's own count.
+# scene's own count; `train_colmap` makes its COLMAP scene from the scene.
 TRAIN_CELLS = {
     "train_trained_116k": CELLS["trained_116k"],
     "train_default": CELLS["default"],
+    "train_colmap": CELLS["trained_116k"],
 }
+COLMAP_VIEWS = 8  # the orbit views of `train_colmap`, as chip_smoke.py's
+#                   phase 12 writes them
 
 
 @dataclasses.dataclass
@@ -250,7 +265,13 @@ def train_cell(name: str, device) -> TrainCell:
         scene with margin 1.5; densify at step 10 (chip_smoke.py phase 8);
       * `train_default`: the bench's 1M SH-3 scene and camera, the target
         0.25 grey, config from the scene, the reference's TrainConfig
-        (chip_smoke.py phase 10)."""
+        (chip_smoke.py phase 10);
+      * `train_colmap`: chip_smoke.py phase 12's COLMAP scene made in
+        memory (no files, so no 8-bit photos): the SfM init of the scene's
+        points with their DC colours, COLMAP_VIEWS orbit views at fov_y 1
+        around its bbox, the scene's renders from them the photos, config
+        from the init at view 0 with margin 1.5, the reference's
+        TrainConfig; the profile steps on view 0."""
     import numpy as np
 
     from .. import benchmark
@@ -260,6 +281,8 @@ def train_cell(name: str, device) -> TrainCell:
     from ..scene.ply import load_ply
 
     n, width, height, scene_path = TRAIN_CELLS[name]
+    if name == "train_colmap":
+        return _colmap_cell(scene_path, width, height, device)
     if scene_path is None:
         scene, camera = benchmark.bench_scene_camera(
             n, width, height, device=device)
@@ -283,6 +306,48 @@ def train_cell(name: str, device) -> TrainCell:
                                 base.capacity + 4096)
         tc = TrainConfig(densify_from=10, densify_until=10, densify_every=10)
     return TrainCell(scene, [camera], [target], rcfg, tc, extent)
+
+
+def colmap_views(base: GaussianScene, width: int, height: int, n: int,
+                 device) -> tuple:
+    """The COLMAP scene's cameras of `base` (chip_smoke.py phase 12):
+    (n orbit cameras at fov_y 1 around its bbox, 1.1 diagonals out,
+    fov_x, fov_y)."""
+    import numpy as np
+
+    from ..scene.dataset import orbit_cameras
+
+    mn, mx = (x.cpu().numpy() for x in base.bbox())
+    fov_y = 1.0
+    fov_x = float(2.0 * np.arctan(np.tan(fov_y / 2) * width / height))
+    views = orbit_cameras((mn + mx) / 2, float(np.linalg.norm(mx - mn)) * 1.1,
+                          width, height, n, fov_x=fov_x, fov_y=fov_y,
+                          device=device)
+    return views, fov_x, fov_y
+
+
+def _colmap_cell(scene_path: str, width: int, height: int,
+                 device) -> TrainCell:
+    """`train_colmap` of `train_cell`."""
+    import numpy as np
+
+    from ..ops.sh import SH_C0
+    from ..render.api import auto_render_config, render
+    from ..scene import colmap
+    from ..scene.ply import load_ply
+
+    base = load_ply(scene_path, device=device)
+    views = colmap_views(base, width, height, COLMAP_VIEWS, device)[0]
+    with torch.no_grad():
+        rcfg_gt = auto_render_config(base, views[0])
+        photos = [render(base, v, rcfg_gt).image for v in views]
+    sh0 = base.sh.detach()[:, 0].cpu().numpy()
+    init = colmap.init_scene_from_points(
+        base.means.detach().cpu().numpy(),
+        np.clip(sh0 * SH_C0 + 0.5, 0.0, 1.0), device=device)
+    return TrainCell(init, views, photos,
+                     auto_render_config(init, views[0], margin=1.5),
+                     TrainConfig(), scene_extent(init))
 
 
 def scene_extent(scene) -> float:
@@ -316,7 +381,7 @@ def profile_train_cell(name: str, out_dir: str, device) -> dict:
            "captured_launches": dict(graph.captured)}
     res.update(_profile_parts(name, (("eager", eager, 1, True),
                                      ("graphed", graphed, 1, False)),
-                              out_dir, device))
+                              out_dir, device, TRAIN_RANGES))
     names = {}
     for label in ("eager", "graphed"):
         with open(os.path.join(out_dir, f"{name}_{label}",

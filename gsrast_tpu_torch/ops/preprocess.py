@@ -203,21 +203,9 @@ def _constants():
             float(inv), cfg.GAUSSIAN_EXTENT_SIGMA ** 2)
 
 
-class Launch(NamedTuple):
-    """One kernel launch made ready: the C function, its arguments (the
-    inputs' and outputs' pointers and the current stream), and the outputs,
-    which are written by each `fn(*args)`. It holds its inputs, so that
-    their memory lives as long as it."""
-
-    fn: Callable
-    args: tuple
-    out: object
-    held: dict
-
-
 def forward_launch(inputs: ActivatedGaussians, camera: DeviceCamera,
                    render_cfg: cfg.RenderConfig,
-                   mean2d_delta: torch.Tensor | None = None) -> Launch:
+                   mean2d_delta: torch.Tensor | None = None) -> _kernels.Launch:
     """The forward kernel's launch on checked inputs; `out` is a
     Preprocessed of empty outputs."""
     t = _check_inputs(inputs, camera, mean2d_delta)
@@ -239,8 +227,8 @@ def forward_launch(inputs: ActivatedGaussians, camera: DeviceCamera,
             grid_h, grid_w, render_cfg.tile_h, render_cfg.tile_w,
             *_constants(), *(x.data_ptr() for x in out[:6]), rect.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    return Launch(_kernels.load().lib.gsrast_preprocess_forward, args, out,
-                  dict(t, rect=rect))
+    return _kernels.Launch(_kernels.load().lib.gsrast_preprocess_forward,
+                           args, out, dict(t, rect=rect), dev)
 
 
 def _cotangent_args(cotangents: Cotangents, n: int, dev) -> list:
@@ -262,7 +250,7 @@ def _cotangent_args(cotangents: Cotangents, n: int, dev) -> list:
 
 def backward_launch(inputs: ActivatedGaussians, camera: DeviceCamera,
                     render_cfg: cfg.RenderConfig,
-                    cotangents: Cotangents) -> Launch:
+                    cotangents: Cotangents) -> _kernels.Launch:
     """The backward kernel's launch on checked inputs and the cotangents
     with their strides (no copy); `out` holds the empty gradients by
     field."""
@@ -278,18 +266,8 @@ def backward_launch(inputs: ActivatedGaussians, camera: DeviceCamera,
             *_cotangent_args(cotangents, n, dev),
             *(grads[f].data_ptr() for f in INPUT_FIELDS),
             torch.cuda.current_stream(dev).cuda_stream)
-    return Launch(_kernels.load().lib.gsrast_preprocess_backward, args, grads,
-                  dict(t, cotangents=cotangents))
-
-
-def _run(launch: Launch, name: str) -> None:
-    """Launch on the inputs' device, count it under `name`, and raise if
-    CUDA refused it."""
-    with torch.cuda.device(launch.held["means"].device):
-        code = launch.fn(*launch.args)
-    _kernels.launch_counts[name] += 1
-    if code != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {code}")
+    return _kernels.Launch(_kernels.load().lib.gsrast_preprocess_backward,
+                           args, grads, dict(t, cotangents=cotangents), dev)
 
 
 def preprocess_forward_cuda(inputs: ActivatedGaussians, camera: DeviceCamera,
@@ -300,7 +278,7 @@ def preprocess_forward_cuda(inputs: ActivatedGaussians, camera: DeviceCamera,
     tensors: `preprocess_torch`'s outputs for every Gaussian, culled ones
     included. Runs on the current stream without synchronising."""
     launch = forward_launch(inputs, camera, render_cfg, mean2d_delta)
-    _run(launch, "preprocess_forward")
+    _kernels.run(launch, "preprocess_forward")
     return launch.out
 
 
@@ -315,7 +293,7 @@ def preprocess_backward_cuda(inputs: ActivatedGaussians, camera: DeviceCamera,
     cotangents with their strides. `mean2d_delta`'s gradient is the mean2d
     cotangent. Runs on the current stream without synchronising."""
     launch = backward_launch(inputs, camera, render_cfg, cotangents)
-    _run(launch, "preprocess_backward")
+    _kernels.run(launch, "preprocess_backward")
     d_delta = None
     if mean2d_delta is not None:
         d_delta = (torch.zeros_like(mean2d_delta) if cotangents.mean2d is None

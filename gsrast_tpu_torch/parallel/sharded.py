@@ -675,7 +675,8 @@ def make_sharded_train_step(render_cfg: cfg.RenderConfig, mesh, height: int,
             image, _, _ = _assemble(*tiles(camera_at(cameras, i)), mesh,
                                     grid_h, grid_w, rpd, interleave,
                                     render_cfg, height, width)
-            losses.append(rgb_loss(image, targets[i], ssim_weight))
+            losses.append(rgb_loss(image, targets[i], ssim_weight,
+                                   backend=backend))
         loss = comm.pmean(torch.stack(losses).mean(), mesh, DATA_AXIS)
         loss.backward()
         grads = {k: p.grad for k, p in params.items()}

@@ -108,11 +108,11 @@ def pack_sorted_features(feat_t: torch.Tensor,
 STAGES = ("prep", "binning", "pack", "blend")
 
 
-def span(stage: str):
-    """The profiler range `render.<stage>` while a profiler runs; else
-    nothing, so that an unprofiled render pays no dispatcher calls."""
+def span(stage: str, layer: str = "render"):
+    """The profiler range `<layer>.<stage>` while a profiler runs; else
+    nothing, so that an unprofiled step pays no dispatcher calls."""
     if torch.autograd.profiler._is_profiler_enabled:
-        return torch.profiler.record_function(f"render.{stage}")
+        return torch.profiler.record_function(f"{layer}.{stage}")
     return contextlib.nullcontext()
 
 

@@ -21,6 +21,7 @@ from .. import _kernels
 from .. import config as cfg
 from ..camera import CAMERA_TENSORS, Camera
 from ..render.api import render
+from ..render.pipeline import span
 from ..scene.gaussians import GaussianScene
 from . import densify as densify_mod
 from .loss import psnr, rgb_loss
@@ -181,7 +182,9 @@ def make_train_step(render_cfg: cfg.RenderConfig, tc: TrainConfig,
         delta = torch.zeros((scene.capacity, 2), device=scene.means.device,
                             requires_grad=True)
         out = render(scene, camera, render_cfg, mean2d_delta=delta)
-        loss = rgb_loss(out.image, target, tc.ssim_weight)
+        with span("loss", "train"):
+            loss = rgb_loss(out.image, target, tc.ssim_weight,
+                            backend=render_cfg.backend)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         apply_gradients(state, tc, scene_extent)
