@@ -62,9 +62,10 @@ and the 1M bench step's `prep` stage profiled), and the loss kernels
 (phase 21: forward and backward against the plain version, both held to
 the plain version run in float64, on trained_116k's render against its
 target at 1080p, the COLMAP view against its photo, a 512x512 pair and
-edge cells of 5x7 and a row-strided 1081x1919, two launches bit for bit, a
-capture replayed on a new input, their times beside their bounds and the
-plain version's; phases 8, 9, 10, 12, 16 and 19 train through them); and
+edge cells of 5x7 and a row-strided 1081x1919, a third of their rows tied
+(d_pred held there too), two launches bit for bit, a capture replayed on a
+new input, their times beside their bounds and the plain version's, each
+kernel's registers, spills, shared bytes and blocks; phases 8, 9, 10, 12, 16 and 19 train through them); and
 checks that each path went through the kernels.
 Each phase prints its lines before the next begins; the line before the last is the per-kernel
 JSON record, and the last is {"ok": true, "device": {...}}. Any failure
@@ -2677,8 +2678,9 @@ def loss_work(height: int, width: int, channels: int) -> dict:
 def compare_loss(pred, target, weight: float) -> dict:
     """The kernels' loss and d_pred (cotangent 1) against the plain
     version's in float32 and both against the plain version in float64,
-    with the tolerances those give (see LOSS_ATOL); and the kernels' second
-    launches bit for bit."""
+    with the tolerances those give (see LOSS_ATOL), d_pred's also at the
+    ties alone (pred equal to target, where both take the reference's
+    abs'(0) = 1); and the kernels' second launches bit for bit."""
     from gsrast_tpu_torch.train import loss as L
 
     ones = torch.ones((), device=pred.device)
@@ -2699,11 +2701,15 @@ def compare_loss(pred, target, weight: float) -> dict:
     def gap(a, b):
         return float((a.double() - b.double()).abs().max())
 
+    ties = pred == target
     res = {"loss": float(got[0]), "plain_loss": float(p32[0]),
            "loss64": float(p64[0]), "loss_err": gap(got[0], p64[0]),
            "plain_loss_err": gap(p32[0], p64[0]),
            "grad_scale": float(p64[1].abs().max()),
            "grad_err": gap(got[1], p64[1]),
+           "ties": int(ties.sum()),
+           "tie_grad_err": gap(got[1][ties], p64[1][ties]) if bool(
+               ties.any()) else 0.0,
            "plain_grad_err": gap(p32[1], p64[1]),
            "max_abs_err": max(gap(got[0], p32[0]), gap(got[1], p32[1])),
            "same_bits_twice": all(torch.equal(a, b)
@@ -2742,6 +2748,27 @@ def loss_capture(pred, target, weight: float) -> dict:
             "moved": float((out[0] - first[0]).abs())}
 
 
+def loss_occupancy(kind: str, height: int, width: int, channels: int
+                   ) -> dict:
+    """A loss kernel's launch ("forward" or "backward") on an (H, W, C)
+    image, as the library reports it (`gsrast_loss_occupancy`): threads and
+    dynamic shared bytes a block, the blocks one SM holds at once, the
+    grid's blocks and a segment's rows; the kernel's registers and local
+    (spilled) bytes a thread and static shared bytes a block."""
+    import ctypes
+
+    from gsrast_tpu_torch import _kernels
+
+    keys = ("threads", "dynamic_shared", "blocks_per_sm", "blocks",
+            "segment_rows", "registers", "local_bytes", "static_shared")
+    out = [ctypes.c_int(0) for _ in keys]
+    code = _kernels.load().lib.gsrast_loss_occupancy(
+        int(kind == "backward"), height, width, channels,
+        *(ctypes.byref(x) for x in out))
+    assert code == 0, f"CUDA error {code}"
+    return dict(zip(keys, (x.value for x in out)))
+
+
 def loss_cell(label: str, pred, target, weight: float = LOSS_WEIGHT
               ) -> dict:
     """Phase 21 on one (pred, target) pair: `compare_loss`; the raw
@@ -2766,7 +2793,8 @@ def loss_cell(label: str, pred, target, weight: float = LOSS_WEIGHT
                               for _ in range(RAW_REPS)]) / RAW_REPS
         res[kind] = dict(work[kind], ms=ms,
                          share=work[kind]["bound_ms"] / ms,
-                         plain_ms=cuda_ms(plains[kind], iters=5, warmup=1))
+                         plain_ms=cuda_ms(plains[kind], iters=5, warmup=1),
+                         launch=loss_occupancy(kind, h, w, c))
     print(f"phase 21 loss kernels, {label} ({h}x{w}x{c}, row stride "
           f"{pred.stride(0)}): forward {res['forward']['ms']:.4f} ms (plain "
           f"{res['forward']['plain_ms']:.3f}, {res['forward']['share']:.3f} "
@@ -2775,18 +2803,26 @@ def loss_cell(label: str, pred, target, weight: float = LOSS_WEIGHT
           f"{res['backward']['share']:.3f} of its bound); loss "
           f"{res['loss']:.7f}, error {res['loss_err']:.3g} (tolerance "
           f"{res['loss_tol']:.3g}), d_pred error {res['grad_err']:.3g} "
-          f"(tolerance {res['grad_tol']:.3g}); {json.dumps(res)}",
-          flush=True)
+          f"(tolerance {res['grad_tol']:.3g}; at {res['ties']} ties "
+          f"{res['tie_grad_err']:.3g}); " + "; ".join(
+              f"{kind} {r['registers']} registers, {r['local_bytes']} "
+              f"spilled bytes, {r['dynamic_shared']} dynamic shared bytes, "
+              f"{r['blocks']} blocks of {r['segment_rows']} rows"
+              for kind, r in ((k, res[k]["launch"]) for k in launches))
+          + f"; {json.dumps(res)}", flush=True)
     assert res["finite"] and res["same_bits_twice"], res
     assert res["loss_err"] <= res["loss_tol"], res
     assert res["grad_err"] <= res["grad_tol"], res
+    assert res["tie_grad_err"] <= res["grad_tol"], res
     return res
 
 
-def loss_cells(dev, colmap_dir: str) -> list:
+def loss_cells(dev, colmap_dir=None) -> list:
     """Phase 21's cells, (key, label, pred, target) each: the render of
     phase 8's perturbed trained_116k start against its target at 1080p;
-    the SfM init of phase 12's COLMAP scene at view 0 against its photo;
+    the SfM init of phase 12's COLMAP scene at view 0 against its photo,
+    read from `colmap_dir` (or, without one, `profile_step`'s
+    `train_colmap` cell, made in memory: the photo the scene's render);
     the same two scenes framed at 512x512 (phase 15's dataset size); and
     edge cells of seeded images, 5x7 (smaller than the window) and
     1081x1919 (ragged against both kernels' tiles), pred a view into rows
@@ -2802,17 +2838,21 @@ def loss_cells(dev, colmap_dir: str) -> list:
     cell = train_cell("train_trained_116k", dev)
     base = load_ply(FIXTURE_116K, device=dev)
     cam = auto_frame(*base.bbox(), 512, 512, device=dev)
-    ds, xyz, rgb = colmap.load_colmap(colmap_dir, device=dev)
-    init = colmap.init_scene_from_points(xyz, rgb, device=dev)
+    if colmap_dir is None:
+        sfm = train_cell("train_colmap", dev)
+        init, view, photo = sfm.scene, sfm.views[0], sfm.targets[0]
+    else:
+        ds, xyz, rgb = colmap.load_colmap(colmap_dir, device=dev)
+        init = colmap.init_scene_from_points(xyz, rgb, device=dev)
+        view, photo = ds.cameras[0], ds.images[0]
     with torch.no_grad():
         cells.append(("trained_116k", f"trained_116k {WIDTH}x{HEIGHT}, the "
                       "perturbed start against its target",
                       render(cell.scene, cell.views[0], cell.rcfg).image,
                       cell.targets[0]))
         cells.append(("colmap", "COLMAP SfM init, view 0, against its photo",
-                      render(init, ds.cameras[0], auto_render_config(
-                          init, ds.cameras[0], margin=1.5)).image,
-                      ds.images[0]))
+                      render(init, view, auto_render_config(
+                          init, view, margin=1.5)).image, photo))
         cells.append(("512", "512x512: the perturbed trained_116k against "
                       "trained_116k",
                       render(cell.scene, cam, auto_render_config(
@@ -2837,6 +2877,8 @@ def phase_loss(dev, colmap_dir: str) -> dict:
     out = {}
     for key, label, pred, target in loss_cells(dev, colmap_dir):
         out[key] = loss_cell(label, pred, target)
+        if key.startswith("edge"):  # a third of the rows tied
+            assert out[key]["ties"] > 0, out[key]
         if key == "512":
             cap = out["capture"] = loss_capture(pred, target, LOSS_WEIGHT)
             print(f"phase 21 loss kernels captured in a CUDA graph and "

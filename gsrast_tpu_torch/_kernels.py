@@ -200,7 +200,10 @@ def load() -> Library:
     fn.argtypes = [i32, i32, *[vp] * 6]
     fn.restype = ctypes.c_int
     fn = lib.gsrast_loss_partials
-    fn.argtypes = [i32, i32]
+    fn.argtypes = [i32, i32, i32]
+    fn.restype = ctypes.c_int
+    fn = lib.gsrast_loss_occupancy
+    fn.argtypes = [*[i32] * 4, *[vp] * 8]
     fn.restype = ctypes.c_int
     fn = lib.gsrast_loss_forward
     fn.argtypes = [vp, *[i64] * 3, vp, *[i64] * 3, *[i32] * 3, vp, f32, f32,

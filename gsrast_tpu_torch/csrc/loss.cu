@@ -16,69 +16,115 @@
 // and with N = H W C and g the incoming gradient,
 //   d_x = g ((1 - w)/N sign(x - y) - w/N [G*dS/dmu0 + 2 x G*dS/de00 + y G*dS/de01]),
 //   dS/dmu0 = 2 mu1 (A2 - A1)/(B1 B2) + 2 mu0 S (1/B2 - 1/B1), dS/de00 = -S/B2,
-//   dS/de01 = 2 A1/(B1 B2).
+//   dS/de01 = 2 A1/(B1 B2),
+// and sign(0) = 1: the reference's jax.grad of |x - y| takes 1 where x equals y.
 //
-// What bounds it on this card: operations, narrowly. At 1920x1080x3 the forward reads
-// x and y once (49.8 MB, 0.015 ms at 3.35 TB/s) and does about 245 float operations a
-// value (two 11-tap passes of five quantities, the products, S and |x - y|), 1.5 GFLOP,
-// 0.023 ms at 67 TFLOP/s; the backward reads x and y and writes d_x (74.6 MB, 0.022 ms)
-// and does about 395 a value (the forward's recomputed, three more filtered maps),
-// 2.5 GFLOP, 0.037 ms.
+// What bounds it on this card: operations. At 1920x1080x3 the forward reads x and y once
+// (49.8 MB, 0.015 ms at 3.35 TB/s) and does about 246 float operations a value (two
+// 11-tap passes of five quantities, the products, S and |x - y|), 1.5 GFLOP, 0.023 ms
+// at 67 TFLOP/s; the backward reads x and y and writes d_x (74.6 MB, 0.022 ms) and does
+// about 402 a value (the forward's recomputed, three more filtered maps), 2.5 GFLOP,
+// 0.037 ms. The FMAs are the work; every other instruction (a shared-memory access, an
+// address, a copy) takes an issue slot from them.
 //
-// The design:
-// - The filter is separable: a horizontal 11-tap pass over a tile and its halo in shared
-//   memory, then a vertical one, for the five quantities at once. The taps are the
-//   float32 values of the reference window's float64 g
-//   (train/loss.py::_gaussian_taps, read from device memory once a block); the
-//   reference's 2-D window is float32(g_i g_j), and the two passes weigh a pixel by g_i
-//   and g_j in turn, which differs from it by at most 1.2 ulps a tap (1.18 at the
-//   largest).
-// - One block a tile, 256 threads, over all C channels in turn: a channel's plane of x
-//   and y is read into shared memory, zero outside the image (SAME zero padding at
-//   every edge), from any strides: the (H, W, C) rows of a crop, or the channel planes
-//   the render assembles (render/tiled.py::untile_cf), which it reads coalesced.
-//   Consecutive threads take consecutive columns in every pass, so shared-memory reads
-//   are conflict-free.
-// - The forward: tiles of 32x32 with a 5-pixel halo. Each block writes one partial sum
-//   of S and of |x - y|; a second launch of one block sums the partials in a fixed order
-//   (float64) and writes (1 - w) l1 + w (1 - ssim), in the reference's order and float32
-//   rounding, to a 0-d tensor. No float atomics anywhere: two launches give the same
-//   bits, and a CUDA graph's replay gives an eager step's.
-// - The backward recomputes: tiles of 16x32 with a 10-pixel halo of x and y, the five
-//   filtered maps and then dS/dmu0, dS/de00 and dS/de01 on the tile and a 5-pixel halo
-//   (zero outside the image, where the adjoint's padding is), those three filtered the
-//   same way, and d_x written once. Nothing is kept between forward and backward.
+// The design, to spend the issue slots on FMAs:
+// - A block owns a strip of columns of one channel and walks down a segment of its
+//   rows, kRows (11) at a time. Each step stages the next 11 rows of x and y (the strip
+//   and its halo) into dynamic shared memory by 4-byte cp.async, double-buffered, from
+//   any strides: the (H, W, C) rows of a crop, or the channel planes the render
+//   assembles (render/tiled.py::untile_cf). A warp copies consecutive pixels of a row;
+//   outside the image (SAME padding at every edge) the copy's source size is 0 bytes,
+//   which fills a zero, from an address clamped into the image: one instruction a value
+//   and no branch (a copy or a store behind a branch cost ~35 instructions a value, the
+//   zero-fill size through cuda_pipeline.h's switch ~45).
+// - The horizontal 11-tap pass: a thread takes 8 consecutive outputs of a row, reads
+//   its 18 inputs of x and y with 16-byte loads, forms x x, y y and x y once an input
+//   (__fmul_rn, as the plain version rounds them) and filters the five quantities into
+//   shared planes.
+// - The vertical pass: one thread a column. Each thread keeps the last 11 rows of its
+//   column's five horizontal sums in a ring of registers, indexed by the row modulo 11
+//   (the 11-row step is unrolled, so every index is a constant), and filters them once
+//   a row: each value is read from shared memory once. The rows above a segment are
+//   paid once a segment, not once a tile.
+// - The forward's strip is 128 columns (one thread each, the horizontal pass reading
+//   138). Each block sums S (vertical pass) and |x - y| (horizontal pass, at the
+//   centres) in float64, from float sums of at most 11 (a step's rows of S, a span's
+//   8 of |x - y|: a float64 conversion and add a value took issue slots the FMAs
+//   need), and writes one pair; a second launch of one block sums the
+//   pairs in a fixed order and writes (1 - w) l1 + w (1 - ssim), in the reference's
+//   order and float32 rounding, to a 0-d tensor. No float atomics: two launches give
+//   the same bits, and a CUDA graph's replay gives an eager step's.
+// - The backward recomputes. Its strip is 118 output columns: the moments and the three
+//   dS maps on 128 columns (the strip and a 5-pixel ring), from 138 staged ones; each
+//   11-row step filters the step's dS rows horizontally (three quantities, 8 outputs a
+//   thread) and vertically (a second register ring of three), and writes d_x once, in
+//   pred's layout. The dS terms take two approximate reciprocals (__fdividef, within 2
+//   ulps: B1 >= c1 and B2 near c2 or more keep them in its range) where the plain
+//   version divides four times. The outputs' own x and y are read from device memory
+//   (their staged rows are overwritten by then), all 11 rows' loads issued before the
+//   dS maps' horizontal pass hides their latency. Nothing is kept between forward and
+//   backward: saving the dS maps
+//   would move 149 MB more a 1080p step, more than the recompute's operations bound.
+// - The segment height is the host's choice per shape (plan()): of the heights that
+//   make whole 11-row steps, the one whose blocks fill the card's resident slots in
+//   the fewest steps (waves x steps a block), so a 512x512 image still fills the card.
 // - Graph-safe: no allocation and no host synchronisation; w, the shape and C are host
-//   values, fixed per capture; the taps and the incoming gradient are read from device
-//   memory.
+//   values, fixed per capture; the taps (read once a thread into registers) and the
+//   incoming gradient are read from device memory.
 //
 // Rounding: S is formed in the reference's forms and order (sigma as E[x x] - mu mu,
 // then the two factors of each of the numerator and the denominator), each operation
 // rounded as the plain version rounds it (the _rn intrinsics, never contracted into
-// fused multiply-adds; the division is IEEE). The filter's sums are taken in another
-// order than cuDNN's, and the backward's arithmetic may contract: both kernels are held
-// to the plain version within a tolerance anchored on a float64 run of it.
+// fused multiply-adds; the division is IEEE). The filter's taps are the float32 values
+// of the reference window's float64 g (train/loss.py::_gaussian_taps); the reference's
+// 2-D window is float32(g_i g_j), which the two passes' g_i then g_j differ from by at
+// most 1.2 ulps a tap. The filter's sums are taken in tap order, in another order than
+// cuDNN's, and the backward's arithmetic may contract: both kernels are held to the
+// plain version within a tolerance anchored on a float64 run of it.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kRadius = 5;
 constexpr int kTaps = 2 * kRadius + 1;
-constexpr int kThreads = 256;
+// Rows a step: the period of the vertical passes' register rings.
+constexpr int kRows = kTaps;
+// A block: one thread a column of moments, a strip of kCols of them.
+constexpr int kThreads = 128;
+constexpr int kCols = kThreads;
+constexpr int kIn = kCols + 2 * kRadius;       // staged columns a row
+constexpr int kInStride = 140;                 // ... padded to whole 16 bytes
+constexpr int kSpan = 8;                       // horizontal outputs a thread item
+constexpr int kSpanIn = kSpan + 2 * kRadius;   // ... and the inputs they read
+constexpr int kFwdCols = kCols;                // output columns a strip
+constexpr int kBwdCols = kCols - 2 * kRadius;
+constexpr int kBwdSpans = (kBwdCols + kSpan - 1) / kSpan;
+constexpr int kDsStride = 132;  // a dS row: kCols, padded for the last span's reads
+constexpr int kHdStride = kBwdSpans * kSpan;  // a row of the dS maps' horizontal pass
+// Rows a segment's input adds to its outputs: the forward's moments need 5 above and
+// below; the backward's dS maps 5 more.
+constexpr int kFwdHalo = 2 * kRadius, kBwdHalo = 4 * kRadius;
+constexpr int kMaxSteps = 32;  // the longest segment plan() considers, in steps
 constexpr int kSumThreads = 1024;
 
 constexpr float kC1 = 0.0001f;  // 0.01 ** 2, as PyTorch rounds the Python scalar
 constexpr float kC2 = 0.0009f;  // 0.03 ** 2
 
-// The forward's tile, and its input with the halo.
-constexpr int kFwdH = 32, kFwdW = 32;
-constexpr int kFwdInH = kFwdH + 2 * kRadius, kFwdInW = kFwdW + 2 * kRadius;
-// The backward's tile; its input with a halo of two radii; the region of the dS maps
-// (the tile and one radius).
-constexpr int kBwdH = 16, kBwdW = 32;
-constexpr int kBwdInH = kBwdH + 4 * kRadius, kBwdInW = kBwdW + 4 * kRadius;
-constexpr int kMidH = kBwdH + 2 * kRadius, kMidW = kBwdW + 2 * kRadius;
+// Dynamic shared memory, in floats: two slots of staged rows (x's, then y's); the five
+// horizontal planes (reused by the backward for its dS maps' horizontal pass, and by
+// the forward for its float64 block sum); the backward's three dS planes.
+constexpr int kStageFloats = 2 * kRows * kInStride;
+constexpr int kPlaneFloats = 5 * kRows * kCols;
+constexpr int kDsFloats = 3 * kRows * kDsStride;
+constexpr size_t kFwdShared = sizeof(float) * (2 * kStageFloats + kPlaneFloats);
+constexpr size_t kBwdShared = kFwdShared + sizeof(float) * kDsFloats;
+static_assert(kInStride % 4 == 0 && kInStride >= kIn, "staged rows");
+static_assert(kDsStride % 4 == 0 && kDsStride >= kHdStride + 2 * kRadius, "dS rows");
+static_assert(kHdStride % 4 == 0 && 3 * kRows * kHdStride <= kPlaneFloats, "dS sums");
+static_assert(2 * kThreads * sizeof(double) <= sizeof(float) * kPlaneFloats, "sums");
+static_assert(kCols % kSpan == 0 && kSpanIn % 2 == 0, "spans");
 
 // One (H, W, C) float32 image, with its strides in elements: the (H, W, C) rows of an
 // image a view crops, or the channel planes the render assembles.
@@ -93,88 +139,122 @@ struct Shape {
   int height, width, channels;
 };
 
-__device__ __forceinline__ bool inside(const Shape s, int row, int col) {
-  return row >= 0 && row < s.height && col >= 0 && col < s.width;
-}
-
 template <typename T>
 __device__ __forceinline__ T& at(const Strided<T> im, int row, int col, int ch) {
   return im.data[row * im.row + col * im.pixel + ch * im.channel];
 }
 
-// Channel `ch` of x and y over rows [row0, row0 + rows) and columns [col0, col0 + cols)
-// into the planes sx and sy (rows x cols, row-major), zero outside the image.
-__device__ void load_planes(const Image x, const Image y, const Shape s, int ch, int row0,
-                            int col0, int rows, int cols, float* sx, float* sy) {
-  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
-    const int row = row0 + i / cols, col = col0 + i % cols;
-    const bool in = inside(s, row, col);
-    sx[i] = in ? at(x, row, col, ch) : 0.0f;
-    sy[i] = in ? at(y, row, col, ch) : 0.0f;
-  }
+// One float of device memory at src into shared memory at dst by cp.async, or a zero
+// where `in` is false (a source size of 0 bytes): one instruction, no branch. src must
+// be a valid address either way.
+__device__ __forceinline__ void copy_or_zero(float* dst, const float* src, bool in) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+#else
+  *dst = in ? *src : 0.0f;
+#endif
 }
 
-// The horizontal pass of x, y, x x, y y and x y over the planes sx and sy (rows x
-// cols): five planes of rows x (cols - 2 kRadius) into h, in that order.
-__device__ void moments_rows(const float* sx, const float* sy, int rows, int cols,
-                             const float* g, float* h) {
-  const int out_cols = cols - 2 * kRadius, plane = rows * out_cols;
-  for (int i = threadIdx.x; i < plane; i += blockDim.x) {
-    const int r = i / out_cols, c = i % out_cols;
-    const float* px = sx + r * cols + c;
-    const float* py = sy + r * cols + c;
-    float m0 = 0.0f, m1 = 0.0f, m00 = 0.0f, m11 = 0.0f, m01 = 0.0f;
+// Rows [row0, row0 + kRows) and columns [col0, col0 + kIn) of channel ch of x and y
+// into dst by cp.async (not waited for): x's rows, then y's, kInStride floats apart;
+// zero outside the image, whose addresses are clamped into it. Thread t copies columns
+// t, t + kThreads, ...: a warp reads consecutive pixels of a row.
+__device__ void stage_rows(const Image x, const Image y, const Shape s, int ch, int row0,
+                           int col0, float* dst) {
+  for (int c = threadIdx.x; c < kIn; c += blockDim.x) {
+    const int col = col0 + c;
+    const bool col_in = col >= 0 && col < s.width;
+    const int cc = min(max(col, 0), s.width - 1);
+    const float* px = x.data + cc * x.pixel + ch * x.channel;
+    const float* py = y.data + cc * y.pixel + ch * y.channel;
 #pragma unroll
-    for (int t = 0; t < kTaps; ++t) {
-      const float a = px[t], b = py[t], w = g[t];
-      m0 += w * a;
-      m1 += w * b;
-      m00 += w * __fmul_rn(a, a);  // the product rounded, as the plain version's
-      m11 += w * __fmul_rn(b, b);
-      m01 += w * __fmul_rn(a, b);
+    for (int r = 0; r < kRows; ++r) {
+      const int row = row0 + r, rr = min(max(row, 0), s.height - 1);
+      const bool in = col_in && row == rr;
+      copy_or_zero(dst + r * kInStride + c, px + rr * x.row, in);
+      copy_or_zero(dst + (kRows + r) * kInStride + c, py + rr * y.row, in);
     }
-    h[i] = m0;
-    h[plane + i] = m1;
-    h[2 * plane + i] = m00;
-    h[3 * plane + i] = m11;
-    h[4 * plane + i] = m01;
   }
 }
 
-// The horizontal pass of K planes of rows x cols: K planes of rows x (cols - 2 kRadius)
-// into dst.
-template <int K>
-__device__ void filter_rows(const float* src, int rows, int cols, const float* g,
-                           float* dst) {
-  const int out_cols = cols - 2 * kRadius, plane = rows * out_cols;
-  for (int i = threadIdx.x; i < plane; i += blockDim.x) {
-    const int r = i / out_cols, c = i % out_cols;
-    float acc[K];
+// N floats of shared memory from p (16-byte aligned) into v, 16 bytes a load.
+template <int N>
+__device__ __forceinline__ void load_span(const float* p, float (&v)[N]) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) acc[k] = 0.0f;
+  for (int i = 0; i + 4 <= N; i += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p + i);
+    v[i] = q.x;
+    v[i + 1] = q.y;
+    v[i + 2] = q.z;
+    v[i + 3] = q.w;
+  }
+  if constexpr (N % 4 == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p + N - 2);
+    v[N - 2] = q.x;
+    v[N - 1] = q.y;
+  }
+}
+
+// kSpan floats from v into shared memory at p (16-byte aligned).
+__device__ __forceinline__ void store_span(float* p, const float (&v)[kSpan]) {
 #pragma unroll
-    for (int t = 0; t < kTaps; ++t) {
-      const float w = g[t];
+  for (int i = 0; i < kSpan; i += 4) {
+    *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  }
+}
+
+// The horizontal pass of one span: out[o] = sum_t g[t] v(o + t), each sum's terms in
+// tap order, into shared memory at p; v(t) is formed once an input.
+template <typename Value>
+__device__ __forceinline__ void filter_span(const float (&g)[kTaps], float* p, Value v) {
+  float out[kSpan];
 #pragma unroll
-      for (int k = 0; k < K; ++k) acc[k] += w * src[k * rows * cols + r * cols + c + t];
+  for (int o = 0; o < kSpan; ++o) out[o] = 0.0f;
+#pragma unroll
+  for (int t = 0; t < kSpanIn; ++t) {
+    const float x = v(t);
+#pragma unroll
+    for (int o = 0; o < kSpan; ++o) {
+      if (t - o >= 0 && t - o < kTaps) out[o] += g[t - o] * x;
     }
-#pragma unroll
-    for (int k = 0; k < K; ++k) dst[k * plane + i] = acc[k];
+  }
+  store_span(p, out);
+}
+
+// The horizontal pass of x, y, x x, y y and x y over one slot of staged rows: five
+// planes of kRows x kCols into h, in that order; the products rounded as the plain
+// version rounds them. centre(r, j, a, b) sees each span's inputs (row r, outputs from
+// column j kSpan; the output o's own pixel at o + kRadius).
+template <typename Centre>
+__device__ void moments_rows(const float* staged, const float (&g)[kTaps], float* h,
+                             Centre centre) {
+  constexpr int kSpans = kCols / kSpan, kPlane = kRows * kCols;
+  for (int item = threadIdx.x; item < kRows * kSpans; item += blockDim.x) {
+    const int r = item / kSpans, j = item % kSpans;
+    float a[kSpanIn], b[kSpanIn];
+    load_span(staged + r * kInStride + j * kSpan, a);
+    load_span(staged + (kRows + r) * kInStride + j * kSpan, b);
+    float* out = h + r * kCols + j * kSpan;
+    filter_span(g, out, [&](int t) { return a[t]; });
+    filter_span(g, out + kPlane, [&](int t) { return b[t]; });
+    filter_span(g, out + 2 * kPlane, [&](int t) { return __fmul_rn(a[t], a[t]); });
+    filter_span(g, out + 3 * kPlane, [&](int t) { return __fmul_rn(b[t], b[t]); });
+    filter_span(g, out + 4 * kPlane, [&](int t) { return __fmul_rn(a[t], b[t]); });
+    centre(r, j, a, b);
   }
 }
 
-// The vertical pass at row r, column c of K planes of rows x cols.
-template <int K>
-__device__ __forceinline__ void filter_column(const float* src, int rows, int cols, int r,
-                                              int c, const float* g, float* out) {
+// The vertical pass's sum at the ring's newest row i (mod kRows): the taps over the
+// last kRows rows, oldest first (each sum's terms in tap order).
+__device__ __forceinline__ float filter_ring(const float (&ring)[kRows], int i,
+                                             const float (&g)[kTaps]) {
+  float acc = 0.0f;
 #pragma unroll
-  for (int k = 0; k < K; ++k) out[k] = 0.0f;
-#pragma unroll
-  for (int t = 0; t < kTaps; ++t) {
-    const float w = g[t];
-#pragma unroll
-    for (int k = 0; k < K; ++k) out[k] += w * src[k * rows * cols + (r + t) * cols + c];
-  }
+  for (int t = 0; t < kTaps; ++t) acc += g[t] * ring[(i + 1 + t) % kRows];
+  return acc;
 }
 
 // S and its factors from the five filtered values (mu0, mu1, e00, e11, e01), in the
@@ -210,37 +290,97 @@ __device__ void block_sum(double* a, double* b, int n) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    loss_forward_kernel(const Image x, const Image y, const Shape s,
-                        const float* __restrict__ taps, double2* __restrict__ partials) {
-  __shared__ float g[kTaps];
-  __shared__ float sx[kFwdInH * kFwdInW], sy[kFwdInH * kFwdInW];
-  __shared__ float h[5 * kFwdInH * kFwdW];
-  __shared__ double red_s[kThreads], red_l1[kThreads];
-  for (int t = threadIdx.x; t < kTaps; t += blockDim.x) g[t] = taps[t];
-  const int row0 = blockIdx.y * kFwdH, col0 = blockIdx.x * kFwdW;
-  double sum_s = 0.0, sum_l1 = 0.0;  // float64 from the first value on
-  for (int ch = 0; ch < s.channels; ++ch) {
-    __syncthreads();  // g written; the last channel's planes read
-    load_planes(x, y, s, ch, row0 - kRadius, col0 - kRadius, kFwdInH, kFwdInW, sx, sy);
-    __syncthreads();
-    moments_rows(sx, sy, kFwdInH, kFwdInW, g, h);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kFwdH * kFwdW; i += blockDim.x) {
-      const int r = i / kFwdW, c = i % kFwdW;
-      if (!inside(s, row0 + r, col0 + c)) continue;
-      float m[5];
-      filter_column<5>(h, kFwdInH, kFwdW, r, c, g, m);
-      sum_s += ssim_terms(m).s;
-      const int j = (r + kRadius) * kFwdInW + c + kRadius;
-      sum_l1 += fabsf(__fsub_rn(sx[j], sy[j]));
-    }
+// The rows of a block's segment, [r0, r_end), and its 11-row steps: a segment's input
+// is its rows and `halo` more, half above and half below.
+struct Segment {
+  int r0, r_end, steps;
+};
+
+__device__ __forceinline__ Segment segment(const Shape s, int rows, int halo) {
+  Segment seg;
+  seg.r0 = blockIdx.y * rows;
+  seg.r_end = min(seg.r0 + rows, s.height);
+  seg.steps = (seg.r_end - seg.r0 + halo + kRows - 1) / kRows;
+  return seg;
+}
+
+// Stages step n + 1 of a segment whose input starts at row0 (if there is one) and
+// waits for step n's rows: every step's copies are one cp.async group.
+__device__ __forceinline__ void next_step(const Image x, const Image y, const Shape s,
+                                          int ch, int row0, int col0, int n, int steps,
+                                          float* stage) {
+  if (n + 1 < steps) {
+    stage_rows(x, y, s, ch, row0 + (n + 1) * kRows, col0,
+               stage + ((n + 1) & 1) * kStageFloats);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);
+  } else {
+    __pipeline_wait_prior(0);
   }
-  red_s[threadIdx.x] = sum_s;
-  red_l1[threadIdx.x] = sum_l1;
-  block_sum(red_s, red_l1, blockDim.x);
-  if (threadIdx.x == 0)
-    partials[blockIdx.y * gridDim.x + blockIdx.x] = make_double2(red_s[0], red_l1[0]);
+  __syncthreads();
+}
+
+extern __shared__ float4 loss_shared[];
+
+// Block (strip, segment, channel): the segment's input rows start kRadius above it,
+// column c of the moments is the image's column c0 + c.
+__global__ void __launch_bounds__(kThreads, 4)
+    loss_forward_kernel(const Image x, const Image y, const Shape s, int rows,
+                        const float* __restrict__ taps, double2* __restrict__ partials) {
+  float* stage = reinterpret_cast<float*>(loss_shared);
+  float* h = stage + 2 * kStageFloats;
+  float g[kTaps];
+#pragma unroll
+  for (int t = 0; t < kTaps; ++t) g[t] = taps[t];
+  const int ch = blockIdx.z, c0 = blockIdx.x * kFwdCols;
+  const Segment seg = segment(s, rows, kFwdHalo);
+  const int row0 = seg.r0 - kRadius;  // the staged rows' first
+  const bool col_in = c0 + static_cast<int>(threadIdx.x) < s.width;
+  double sum_s = 0.0, sum_l1 = 0.0;  // float64 over float sums of at most 11
+  float ring[5][kRows];
+  stage_rows(x, y, s, ch, row0, c0 - kRadius, stage);
+  __pipeline_commit();
+  for (int n = 0; n < seg.steps; ++n) {
+    next_step(x, y, s, ch, row0, c0 - kRadius, n, seg.steps, stage);
+    moments_rows(stage + (n & 1) * kStageFloats, g, h,
+                 [&](int r, int j, const float (&a)[kSpanIn], const float (&b)[kSpanIn]) {
+                   const int row = row0 + n * kRows + r;
+                   if (row < seg.r0 || row >= seg.r_end) return;
+                   float l1 = 0.0f;
+#pragma unroll
+                   for (int o = 0; o < kSpan; ++o) {
+                     if (c0 + j * kSpan + o < s.width) {
+                       l1 += fabsf(__fsub_rn(a[o + kRadius], b[o + kRadius]));
+                     }
+                   }
+                   sum_l1 += l1;
+                 });
+    __syncthreads();
+    float step_s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+      for (int q = 0; q < 5; ++q) ring[q][i] = h[(q * kRows + i) * kCols + threadIdx.x];
+      // Once the ring holds 11 rows, its centre is the output row row0 + k - kRadius.
+      const int k = n * kRows + i;
+      if (k >= 2 * kRadius && seg.r0 + k - 2 * kRadius < seg.r_end && col_in) {
+        float m[5];
+#pragma unroll
+        for (int q = 0; q < 5; ++q) m[q] = filter_ring(ring[q], i, g);
+        step_s += ssim_terms(m).s;
+      }
+    }
+    sum_s += step_s;
+  }
+  __syncthreads();  // the planes' last reads done: they take the block's sums
+  double* red = reinterpret_cast<double*>(h);
+  red[threadIdx.x] = sum_s;
+  red[kThreads + threadIdx.x] = sum_l1;
+  block_sum(red, red + kThreads, kThreads);
+  if (threadIdx.x == 0) {
+    partials[(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] =
+        make_double2(red[0], red[kThreads]);
+  }
 }
 
 __global__ void __launch_bounds__(kSumThreads)
@@ -263,84 +403,175 @@ __global__ void __launch_bounds__(kSumThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    loss_backward_kernel(const Image x, const Image y, const Shape s,
-                         const float* __restrict__ taps, float l1_coef, float ssim_coef,
-                         const float* __restrict__ grad, const Strided<float> d_x) {
-  __shared__ float g[kTaps];
-  // The planes of x and y; then the three dS maps on the tile and one radius.
-  __shared__ float planes[2 * kBwdInH * kBwdInW];
-  // The five maps' horizontal pass; then the dS maps'.
-  __shared__ float h[5 * kBwdInH * kMidW];
-  static_assert(3 * kMidH * kMidW <= 2 * kBwdInH * kBwdInW, "dS maps overflow");
-  float* sx = planes;
-  float* sy = planes + kBwdInH * kBwdInW;
-  float* ds = planes;
-  for (int t = threadIdx.x; t < kTaps; t += blockDim.x) g[t] = taps[t];
-  const float scale = *grad;
-  const int row0 = blockIdx.y * kBwdH, col0 = blockIdx.x * kBwdW;
-  constexpr int kMid = kMidH * kMidW;
-  for (int ch = 0; ch < s.channels; ++ch) {
-    __syncthreads();  // g written; the last channel's maps read
-    load_planes(x, y, s, ch, row0 - 2 * kRadius, col0 - 2 * kRadius, kBwdInH, kBwdInW,
-                sx, sy);
-    __syncthreads();
-    moments_rows(sx, sy, kBwdInH, kBwdInW, g, h);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kMid; i += blockDim.x) {
-      const int r = i / kMidW, c = i % kMidW;
-      float d_mu0 = 0.0f, d_e00 = 0.0f, d_e01 = 0.0f;
-      if (inside(s, row0 - kRadius + r, col0 - kRadius + c)) {
-        float m[5];
-        filter_column<5>(h, kBwdInH, kMidW, r, c, g, m);
-        const Ssim t = ssim_terms(m);
-        const float inv = 1.0f / (t.b1 * t.b2);
-        d_mu0 = 2.0f * m[1] * (t.a2 - t.a1) * inv +
-                2.0f * m[0] * t.s * (1.0f / t.b2 - 1.0f / t.b1);
-        d_e00 = -t.s / t.b2;
-        d_e01 = 2.0f * t.a1 * inv;
-      }
-      ds[i] = d_mu0;
-      ds[kMid + i] = d_e00;
-      ds[2 * kMid + i] = d_e01;
-    }
-    __syncthreads();
-    filter_rows<3>(ds, kMidH, kMidW, g, h);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kBwdH * kBwdW; i += blockDim.x) {
-      const int r = i / kBwdW, c = i % kBwdW, row = row0 + r, col = col0 + c;
-      if (!inside(s, row, col)) continue;
-      float v[3];
-      filter_column<3>(h, kMidH, kBwdW, r, c, g, v);
-      const float a = at(x, row, col, ch);
-      const float b = at(y, row, col, ch);
-      const float diff = a - b;
-      const float sign = static_cast<float>((diff > 0.0f) - (diff < 0.0f));
-      at(d_x, row, col, ch) =
-          scale * (l1_coef * sign - ssim_coef * (v[0] + 2.0f * a * v[1] + b * v[2]));
+// The horizontal pass of the three dS planes (kRows x kDsStride) into kRows x
+// kHdStride planes at hd.
+__device__ void filter_ds_rows(const float* ds, const float (&g)[kTaps], float* hd) {
+  for (int item = threadIdx.x; item < kRows * kBwdSpans; item += blockDim.x) {
+    const int r = item / kBwdSpans, j = item % kBwdSpans;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      float v[kSpanIn];
+      load_span(ds + (q * kRows + r) * kDsStride + j * kSpan, v);
+      filter_span(g, hd + (q * kRows + r) * kHdStride + j * kSpan,
+                  [&](int t) { return v[t]; });
     }
   }
 }
 
-dim3 forward_grid(int height, int width) {
-  return dim3((width + kFwdW - 1) / kFwdW, (height + kFwdH - 1) / kFwdH);
+// Block (strip, segment, channel): the segment's input rows start 2 kRadius above it;
+// column c of the moments and dS maps is the image's column c0 - kRadius + c, output
+// column c (c < kBwdCols) the image's c0 + c. Step n's row i is the input's row
+// k = n kRows + i; the moments' ring is then centred on dS row d = k - 2 kRadius (the
+// image's row r0 - kRadius + d), and the dS maps' ring on output row d - 2 kRadius.
+__global__ void __launch_bounds__(kThreads, 3)
+    loss_backward_kernel(const Image x, const Image y, const Shape s, int rows,
+                         const float* __restrict__ taps, float l1_coef, float ssim_coef,
+                         const float* __restrict__ grad, const Strided<float> d_x) {
+  float* stage = reinterpret_cast<float*>(loss_shared);
+  float* h = stage + 2 * kStageFloats;  // the moments' horizontal planes, then dS's
+  float* ds = h + kPlaneFloats;
+  float g[kTaps];
+#pragma unroll
+  for (int t = 0; t < kTaps; ++t) g[t] = taps[t];
+  const float scale = *grad;
+  const int ch = blockIdx.z, c0 = blockIdx.x * kBwdCols, c = threadIdx.x;
+  const Segment seg = segment(s, rows, kBwdHalo);
+  const int row0 = seg.r0 - 2 * kRadius;  // the staged rows' first
+  const int mid_col = c0 - kRadius + c, col = c0 + c;
+  const bool mid_col_in = mid_col >= 0 && mid_col < s.width;
+  const bool out_col = c < kBwdCols && col < s.width;
+  float ring[5][kRows], ring_ds[3][kRows];
+  stage_rows(x, y, s, ch, row0, c0 - 2 * kRadius, stage);
+  __pipeline_commit();
+  for (int n = 0; n < seg.steps; ++n) {
+    next_step(x, y, s, ch, row0, c0 - 2 * kRadius, n, seg.steps, stage);
+    moments_rows(stage + (n & 1) * kStageFloats, g, h,
+                 [](int, int, const float (&)[kSpanIn], const float (&)[kSpanIn]) {});
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+      for (int q = 0; q < 5; ++q) ring[q][i] = h[(q * kRows + i) * kCols + c];
+      const int k = n * kRows + i, mid_row = row0 + k - kRadius;
+      float d_mu0 = 0.0f, d_e00 = 0.0f, d_e01 = 0.0f;  // zero outside the image
+      if (k >= 2 * kRadius && mid_row >= 0 && mid_row < s.height && mid_col_in) {
+        float m[5];
+#pragma unroll
+        for (int q = 0; q < 5; ++q) m[q] = filter_ring(ring[q], i, g);
+        const Ssim t = ssim_terms(m);
+        const float r1 = __fdividef(1.0f, t.b1), r2 = __fdividef(1.0f, t.b2);
+        const float inv = r1 * r2;
+        d_mu0 = 2.0f * m[1] * (t.a2 - t.a1) * inv + 2.0f * m[0] * t.s * (r2 - r1);
+        d_e00 = -t.s * r2;
+        d_e01 = 2.0f * t.a1 * inv;
+      }
+      ds[i * kDsStride + c] = d_mu0;
+      ds[(kRows + i) * kDsStride + c] = d_e00;
+      ds[(2 * kRows + i) * kDsStride + c] = d_e01;
+    }
+    __syncthreads();
+    // The step's output pixels of x and y, loaded (clamped into the image, so that
+    // every load is unconditional) ahead of the pass that hides their latency.
+    float xo[kRows], yo[kRows];
+    const int out_c = min(col, s.width - 1);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int row = min(max(row0 + n * kRows + i - 2 * kRadius, 0), s.height - 1);
+      xo[i] = at(x, row, out_c, ch);
+      yo[i] = at(y, row, out_c, ch);
+    }
+    filter_ds_rows(ds, g, h);
+    __syncthreads();
+    if (c >= kBwdCols) continue;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) ring_ds[q][i] = h[(q * kRows + i) * kHdStride + c];
+      const int k = n * kRows + i, row = row0 + k - 2 * kRadius;
+      if (k >= 4 * kRadius && row < seg.r_end && out_col) {
+        float v[3];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) v[q] = filter_ring(ring_ds[q], i, g);
+        const float a = xo[i], b = yo[i];
+        const float sign = __fsub_rn(a, b) >= 0.0f ? 1.0f : -1.0f;  // jax.grad's |.|'
+        at(d_x, row, col, ch) =
+            scale * (l1_coef * sign - ssim_coef * (v[0] + 2.0f * a * v[1] + b * v[2]));
+      }
+    }
+  }
+}
+
+// A kernel's launch over an (H, W, C) image: the grid of (strips, segments, C) blocks
+// and the segment's rows.
+struct Plan {
+  dim3 grid;
+  int rows;
+  size_t shared;
+};
+
+// The kernel's dynamic shared memory allowed, and the plan of `cols`-column strips
+// whose segments take whole 11-row steps (with `halo` input rows beyond their own): of
+// up to kMaxSteps steps, the one that makes the fewest steps a block times waves of the
+// card's resident blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor times its
+// SMs), the shorter on a tie.
+template <typename Kernel>
+cudaError_t plan(Kernel kernel, size_t shared, int cols, int halo, int height, int width,
+                 int channels, Plan* p) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(shared));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, shared);
+  }
+  if (e != cudaSuccess) return e;
+  if (height < 1 || width < 1 || channels < 1 || per_sm < 1) return cudaErrorInvalidValue;
+  const long long slots = static_cast<long long>(sms) * per_sm;
+  const int strips = (width + cols - 1) / cols;
+  long long best = -1;
+  for (int steps = (halo + kRows) / kRows; steps <= kMaxSteps; ++steps) {
+    const int rows = steps * kRows - halo;
+    const int segments = (height + rows - 1) / rows;
+    const long long blocks = static_cast<long long>(strips) * segments * channels;
+    const long long cost = (blocks + slots - 1) / slots * steps;
+    if (best < 0 || cost < best) {
+      best = cost;
+      p->grid = dim3(strips, segments, channels);
+      p->rows = rows;
+    }
+    if (segments == 1) break;
+  }
+  p->shared = shared;
+  return cudaSuccess;
+}
+
+cudaError_t forward_plan(int height, int width, int channels, Plan* p) {
+  return plan(loss_forward_kernel, kFwdShared, kFwdCols, kFwdHalo, height, width,
+              channels, p);
+}
+
+cudaError_t backward_plan(int height, int width, int channels, Plan* p) {
+  return plan(loss_backward_kernel, kBwdShared, kBwdCols, kBwdHalo, height, width,
+              channels, p);
 }
 
 }  // namespace
 
 // The number of partial sums (float64 pairs) that gsrast_loss_forward's scratch holds
-// for an image of height x width.
-extern "C" int gsrast_loss_partials(int height, int width) {
-  const dim3 grid = forward_grid(height, width);
-  return static_cast<int>(grid.x * grid.y);
+// for an image of height x width x channels; -1 where the plan fails.
+extern "C" int gsrast_loss_partials(int height, int width, int channels) {
+  Plan p;
+  if (forward_plan(height, width, channels, &p) != cudaSuccess) return -1;
+  return static_cast<int>(p.grid.x * p.grid.y * p.grid.z);
 }
 
 // pred and target (height, width, channels) float32, each with its three strides in
 // elements (any: a crop's rows, the render's channel planes); taps (11,) float32.
 // Writes (1 - w) mean|pred - target| + w (1 - mean S) to loss (a float32 scalar),
-// through `partials` (gsrast_loss_partials(height, width) float64 pairs of scratch);
-// weight and one_minus_weight are w and 1 - w rounded to float32. Runs on `stream`
-// without synchronising; returns cudaGetLastError() after the launches.
+// through `partials` (gsrast_loss_partials(height, width, channels) float64 pairs of
+// scratch); weight and one_minus_weight are w and 1 - w rounded to float32. Runs on
+// `stream` without synchronising; returns cudaGetLastError() after the launches.
 extern "C" int gsrast_loss_forward(const float* pred, long long pred_s0,
                                    long long pred_s1, long long pred_s2,
                                    const float* target,
@@ -350,14 +581,16 @@ extern "C" int gsrast_loss_forward(const float* pred, long long pred_s0,
                                    float one_minus_weight, double* partials, float* loss,
                                    void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid = forward_grid(height, width);
+  Plan p;
+  const cudaError_t e = forward_plan(height, width, channels, &p);
+  if (e != cudaSuccess) return static_cast<int>(e);
   auto* sums = reinterpret_cast<double2*>(partials);
-  loss_forward_kernel<<<grid, kThreads, 0, st>>>(
+  loss_forward_kernel<<<p.grid, kThreads, p.shared, st>>>(
       Image{pred, pred_s0, pred_s1, pred_s2},
       Image{target, target_s0, target_s1, target_s2}, Shape{height, width, channels},
-      taps, sums);
+      p.rows, taps, sums);
   loss_sum_kernel<<<1, kSumThreads, 0, st>>>(
-      sums, static_cast<int>(grid.x * grid.y),
+      sums, static_cast<int>(p.grid.x * p.grid.y * p.grid.z),
       static_cast<long long>(height) * width * channels, weight, one_minus_weight, loss);
   return static_cast<int>(cudaGetLastError());
 }
@@ -376,11 +609,52 @@ extern "C" int gsrast_loss_backward(const float* pred, long long pred_s0,
                                     float* d_pred, long long d_pred_s0,
                                     long long d_pred_s1, long long d_pred_s2,
                                     void* stream) {
-  const dim3 grid((width + kBwdW - 1) / kBwdW, (height + kBwdH - 1) / kBwdH);
-  loss_backward_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  Plan p;
+  const cudaError_t e = backward_plan(height, width, channels, &p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  loss_backward_kernel<<<p.grid, kThreads, p.shared, static_cast<cudaStream_t>(stream)>>>(
       Image{pred, pred_s0, pred_s1, pred_s2},
       Image{target, target_s0, target_s1, target_s2}, Shape{height, width, channels},
-      taps, l1_coef, ssim_coef, grad,
+      p.rows, taps, l1_coef, ssim_coef, grad,
       Strided<float>{d_pred, d_pred_s0, d_pred_s1, d_pred_s2});
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch of the forward (backward = 0) or the backward (1) over an image of
+// height x width x channels: threads and dynamic shared bytes a block, the blocks of
+// it that one SM of the current device holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the grid's blocks and the rows of a
+// segment (plan()); and the kernel's registers a thread, local (spilled) bytes a
+// thread and static shared bytes a block (cudaFuncGetAttributes).
+extern "C" int gsrast_loss_occupancy(int backward, int height, int width, int channels,
+                                     int* threads, int* shared_bytes, int* blocks_per_sm,
+                                     int* blocks, int* segment_rows, int* registers,
+                                     int* local_bytes, int* static_shared_bytes) {
+  Plan p;
+  cudaFuncAttributes attr;
+  cudaError_t e;
+  if (backward) {
+    e = backward_plan(height, width, channels, &p);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, loss_backward_kernel);
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, loss_backward_kernel,
+                                                        kThreads, p.shared);
+    }
+  } else {
+    e = forward_plan(height, width, channels, &p);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, loss_forward_kernel);
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, loss_forward_kernel,
+                                                        kThreads, p.shared);
+    }
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *threads = kThreads;
+  *shared_bytes = static_cast<int>(p.shared);
+  *blocks = static_cast<int>(p.grid.x * p.grid.y * p.grid.z);
+  *segment_rows = p.rows;
+  *registers = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *static_shared_bytes = static_cast<int>(attr.sharedSizeBytes);
+  return 0;
 }

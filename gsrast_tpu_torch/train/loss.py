@@ -108,7 +108,11 @@ def ssim(img0: torch.Tensor, img1: torch.Tensor, c1: float = 0.01**2,
 
 
 def l1(img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.abs(img0 - img1))
+    """mean |img0 - img1|, differentiated as the reference's `jax.grad` of
+    `jnp.abs` is: 1 where img0 - img1 >= 0, -1 elsewhere (`torch.abs`
+    would take 0 at a tie). The value is `torch.abs`'s, bit for bit."""
+    d = img0 - img1
+    return torch.mean(torch.where(d >= 0, d, -d))
 
 
 def rgb_loss_torch(pred: torch.Tensor, target: torch.Tensor,
@@ -168,8 +172,12 @@ def forward_launch(pred: torch.Tensor, target: torch.Tensor,
     h, w, c = _check_inputs(pred, target)
     dev = pred.device
     lib = _kernels.load().lib
-    partials = torch.empty((lib.gsrast_loss_partials(h, w), 2),
-                           dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):  # the plan reads the current device
+        count = lib.gsrast_loss_partials(h, w, c)
+    if count <= 0:
+        raise RuntimeError(f"the loss forward has no launch plan for "
+                           f"{(h, w, c)} on {dev}")
+    partials = torch.empty((count, 2), dtype=torch.float64, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     taps = _gaussian_taps(dev)
     args = (pred.data_ptr(), *pred.stride(), target.data_ptr(),

@@ -40,8 +40,8 @@ WEIGHTS = [0.0, 0.2, 1.0]
 
 def _pair(shape, seed=0, equal_rows=None):
     """A seeded (pred, target) in [0, 1]: target pred plus noise, clipped,
-    its first third of rows equal to pred's (pixels where the L1 term's
-    sign is 0)."""
+    its first third of rows equal to pred's (ties, where the L1 term's
+    gradient takes abs'(0))."""
     rng = np.random.default_rng(seed)
     a = rng.uniform(0.0, 1.0, shape).astype(np.float32)
     b = np.clip(a + 0.1 * rng.standard_normal(shape), 0.0, 1.0)
@@ -113,11 +113,12 @@ def test_plain_vjp_matches_jax(shape):
 
 
 def test_plain_vjp_at_ties_takes_pytorch_abs_gradient():
-    """Where pred equals target the L1 term's gradient is PyTorch's
-    abs'(0) = 0, which the plain version has always taken and the kernels
-    follow; JAX takes abs'(0) = 1, so there the reference's d_pred is
-    larger by (1 - w) / N, and elsewhere the two agree within 1e-5 of the
-    largest magnitude."""
+    """At ties, where pred equals target, the plain VJP no longer takes
+    PyTorch's abs'(0) = 0 but the reference's: `jax.grad` of `jnp.abs` is
+    1 there, and `train.loss.l1` differentiates as it does. On a pair with
+    ties (a third of its rows) and without (the rest), d_pred equals the
+    reference's within 1e-5 of its largest magnitude everywhere, ties
+    included."""
     shape, weight = (37, 53, 3), 0.2
     a, b = _pair(shape, seed=1)
     ties = a == b
@@ -126,10 +127,23 @@ def test_plain_vjp_at_ties_takes_pytorch_abs_gradient():
     d_pred = rgb_loss_vjp_torch(torch.from_numpy(a), torch.from_numpy(b),
                                 weight, torch.ones(())).numpy()
     scale = float(np.abs(ref_grad).max())
-    step = (1.0 - weight) / np.prod(shape)
-    gap = ref_grad - d_pred
-    assert float(np.abs(gap[~ties]).max()) <= 1e-5 * scale
-    assert float(np.abs(gap[ties] - step).max()) <= 1e-5 * scale
+    gap = np.abs(ref_grad - d_pred)
+    assert float(gap.max()) <= 1e-5 * scale
+    assert float(gap[ties].max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_l1_value_equals_torch_abs_form(shape):
+    """`rgb_loss_torch`'s value, with the L1 term differentiated as the
+    reference's, is bit-equal to the form through `torch.abs` on a pair
+    with ties."""
+    a, b = _pair(shape, seed=1)
+    assert (a == b).any()
+    pred, target = torch.from_numpy(a), torch.from_numpy(b)
+    for weight in WEIGHTS:
+        old = (1.0 - weight) * torch.mean(torch.abs(pred - target)) + (
+            weight * (1.0 - L.ssim(pred, target)))
+        assert torch.equal(rgb_loss_torch(pred, target, weight), old)
 
 
 @pytest.mark.parametrize("backend", ["cuda", "torch", "autograd", "dense"])
@@ -301,6 +315,53 @@ def test_profile_colmap_train_cell(monkeypatch):
     assert cell.extent > 0 and cell.tc == profile_step.TrainConfig()
 
 
+def test_loss_timing_refuses_trees_outside_the_checkout(tmp_path, capsys):
+    """`diag.loss_timing` builds and runs each tree it times in place, so
+    it takes only trees inside this checkout."""
+    from gsrast_tpu_torch.diag import loss_timing
+
+    assert loss_timing.main(["--tree", str(tmp_path)]) == 2
+    assert "outside" in capsys.readouterr().err
+
+
+def test_loss_timing_summary(tmp_path, monkeypatch, capsys):
+    """`loss_timing.summarise` on two trees' saved outputs and readings:
+    each tree's ms of every run, its share of the bound at its best run,
+    and each output against the first tree's."""
+    from gsrast_tpu_torch.diag import loss_timing as lt
+
+    monkeypatch.setattr(lt, "HERE", tmp_path)
+    monkeypatch.setattr(lt, "OUT", tmp_path / "out")
+    lt.OUT.mkdir()
+    trees = [tmp_path, tmp_path / "_archive" / "parent"]
+    grad = torch.tensor([[[1.0, -2.0, 3.0]]])
+    for tree, shift, ms in zip(trees, (0.0, 0.25), ([0.2, 0.3], [0.8, 0.9])):
+        torch.save({"edge": {"forward": torch.tensor(0.5),
+                             "backward": grad + torch.tensor([0.0, 0.0,
+                                                              shift])}},
+                   lt.OUT / f"{lt.tag(tree)}.pt")
+        (lt.OUT / f"{lt.tag(tree)}.jsonl").write_text("".join(
+            json.dumps({"ms": {"edge": {"forward": 0.1, "backward": t}}})
+            + "\n" for t in ms))
+    info = {"edge": {"label": "edge", "shape": [1, 1, 3],
+                     "bounds": {"forward": (0.05, "operations"),
+                                "backward": (0.1, "operations")}}}
+    lt.summarise(trees, info)
+    line = json.loads(capsys.readouterr().out)
+    assert line["cell"] == "edge" and line["shape"] == [1, 1, 3]
+    assert "bounds" not in line
+    bwd = line["backward"]
+    assert bwd["bound_ms"] == 0.1 and bwd["bound_by"] == "operations"
+    here, parent = bwd["trees"]["."], bwd["trees"]["_archive/parent"]
+    assert here["ms"] == [0.2, 0.3] and parent["ms"] == [0.8, 0.9]
+    assert here["share"] == pytest.approx(0.5)
+    assert parent["share"] == pytest.approx(0.125)
+    assert here["against_first"] == {"differ": 0, "max_abs_diff": 0.0}
+    assert parent["against_first"] == {"differ": 1, "max_abs_diff": 0.25}
+    assert line["forward"]["trees"]["_archive/parent"]["against_first"] == {
+        "differ": 0, "max_abs_diff": 0.0}
+
+
 # -- on the card ------------------------------------------------------------
 
 def _card():
@@ -328,11 +389,15 @@ def _card_pair(dev, shape, seed=0, layout="rows"):
 @pytest.mark.parametrize("shape,layout", [
     ((1080, 1920, 3), "planar"), ((1081, 1919, 3), "rows"),
     ((37, 53, 3), "rows"), ((37, 53, 3), "planar"), ((5, 7, 3), "rows"),
-    ((32, 64, 3), "planar")])
+    ((32, 64, 3), "planar"), ((245, 383, 3), "rows"),
+    ((300, 236, 3), "planar")])
 def test_cuda_kernels_match_plain(shape, layout):
     """The kernels against the plain pair on the same card inputs, both
     held to the plain version in float64 (`chip_smoke.compare_loss`), and
-    two launches bit-equal; d_pred laid out as a dense pred."""
+    two launches bit-equal; d_pred laid out as a dense pred. Every pair has
+    a third of its rows tied, where d_pred holds too; 245x383 is ragged
+    against both kernels' strips (128 and 118 columns) and segments, and
+    300x236 is two backward strips wide."""
     dev = _card()
     pred, target = _card_pair(dev, shape, layout=layout)
     _kernels.reset_launch_counts()
@@ -342,6 +407,7 @@ def test_cuda_kernels_match_plain(shape, layout):
     assert res["finite"] and res["same_bits_twice"], res
     assert res["loss_err"] <= res["loss_tol"], res
     assert res["grad_err"] <= res["grad_tol"], res
+    assert res["ties"] > 0 and res["tie_grad_err"] <= res["grad_tol"], res
     d_pred = L.loss_backward_cuda(pred, target, 0.2,
                                   torch.ones((), device=dev))
     assert d_pred.stride() == (pred.stride() if layout == "planar"
