@@ -65,7 +65,15 @@ target at 1080p, the COLMAP view against its photo, a 512x512 pair and
 edge cells of 5x7 and a row-strided 1081x1919, a third of their rows tied
 (d_pred held there too), two launches bit for bit, a capture replayed on a
 new input, their times beside their bounds and the plain version's, each
-kernel's registers, spills, shared bytes and blocks; phases 8, 9, 10, 12, 16 and 19 train through them); and
+kernel's registers, spills, shared bytes and blocks; phases 8, 9, 10, 12, 16 and 19 train through them), and
+the optimizer kernel (phase 22: the SH rest-band scale, the live mask and
+Adam over the five groups in one launch, against its plain version bit for
+bit on the groups of the 1M, trained_116k and COLMAP train cells with real
+gradients and on edge cells of 1, 3 and 1,025 Gaussians and an unaligned
+one, two launches bit for bit, one launch an eager step; its time cold
+and warm beside its byte bound, the plain version's and the library
+call's, torch.optim.Adam(fused=True), alone and after the scale and mask
+passes; phases 8, 9, 10, 12, 13 and 19 train through it); and
 checks that each path went through the kernels.
 Each phase prints its lines before the next begins; the line before the last is the per-kernel
 JSON record, and the last is {"ok": true, "device": {...}}. Any failure
@@ -118,8 +126,10 @@ N_VIEWS = 8  # views of the COLMAP scene of phase 12
 # The kernels a forward render launches, and those of a fwd+bwd step.
 FORWARD_KERNELS = ("preprocess_forward", "tile_order", "blend_forward")
 PATH_KERNELS = (*FORWARD_KERNELS, "preprocess_backward", "blend_backward")
-# A train step's kernels: the render's and the loss's.
+# A train step's kernels: the render's and the loss's; a single-card step's
+# also the optimizer's (the sharded step steps torch's Adam).
 TRAIN_KERNELS = (*PATH_KERNELS, "loss_forward", "loss_backward")
+STEP_KERNELS = (*TRAIN_KERNELS, "adam")
 # Bounds: NVIDIA's H100 SXM figures at 700 W (FP32 outside the tensor
 # cores, HBM3), and the flops of one needed (pixel, position) pair at which
 # the splat blends, read off the kernels: the forward's alpha and blend
@@ -2171,7 +2181,7 @@ def train_graph_cell(label: str, cell, dev) -> dict:
     assert not moved, moved
     assert res["deterministic_graph"] == {"captures": 1,
                                           "replays": steps - 1}
-    assert all(res["eager_step_launches"][k] == 1 for k in TRAIN_KERNELS)
+    assert all(res["eager_step_launches"][k] == 1 for k in STEP_KERNELS)
     assert res["captured"] == res["eager_step_launches"], res
     assert res["replay_launches"] == 0, "a replay launched a wrapper"
     return res
@@ -2890,6 +2900,319 @@ def phase_loss(dev, colmap_dir: str) -> dict:
     return out
 
 
+# -- phase 22: the optimizer kernel ------------------------------------------
+
+# Float operations a float of the update, read off csrc/adam.cu: the rest
+# scale and the mask (2 products), the moments (5 products, 2 sums), the
+# bias divisions (2), the square root, eps, the update's division, the
+# rate's product and the sum. Far below the bytes: the bound is bytes.
+ADAM_FLOPS = 16
+# A cold launch: this many bytes are written between launches, more than
+# the card's 50 MB L2, so that a launch reads its inputs from HBM as the
+# train step's does (its render passes in between).
+L2_FLUSH_BYTES = 256 * 2**20
+# The edge cells, key -> (SH degree, capacity, offset in floats of every
+# array from its storage): one Gaussian, three (ragged chunks of 1-3
+# floats in every group), 1,025, and 4,099 SH-1 Gaussians none of whose
+# arrays is 16-byte aligned.
+ADAM_EDGE = {"edge_1": (3, 1, 0), "edge_3": (3, 3, 0),
+             "edge_1025": (3, 1_025, 0), "edge_unaligned": (1, 4_099, 1)}
+ADAM_CELLS = ("1M", "trained_116k", "colmap", *ADAM_EDGE)
+ADAM_REST_SCALE = 1.0 / 20.0  # 1 / TrainConfig().lr_sh_rest_div
+
+
+def adam_edge_groups(dev, degree: int, capacity: int, offset: int = 0,
+                     seed: int = 0) -> tuple:
+    """(groups, live) of a seeded scene of `capacity` slots, three quarters
+    live (at least one): the five groups of `train.adam.Group` with drawn
+    parameters, gradients and moments (dead slots' too), count 5, the
+    means' rate a device tensor, every array `offset` floats into its
+    storage."""
+    from gsrast_tpu_torch.train import adam
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k = (degree + 1) ** 2
+    shapes = {"means": (capacity, 3), "log_scales": (capacity, 3),
+              "quats": (capacity, 4), "opacity_logits": (capacity,),
+              "sh": (capacity, k, 3)}
+
+    def draw(shape, scale=1.0, positive=False):
+        n = math.prod(shape)
+        x = torch.rand if positive else torch.randn
+        return (x((n + offset,), generator=gen, device=dev)[offset:]
+                * scale).view(shape)
+
+    groups = []
+    for name, shape in shapes.items():
+        row = math.prod(shape[1:])
+        lr = (torch.full((), 1.6e-4, device=dev) if name == "means"
+              else 5e-3)
+        groups.append(adam.Group(
+            name, draw(shape), draw(shape), draw(shape, 0.1),
+            draw(shape, 1e-3, True), torch.full((), 5.0, device=dev), lr,
+            (0.9, 0.999), 1e-15, row, 3 if name == "sh" else row))
+    live = torch.zeros(capacity, dtype=torch.bool, device=dev)
+    live[:max(1, (3 * capacity + 3) // 4)] = True
+    return groups, live
+
+
+def adam_clone(groups) -> list:
+    """The groups with copies of what an update writes."""
+    return [g._replace(**{f: getattr(g, f).detach().clone() for f in (
+        "param", "exp_avg", "exp_avg_sq", "step")}) for g in groups]
+
+
+def adam_outputs(groups) -> list:
+    return [t for g in groups for t in (g.param, g.exp_avg, g.exp_avg_sq,
+                                        g.step)]
+
+
+def compare_adam(groups, live, rest_scale: float = ADAM_REST_SCALE
+                 ) -> dict:
+    """The kernel against the plain version on copies of the same state:
+    whether every output is bit-equal, and the largest gap in ulps and in
+    value; a second launch from the same state bit for bit; the gradients
+    untouched; every output finite."""
+    from gsrast_tpu_torch.train import adam
+
+    grads = [g.grad.clone() for g in groups]
+    plain, kernel, again = (adam_clone(groups) for _ in range(3))
+    adam.adam_update_torch(plain, live, rest_scale)
+    adam.adam_update_cuda(kernel, live, rest_scale)
+    adam.adam_update_cuda(again, live, rest_scale)
+    torch.cuda.synchronize()
+    pairs = list(zip(adam_outputs(kernel), adam_outputs(plain)))
+    return {
+        "bit_equal": all(torch.equal(a, b) for a, b in pairs),
+        "max_ulps": max(int((a.view(torch.int32).long()
+                             - b.view(torch.int32).long()).abs().max())
+                        for a, b in pairs),
+        "max_abs_err": max(float((a - b).abs().max()) for a, b in pairs),
+        "same_bits_twice": all(torch.equal(a, b) for a, b in zip(
+            adam_outputs(kernel), adam_outputs(again))),
+        "grads_untouched": all(torch.equal(g.grad, x)
+                               for g, x in zip(groups, grads)),
+        "finite": all(bool(torch.isfinite(t).all())
+                      for t in adam_outputs(kernel))}
+
+
+def adam_values(groups) -> dict:
+    """The shares of a state's floats whose gradient, first moment or
+    second moment is zero, and whose second moment is subnormal: the
+    divisions and square root of such floats leave their fast path unless
+    the kernel steers them back (csrc/adam.cu, `div_pos`,
+    `sqrt_nonneg`)."""
+    tiny = torch.finfo(torch.float32).tiny
+    counts = dict.fromkeys(("grad_zero", "exp_avg_zero", "exp_avg_sq_zero",
+                            "exp_avg_sq_subnormal"), 0)
+    floats = 0
+    for g in groups:
+        floats += g.param.numel()
+        counts["grad_zero"] += int((g.grad == 0).sum())
+        counts["exp_avg_zero"] += int((g.exp_avg == 0).sum())
+        counts["exp_avg_sq_zero"] += int((g.exp_avg_sq == 0).sum())
+        counts["exp_avg_sq_subnormal"] += int(
+            ((g.exp_avg_sq > 0) & (g.exp_avg_sq < tiny)).sum())
+    return {f"{k}_share": v / max(floats, 1) for k, v in counts.items()}
+
+
+def adam_work(groups, live) -> dict:
+    """Bytes, operations and bound() of one update: each float's gradient,
+    parameter and two moments read once and the parameter and moments
+    written once (28 bytes), the mask's byte a row, each count read and
+    written, each device rate read."""
+    floats = sum(g.param.numel() for g in groups)
+    nbytes = (28 * floats + live.numel() + 8 * len(groups)
+              + 4 * sum(torch.is_tensor(g.lr) for g in groups))
+    bound_ms, by = bound(nbytes, ADAM_FLOPS * floats)
+    return {"floats": floats, "bytes": nbytes, "flops": ADAM_FLOPS * floats,
+            "bound_ms": bound_ms, "bound_by": by}
+
+
+def cold_ms(fn, dev, reps: int = 10) -> float:
+    """Median device time of fn() in ms, by CUDA events around it alone,
+    each run after L2_FLUSH_BYTES written (the L2 holds none of its
+    inputs)."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    fn()
+    events = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def adam_library(groups, live, rest_scale: float = ADAM_REST_SCALE
+                 ) -> dict:
+    """The library call: `torch.optim.Adam(fused=True, capturable=True)`
+    over copies of the groups (their rates, the means' a device tensor),
+    which computes Adam without the rest-band scale and the mask, timed
+    alone and after those two as torch passes over its gradients."""
+    params = []
+    for g in groups:
+        p = g.param.detach().clone()
+        p.grad = g.grad.clone()
+        params.append(p)
+    opt = torch.optim.Adam(
+        [{"params": [p], "lr": g.lr.clone() if torch.is_tensor(g.lr)
+          else g.lr} for p, g in zip(params, groups)],
+        betas=groups[0].betas, eps=groups[0].eps, fused=True,
+        capturable=True)
+    opt._warned_capturable_if_run_uncaptured = True
+    livef = live.float()
+
+    def glue_then_step():
+        with torch.no_grad():
+            for p, g in zip(params, groups):
+                if g.rest < g.row:
+                    p.grad.view(p.shape[0], g.row)[:, g.rest:] *= rest_scale
+            for p in params:
+                p.grad *= livef.reshape((-1,) + (1,) * (p.dim() - 1))
+        opt.step()
+
+    return {"library_ms": cuda_ms(opt.step),
+            "library_with_glue_ms": cuda_ms(glue_then_step)}
+
+
+def adam_occupancy() -> dict:
+    """The update kernel's launch as the library reports it
+    (`gsrast_adam_occupancy`): threads a block, the blocks one SM holds at
+    once, registers and local (spilled) bytes a thread, static shared
+    bytes a block."""
+    import ctypes
+
+    from gsrast_tpu_torch import _kernels
+
+    keys = ("threads", "blocks_per_sm", "registers", "local_bytes",
+            "static_shared")
+    out = [ctypes.c_int(0) for _ in keys]
+    code = _kernels.load().lib.gsrast_adam_occupancy(
+        *(ctypes.byref(x) for x in out))
+    assert code == 0, f"CUDA error {code}"
+    return dict(zip(keys, (x.value for x in out)))
+
+
+def adam_cell(label: str, groups, live, dev) -> dict:
+    """Phase 22 on one cell: `compare_adam`; the kernel's raw launches
+    timed back to back (RAW_REPS an interval, the L2 warm) and cold
+    (`cold_ms`, the time kept as its `ms`), with the bound and the share of
+    it; the plain version's time and the library call's two."""
+    from gsrast_tpu_torch.train import adam
+
+    res = {"capacity": live.numel(), "groups": {
+        g.name: list(g.param.shape) for g in groups},
+        **adam_values(groups), **compare_adam(groups, live),
+        **adam_work(groups, live)}
+    kernel = adam_clone(groups)
+    launch = adam.update_launch(kernel, live, ADAM_REST_SCALE)
+    assert launch.fn(*launch.args) == 0
+    res["warm_ms"] = cuda_ms(lambda: [launch.fn(*launch.args)
+                                      for _ in range(RAW_REPS)]) / RAW_REPS
+    res["ms"] = cold_ms(lambda: launch.fn(*launch.args), dev)
+    res["share"] = res["bound_ms"] / res["ms"]
+    plain = adam_clone(groups)
+    res["plain_ms"] = cuda_ms(lambda: adam.adam_update_torch(
+        plain, live, ADAM_REST_SCALE), iters=5, warmup=1)
+    res.update(adam_library(groups, live))
+    del kernel, launch, plain
+    print(f"phase 22 adam kernel, {label} ({res['capacity']} slots, "
+          f"{res['floats']} floats): {res['ms']:.4f} ms cold, "
+          f"{res['warm_ms']:.4f} warm ({res['share']:.3f} of its "
+          f"{res['bound_ms']:.4f} ms {res['bound_by']} bound); plain "
+          f"{res['plain_ms']:.3f} ms; torch.optim.Adam(fused=True) "
+          f"{res['library_ms']:.4f} ms alone, "
+          f"{res['library_with_glue_ms']:.4f} with the scale and mask "
+          f"passes; second moments zero {res['exp_avg_sq_zero_share']:.3f}"
+          f", subnormal {res['exp_avg_sq_subnormal_share']:.3g}; bit-equal "
+          f"to the plain version {res['bit_equal']} "
+          f"(max {res['max_ulps']} ulps, {res['max_abs_err']:.3g}); "
+          f"{json.dumps(res)}", flush=True)
+    assert res["bit_equal"] and res["same_bits_twice"], res
+    assert res["grads_untouched"] and res["finite"], res
+    return res
+
+
+def adam_train_groups(cell, dev) -> tuple:
+    """(state, groups, launches) of a train cell (a
+    `diag.profile_step.TrainCell`): its state after two eager steps (real
+    moments, count 2), the launches of the second, and the state's groups
+    with the gradients of one more forward and backward (the third view,
+    or the cell's last)."""
+    from gsrast_tpu_torch import _kernels
+    from gsrast_tpu_torch.render.api import render
+    from gsrast_tpu_torch.train import adam
+    from gsrast_tpu_torch.train.loss import rgb_loss
+    from gsrast_tpu_torch.train.trainer import make_train_step
+
+    state = cell.state()
+    step = make_train_step(cell.rcfg, cell.tc, cell.extent)
+    n = len(cell.views)
+    step(state, cell.views[0], cell.targets[0])
+    _kernels.reset_launch_counts()
+    step(state, cell.views[1 % n], cell.targets[1 % n])
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launch_counts)
+    state.optimizer.zero_grad(set_to_none=True)
+    delta = torch.zeros((state.scene.capacity, 2), device=dev,
+                        requires_grad=True)
+    out = render(state.scene, cell.views[2 % n], cell.rcfg,
+                 mean2d_delta=delta)
+    rgb_loss(out.image, cell.targets[2 % n], cell.tc.ssim_weight,
+             backend=cell.rcfg.backend).backward()
+    return state, adam.groups_of(state.optimizer), launches
+
+
+def phase_adam(dev, colmap_dir: str) -> dict:
+    """Phase 22: the optimizer kernel (`adam_cell`) on the groups of the
+    train cells of phase 19 with real gradients (trained_116k at 1080p,
+    the COLMAP SfM init read from `colmap_dir` or, without one,
+    `profile_step`'s `train_colmap` made in memory, the 1M SH-3 scene), each
+    after an eager step that launched it once, and on the edge cells of
+    ADAM_EDGE; and its launch's registers, spills and blocks an SM."""
+    from gsrast_tpu_torch.diag.profile_step import (TrainCell, scene_extent,
+                                                    train_cell)
+    from gsrast_tpu_torch.render.api import auto_render_config
+    from gsrast_tpu_torch.scene import colmap
+    from gsrast_tpu_torch.train.trainer import TrainConfig
+
+    out = {"launch": adam_occupancy()}
+    print(f"phase 22 adam kernel's launch: {json.dumps(out['launch'])}",
+          flush=True)
+    for key in ("trained_116k", "colmap", "1M"):
+        if key == "colmap" and colmap_dir is None:
+            cell = train_cell("train_colmap", dev)
+        elif key == "colmap":
+            ds, xyz, rgb = colmap.load_colmap(colmap_dir, device=dev)
+            init = colmap.init_scene_from_points(xyz, rgb, device=dev)
+            cell = TrainCell(init, list(ds.cameras), list(ds.images),
+                             auto_render_config(init, ds.cameras[0],
+                                                margin=1.5),
+                             TrainConfig(), scene_extent(init))
+            del ds, init
+        else:
+            cell = train_cell({"trained_116k": "train_trained_116k",
+                               "1M": "train_default"}[key], dev)
+        state, groups, launches = adam_train_groups(cell, dev)
+        assert launches["adam"] == 1, launches
+        out[key] = adam_cell(f"{key} train cell, real gradients", groups,
+                             state.scene.mask, dev)
+        out[key]["step_launches"] = launches
+        del cell, state, groups
+        torch.cuda.empty_cache()
+    for key, (degree, capacity, offset) in ADAM_EDGE.items():
+        groups, live = adam_edge_groups(dev, degree, capacity, offset,
+                                        seed=capacity)
+        out[key] = adam_cell(f"{key}: SH {degree}, {capacity} slots, "
+                             f"offset {offset}", groups, live, dev)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3225,7 +3548,7 @@ def main() -> int:
         state.scene.num_active())
     assert graph.captures == 1 and graph.replays == 29
     # The warm-up step and the capture launch; the replays do not.
-    assert all(launches_train[k] == 2 for k in TRAIN_KERNELS), launches_train
+    assert all(launches_train[k] == 2 for k in STEP_KERNELS), launches_train
     del state, graph, metrics, target, cell
     # -- phase 9: the CLI, train then resume ------------------------------
     # Under deterministic algorithms (warn_only: the set-up's counting ops
@@ -3279,15 +3602,15 @@ def main() -> int:
     assert all(log.count(capture_line) == 1 for log in logs), logs
     assert logs[1].index("resumed from step 4") < logs[1].index(capture_line)
     assert all(resume_equal.values()), resume_equal
-    assert min(launches_cli_train[k] for k in TRAIN_KERNELS) > 0, (
+    assert min(launches_cli_train[k] for k in STEP_KERNELS) > 0, (
         launches_cli_train)
     # Each 4-step run: an eager warm-up and a capture call the wrappers
     # (the forward's also render the run's target), and 3 replays run
     # what the capture recorded, one launch of each train kernel.
     assert all(launches_cli_train[k] == 4 for k in (
-        "blend_backward", "loss_forward", "loss_backward")), (
+        "blend_backward", "loss_forward", "loss_backward", "adam")), (
         launches_cli_train)
-    assert replayed_cli_train == {k: 6 * (k in TRAIN_KERNELS)
+    assert replayed_cli_train == {k: 6 * (k in STEP_KERNELS)
                                   for k in replayed_cli_train}, (
         replayed_cli_train)
     # One order a blend, for its forward and its backward.
@@ -3316,7 +3639,7 @@ def main() -> int:
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     launches_1m_train = dict(_kernels.launch_counts)
     # cuda_ms: 2 warm-up steps and 10 timed, each through every kernel.
-    assert all(launches_1m_train[k] == 12 for k in TRAIN_KERNELS), (
+    assert all(launches_1m_train[k] == 12 for k in STEP_KERNELS), (
         launches_1m_train)
 
     # The reference benchmark's step (grad of mean(img^2)), timed by the
@@ -3495,7 +3818,7 @@ def main() -> int:
         losses = {int(m[0]): float(m[1]) for m in re.findall(
             r"step (\d+): loss=(\S+)", out)}
         assert np.all(np.isfinite(list(losses.values()))), out
-        assert min(_kernels.launch_counts[k] for k in TRAIN_KERNELS) > 0, (
+        assert min(_kernels.launch_counts[k] for k in STEP_KERNELS) > 0, (
             _kernels.launch_counts)
         return st, out, losses, dict(_kernels.launch_counts)
 
@@ -3634,13 +3957,19 @@ def main() -> int:
                           ckpt_every=4, inject_nan_at_step=6,
                           heartbeat_path=os.path.join(OUT_DIR, "hb_nan.json"))
     shutil.rmtree(rc.ckpt_dir, ignore_errors=True)
+    _kernels.reset_launch_counts()
     state, stopped = run_resilient(
         state, 10, lambda st, i: step(st, views[i % N_VIEWS],
                                       photos[i % N_VIEWS]),
         rc, log=rollback_log.append)
+    torch.cuda.synchronize()
+    adam_nan = _kernels.launch_counts["adam"]
     print(f"phase 13 run_resilient trained_116k {WIDTH}x{HEIGHT}, NaN "
           f"injected after step 6: {rollback_log}; final step {state.step}, "
-          f"finite {all_finite(state)}, stopped early {stopped}", flush=True)
+          f"finite {all_finite(state)}, stopped early {stopped}; adam "
+          f"kernel launches {adam_nan}", flush=True)
+    # One a step: steps 0-6, then 4-9 after the rollback to step 4.
+    assert adam_nan == 13, adam_nan
     assert rollback_log == ["step 6: NON-FINITE state detected; rolling back "
                             "to checkpoint step 4 (1/3)"], rollback_log
     assert state.step == 10 and all_finite(state) and not stopped
@@ -3698,6 +4027,12 @@ def main() -> int:
     t0 = time.perf_counter()
     loss_res = phase_loss(dev, scene_dir)
     print(f"phase 21 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- phase 22: the optimizer kernel ------------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    adam_res = phase_adam(dev, scene_dir)
+    print(f"phase 22 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     b116 = bwd["trained_116k"]
     rows_full, tiles_full = int(full_starts[-1]) // 8, t
@@ -3771,7 +4106,22 @@ def main() -> int:
         "library_ms": None,
         "cells": {cell: {key: loss_res[cell][kind][key] for key in (
             "ms", "plain_ms", "bound_ms", "share")} for cell in LOSS_CELLS},
-    } for kind in ("forward", "backward")]}))
+    } for kind in ("forward", "backward")] + [{
+        "name": "adam", "route": "cuda",
+        "source": "gsrast_tpu_torch/csrc/adam.cu",
+        "replaces": "gsrast_tpu/train/trainer.py:80-86, 113-120",
+        "launches": launches_cli_train["adam"],
+        "replayed": replayed_cli_train["adam"],
+        "max_abs_err": max(adam_res[cell]["max_abs_err"]
+                           for cell in ADAM_CELLS),
+        **{key: adam_res["1M"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_with_glue_ms")},
+        "launch": adam_res["launch"],
+        "cells": {cell: {key: adam_res[cell][key] for key in (
+            "ms", "warm_ms", "plain_ms", "bound_ms", "share", "library_ms",
+            "library_with_glue_ms")} for cell in ADAM_CELLS},
+    }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -35,7 +35,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 launch_counts = {"tile_order": 0, "blend_forward": 0, "blend_backward": 0,
                  "bisect_a": 0, "bisect_b": 0, "bisect_c": 0, "bisect_d": 0,
                  "preprocess_forward": 0, "preprocess_backward": 0,
-                 "loss_forward": 0, "loss_backward": 0}
+                 "loss_forward": 0, "loss_backward": 0, "adam": 0}
 
 
 # Runs per kernel inside CUDA graph replays since the last reset: a replay
@@ -212,5 +212,11 @@ def load() -> Library:
     fn = lib.gsrast_loss_backward
     fn.argtypes = [vp, *[i64] * 3, vp, *[i64] * 3, *[i32] * 3, vp, f32, f32,
                    vp, vp, *[i64] * 3, vp]
+    fn.restype = ctypes.c_int
+    fn = lib.gsrast_adam_update
+    fn.argtypes = [i32, *[vp] * 5, f32, vp]
+    fn.restype = ctypes.c_int
+    fn = lib.gsrast_adam_occupancy
+    fn.argtypes = [vp] * 5
     fn.restype = ctypes.c_int
     return Library(lib=lib, path=path, build_seconds=seconds, build_log=log)

@@ -23,7 +23,9 @@ it times TIMED unprofiled calls of each (`benchmark.timeit`), traces one
     of `render.pipeline.STAGES` its kernels and busy ms, the backward's
     kernels counted to the stage whose forward made the autograd node that
     launched them (by the trace's sequence numbers), the rest (activation,
-    image assembly, the bench's mean(img^2) and glue) as `other`;
+    image assembly, the bench's mean(img^2) and glue) as `other`, whose
+    device work `other_by_name` lists by name ([name, count, busy ms] a
+    step, the OTHER_TOP busiest);
   * `chained`: the same numbers of a replay divided by the chain. A replay
     has no host ops, so it has no stage split.
 A train cell (`train_cell`: trained_116k at 1920x1080 from the perturbed
@@ -77,6 +79,10 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 RENDER_RANGES = {f"render.{s}": s for s in STAGES}
 TRAIN_RANGES = {**RENDER_RANGES, "train.loss": "loss"}
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+# `other`'s device work by name: the OTHER_TOP names of most busy ms, each
+# without "void " and "at::native::" and cut to NAME_CHARS characters.
+OTHER_TOP = 12
+NAME_CHARS = 160
 
 
 def _union_ms(intervals) -> float:
@@ -172,6 +178,14 @@ def summarize(events: list, marker: str, steps: int = 1,
                          "busy_ms": _union_ms((e["ts"], e["ts"] + e["dur"])
                                               for e in ks)}
                      for s, ks in stages.items()}
+    by_name = collections.defaultdict(list)
+    for e in stages["other"]:
+        by_name[e["name"]].append(e)
+    out["other_by_name"] = sorted(
+        ([name.removeprefix("void ").replace("at::native::", "")[
+            :NAME_CHARS], len(es) / steps, _union_ms(
+            (e["ts"], e["ts"] + e["dur"]) for e in es) / steps]
+         for name, es in by_name.items()), key=lambda x: -x[2])[:OTHER_TOP]
     return out
 
 

@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from .adam import make_state
 from .trainer import TrainState
 
 STATE_FILE = "state.pt"
@@ -68,22 +69,6 @@ def _saved_tensors(payload: dict, optimizer: torch.optim.Adam) -> dict:
     return out
 
 
-def _make_adam_state(optimizer: torch.optim.Adam) -> None:
-    """Adam's state where the optimizer has not stepped yet, made as its
-    lazy initialization makes it: a zero count (on the device where Adam
-    is capturable) and zero moments."""
-    for group in optimizer.param_groups:
-        (param,) = group["params"]
-        st = optimizer.state[param]
-        if not st:
-            st["step"] = torch.zeros(
-                (), device=param.device if group["capturable"] else "cpu")
-            st["exp_avg"] = torch.zeros_like(
-                param, memory_format=torch.preserve_format)
-            st["exp_avg_sq"] = torch.zeros_like(
-                param, memory_format=torch.preserve_format)
-
-
 def restore(ckpt_dir: str, state: TrainState,
             step: Optional[int] = None) -> Optional[TrainState]:
     """Load the given (or the newest) checkpoint into `state` in place and
@@ -105,7 +90,7 @@ def restore(ckpt_dir: str, state: TrainState,
                          map_location=device, weights_only=True)
     saved = _saved_tensors(payload, state.optimizer)
     if payload["optimizer"]["state"]:
-        _make_adam_state(state.optimizer)
+        make_state(state.optimizer)
     with torch.no_grad():
         for name, t in state.tensors().items():
             if name not in saved:  # Adam's, absent from the checkpoint

@@ -4,9 +4,9 @@ schedule. Port of the reference's `gsrast_tpu/train/trainer.py`.
 The standard 3DGS optimizer recipe: one learning rate per parameter group,
 exponential decay of the means' rate scaled by the scene extent, the SH
 rest bands at 1/20 of the DC rate, and masked gradients so dead capacity
-slots stay frozen. The train step updates its `TrainState` in place, and
-on a card `TrainGraph` captures it once into a CUDA graph and replays it,
-as the reference jits it once.
+slots stay frozen; the update itself is `adam.py`'s. The train step
+updates its `TrainState` in place, and on a card `TrainGraph` captures it
+once into a CUDA graph and replays it, as the reference jits it once.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from ..camera import CAMERA_TENSORS, Camera
 from ..render.api import render
 from ..render.pipeline import span
 from ..scene.gaussians import GaussianScene
+from . import adam
 from . import densify as densify_mod
 from .loss import psnr, rgb_loss
 
@@ -103,14 +104,16 @@ def means_lr_tensor(tc: TrainConfig, scene_extent: float,
 def make_optimizer(scene: GaussianScene, tc: TrainConfig,
                    scene_extent: float) -> torch.optim.Adam:
     """One Adam over the scene's five parameters, a group each (named by
-    field), eps 1e-15 as the reference's optax.adam.
+    field), eps 1e-15 as the reference's optax.adam. It holds the state and
+    the rates; the train step updates them with `adam.update`
+    (`apply_gradients`), and only the sharded step calls its `step()`.
 
-    On a CUDA device Adam is capturable: its update counts and bias
-    corrections stay on the device, and the means' rate is a 0-d device
-    tensor that `apply_gradients` rewrites from the count, so the whole
-    step can be captured in a CUDA graph (`TrainGraph`). Eager steps on the
-    card take the same update. PyTorch refuses capturable Adam on the CPU,
-    where the counts live on the host and the rate is a float."""
+    On a CUDA device Adam is capturable: its update counts stay on the
+    device, and the means' rate is a 0-d device tensor that
+    `apply_gradients` rewrites from the count, so the whole step can be
+    captured in a CUDA graph (`TrainGraph`). PyTorch refuses capturable
+    Adam on the CPU, where the counts live on the host and the rate is a
+    float."""
     device = scene.means.device
     capturable = device.type == "cuda"
     lr0 = means_lr(tc, scene_extent, 0)
@@ -140,33 +143,24 @@ def init_train_state(scene: GaussianScene, tc: TrainConfig,
 
 
 def apply_gradients(state: TrainState, tc: TrainConfig,
-                    scene_extent: float) -> None:
-    """The optimizer half of a step, on the gradients in `.grad`: SH rest
-    bands / lr_sh_rest_div, every gradient times the live mask, the means'
-    decayed rate, one Adam update. On a card the rate is written on the
-    device from Adam's count (`means_lr_tensor`); on the CPU it is read
-    from the host's."""
-    scene, opt = state.scene, state.optimizer
+                    scene_extent: float, backend: str = "cuda") -> None:
+    """The optimizer half of a step, on the gradients in `.grad`, which it
+    reads and leaves as they are: the means' decayed rate, then one
+    `adam.update` (SH rest bands / lr_sh_rest_div, every gradient times the
+    live mask, Adam), the kernel of `csrc/adam.cu` for CUDA tensors under
+    backend 'cuda'. On a card the rate is written on the device from Adam's
+    count (`means_lr_tensor`); on the CPU it is read from the host's."""
+    opt = state.optimizer
     with torch.no_grad():
-        sh = scene.sh.grad
-        if sh.shape[1] > 1:
-            sh[:, 1:] *= 1.0 / tc.lr_sh_rest_div
-        live = scene.mask.float()
-        for p in scene.param_groups().values():
-            p.grad *= live.reshape((-1,) + (1,) * (p.dim() - 1))
-        # Adam's update count: the means group's (all groups step
-        # together), absent before the first update.
+        adam.make_state(opt)
         group = _group(opt, "means")
         (param,) = group["params"]
-        count = opt.state.get(param, {}).get("step")
+        count = opt.state[param]["step"]  # all groups step together
         if torch.is_tensor(group["lr"]):
-            if count is None:
-                count = torch.zeros((), device=param.device)
             group["lr"].copy_(means_lr_tensor(tc, scene_extent, count))
         else:
-            group["lr"] = means_lr(tc, scene_extent,
-                                   0 if count is None else int(count))
-    opt.step()
+            group["lr"] = means_lr(tc, scene_extent, int(count))
+    adam.update(opt, state.scene.mask, 1.0 / tc.lr_sh_rest_div, backend)
 
 
 def make_train_step(render_cfg: cfg.RenderConfig, tc: TrainConfig,
@@ -187,7 +181,7 @@ def make_train_step(render_cfg: cfg.RenderConfig, tc: TrainConfig,
                             backend=render_cfg.backend)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        apply_gradients(state, tc, scene_extent)
+        apply_gradients(state, tc, scene_extent, render_cfg.backend)
         densify_mod.accumulate_stats(state.densify_state, delta.grad,
                                      out.stats["radii"])
         state.step += 1
