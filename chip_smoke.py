@@ -73,7 +73,12 @@ gradients and on edge cells of 1, 3 and 1,025 Gaussians and an unaligned
 one, two launches bit for bit, one launch an eager step; its time cold
 and warm beside its byte bound, the plain version's and the library
 call's, torch.optim.Adam(fused=True), alone and after the scale and mask
-passes; phases 8, 9, 10, 12, 13 and 19 train through it); and
+passes; phases 8, 9, 10, 12, 13 and 19 train through it), and the
+viewer's frame in a CUDA graph (phase 23: render_app in each mode through
+its FrameGraph, replayed frames bit for bit against eager ones on
+trained_116k and the 1M scene at 1080p and timed in turns, the ellipsoid
+ray-trace kernel against its plain version pixel for pixel on seven cells,
+with its time beside its operations bound); and
 checks that each path went through the kernels.
 Each phase prints its lines before the next begins; the line before the last is the per-kernel
 JSON record, and the last is {"ok": true, "device": {...}}. Any failure
@@ -640,12 +645,17 @@ def phase_viewer(dev) -> dict:
         ms, out, log = run_main(fn, argv)
         torch.cuda.synchronize()
         apps[name] = {"ms": ms, "launches": dict(_kernels.launch_counts),
+                      "replayed": dict(_kernels.replayed_counts),
                       "last_line": log.splitlines()[-1]}
         if name != "spheretrace":
             assert apps[name]["launches"]["blend_forward"] > 0, apps[name]
     print(f"phase 14 apps (CUDA events per call): {json.dumps(apps)}",
           flush=True)
     assert apps["render_app"]["last_line"].startswith("frames: {'frames': 4")
+    # render_app's frames go through a FrameGraph: a warm-up and a capture
+    # launch the blend, the other three frames are replays.
+    assert apps["render_app"]["launches"]["blend_forward"] == 2, apps
+    assert apps["render_app"]["replayed"]["blend_forward"] == 3, apps
 
     # The native .ply reader against numpy's, on trained_116k.
     t0 = time.perf_counter()
@@ -3213,6 +3223,292 @@ def phase_adam(dev, colmap_dir: str) -> dict:
     return out
 
 
+# -- phase 23: the viewer frame in a CUDA graph ------------------------------
+# render_app's frames through `render.frame.FrameGraph` (captured once per
+# image shape, replayed: the reference's jitted frame), each replay against
+# the same view drawn eagerly, and the ellipsoid ray trace's kernel
+# (`csrc/ellipsoids.cu`) against its plain version.
+
+FRAME_VIEWS = 8    # views of an orbit (diag/frame_timing.py's VIEWS)
+FRAME_ROUNDS = 2   # timing rounds, each eager, graphed, graphed, eager
+FRAME_MODES = ("gaussians", "ellipsoids", "pointcloud")
+# The kernel against its plain version: pixel for pixel, or at most this
+# share of pixels differing, each where the two winners' t lie within
+# ELLIPSOID_T_RTOL of each other (a ray grazing two hits).
+ELLIPSOID_MAX_DIFFER = 1e-3
+ELLIPSOID_T_RTOL = 1e-5
+ELLIPSOID_SOLVE_FLOPS = 33  # a ray's solve to its discriminant (the code's)
+ELLIPSOID_TEST_OPS = 6      # a span test against a block's region
+FP32_OPS = 67e12            # an H100's float32 rate outside the tensor cores
+ELLIPSOID_EDGE = (1901, 1061)  # 119 x 67 tiles: neither a multiple of 4
+ELLIPSOID_CELLS = ("trained_116k", "1M", "inside", "edge", "culled",
+                   "culled_1M")
+
+
+def frame_cell(label: str, mode: str, draw, backend: str, views) -> dict:
+    """One (scene, mode): every view drawn eagerly, then the orbit twice
+    through a FrameGraph (a warm-up, a capture, replays), each frame held
+    bit for bit to its eager image; the launches of one eager frame, of
+    the graph's run and its replays; then eager and graphed frames timed
+    in turns (CUDA events around each call), best and median."""
+    from gsrast_tpu_torch import _kernels
+    from gsrast_tpu_torch.render.frame import FrameGraph
+
+    _kernels.reset_launch_counts()
+    eager = [draw(cam).clone() for cam in views]
+    torch.cuda.synchronize()
+    per_frame = {k: v // len(views) for k, v in
+                 _kernels.launch_counts.items() if v}
+    graph = FrameGraph(draw, mode, backend)
+    _kernels.reset_launch_counts()
+    equal = [torch.equal(graph(cam), ref) for _ in range(2)
+             for cam, ref in zip(views, eager)]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _kernels.launch_counts.items() if v}
+    replayed = {k: v for k, v in _kernels.replayed_counts.items() if v}
+    res = {"frames": len(equal), "bits_equal": sum(equal),
+           "captures": graph.captures, "replays": graph.replays,
+           "per_frame": per_frame, "launches": launches,
+           "replayed": replayed}
+    assert all(equal), (label, mode, equal)
+    assert graph.captures == 1 and graph.replays == len(equal) - 1, res
+    assert launches == {k: 2 * v for k, v in per_frame.items()}, res
+    assert replayed == {k: graph.replays * v for k, v in per_frame.items()
+                        }, res
+    if mode == "gaussians":
+        assert all(per_frame.get(k) for k in FORWARD_KERNELS), res
+    elif mode == "ellipsoids":
+        assert per_frame == {"ellipsoids": 1}, res
+    else:
+        assert per_frame == {}, res
+    ms = {"eager": [], "graphed": []}
+    for _ in range(FRAME_ROUNDS):
+        for kind in ("eager", "graphed", "graphed", "eager"):
+            fn = draw if kind == "eager" else graph
+            for cam in views:
+                ms[kind].append(event_ms(lambda: fn(cam)))
+    for kind, times in ms.items():
+        res[f"{kind}_best_ms"] = min(times)
+        res[f"{kind}_median_ms"] = statistics.median(times)
+    print(f"phase 23 frame {label} {mode} {WIDTH}x{HEIGHT}, {len(views)} "
+          f"orbit views twice through FrameGraph, {len(equal)} frames "
+          f"bitwise equal to eager ones: {json.dumps(res)}", flush=True)
+    return res
+
+
+def ellipsoid_work(pre, height: int, width: int) -> dict:
+    """The kernel's work on these inputs, as its code does it: a ray solve
+    for each pixel of each (Gaussian, tile) pair of the spans, a span test
+    of each Gaussian against each block's region of 4 x 4 tiles; the bytes
+    each Gaussian's terms, span and colour, each pixel's direction and
+    output. Its bound is the larger of operations over FP32_OPS (the tests'
+    integer compares counted at that rate) and bytes over HBM_BPS."""
+    tiles_h, tiles_w = -(-height // 16), -(-width // 16)
+    regions = -(-tiles_h // 4) * -(-tiles_w // 4)
+    x0, x1, y0, y1 = pre.spans.long().unbind(-1)
+    pairs = int(((x1 - x0) * (y1 - y0)).sum())
+    whole = int(((x0 == 0) & (x1 == tiles_w) & (y0 == 0)
+                 & (y1 == tiles_h)).sum())
+    n = pre.terms.shape[0]
+    ops = pairs * 256 * ELLIPSOID_SOLVE_FLOPS + n * regions * ELLIPSOID_TEST_OPS
+    nbytes = n * (16 * 4 + 16 + 12) + height * width * 24 + 12
+    ops_ms, bytes_ms = 1e3 * ops / FP32_OPS, 1e3 * nbytes / HBM_BPS
+    return {"gaussians": n, "pairs": pairs, "whole_spans": whole,
+            "pixel_solves": pairs * 256,
+            "span_tests": n * regions, "ops": ops, "bytes": nbytes,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def compare_ellipsoids(got, ref, pre, dirs) -> dict:
+    """The kernel's image against the plain version's: the pixels that
+    differ, and for each the relative gap between the t of the nearest hit
+    showing the kernel's colour and of the one showing the plain version's
+    (every Gaussian whose span holds the pixel's tile solved again by the
+    plain version's arithmetic, `hit_distance`)."""
+    from gsrast_tpu_torch.viz.ellipsoids import hit_distance
+
+    differ = (got != ref).any(-1)
+    n = int(differ.sum())
+    worst = 0.0
+    x0, x1, y0, y1 = pre.spans.long().unbind(-1)
+    pixels = differ.nonzero().tolist()
+    for y, x in pixels[:int(ELLIPSOID_MAX_DIFFER * differ.numel()) + 1]:
+        ty, tx = y // 16, x // 16
+        idx = ((tx >= x0) & (tx < x1) & (ty >= y0)
+               & (ty < y1)).nonzero().squeeze(1)
+        t, hit = hit_distance(pre.terms[idx],
+                              dirs[y, x].reshape(1, 3, 1).expand(
+                                  len(idx), 3, 1))
+        t, color = t[:, 0][hit[:, 0]], pre.color[idx][hit[:, 0]].clamp(0, 1)
+        near = [t[(color == img[y, x]).all(-1)] for img in (got, ref)]
+        if min(len(v) for v in near):
+            t_got, t_ref = (float(v.min()) for v in near)
+            worst = max(worst, abs(t_got - t_ref) / t_ref)
+        else:
+            worst = math.inf
+    return {"pixels": differ.numel(), "differ": n,
+            "share": n / differ.numel(), "worst_t_rel": worst,
+            "max_abs_err": float((got - ref).abs().max())}
+
+
+def ellipsoid_occupancy() -> dict:
+    """The kernel's launch as the library reports it."""
+    import ctypes
+
+    from gsrast_tpu_torch import _kernels
+
+    vals = [ctypes.c_int() for _ in range(5)]
+    assert _kernels.load().lib.gsrast_ellipsoids_occupancy(
+        *(ctypes.byref(v) for v in vals)) == 0
+    return dict(zip(("threads", "blocks_per_sm", "registers", "local_bytes",
+                     "static_shared"), (v.value for v in vals)))
+
+
+def ellipsoid_cell(label: str, act, cam, dev, background=(0.0, 0.0, 0.0),
+                   plain_iters: int = 1) -> dict:
+    """The kernel (one raw launch, not counted) against the plain version
+    on one input; the kernel's time cold (the L2 flushed before each
+    launch) and warm, its bound, and the plain version's time."""
+    from gsrast_tpu_torch.camera import camera_rays
+    from gsrast_tpu_torch.viz.ellipsoids import (ellipsoid_terms,
+                                                 ellipsoids_launch,
+                                                 render_ellipsoids_torch)
+    from gsrast_tpu_torch.viz.pointcloud import background_row
+
+    pre = ellipsoid_terms(act, cam)
+    _, dirs = camera_rays(cam)
+    launch = ellipsoids_launch(pre, dirs, background_row(background, dev),
+                               cam.height, cam.width)
+    assert launch.fn(*launch.args) == 0
+    torch.cuda.synchronize()
+    got = launch.out.clone()
+    ref = render_ellipsoids_torch(act, cam, background)
+    res = {**compare_ellipsoids(got, ref, pre, dirs),
+           **ellipsoid_work(pre, cam.height, cam.width),
+           **image_stats(ref, background)}
+    res["ms"] = cold_ms(lambda: launch.fn(*launch.args), dev)
+    res["warm_ms"] = cuda_ms(lambda: launch.fn(*launch.args), iters=5,
+                             warmup=1)
+    res["share"] = res["bound_ms"] / res["ms"]
+    res["plain_ms"] = cuda_ms(
+        lambda: render_ellipsoids_torch(act, cam, background),
+        iters=plain_iters, warmup=0)
+    print(f"phase 23 ellipsoid kernel, {label} ({cam.width}x{cam.height}, "
+          f"{res['gaussians']} Gaussians; ms by CUDA events): "
+          f"{json.dumps(res)}", flush=True)
+    assert res["share"] <= 1.0 and res["max_abs_err"] <= 1.0, res
+    assert res["differ"] <= ELLIPSOID_MAX_DIFFER * res["pixels"], res
+    assert res["worst_t_rel"] <= ELLIPSOID_T_RTOL, res
+    return res
+
+
+def ellipsoid_cells(scenes: dict, dev) -> dict:
+    """The kernel against its plain version on the two scenes' base views,
+    a camera inside trained_116k (many spans cover the whole image), an
+    edge cell of ELLIPSOID_EDGE pixels, and trained_116k and the 1M scene
+    with no Gaussian above the cull (the span walk alone)."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from gsrast_tpu_torch.camera import auto_frame, look_at
+
+    out = {}
+    for name in ("trained_116k", "1M"):
+        scene, base, _ = scenes[name]
+        out[name] = ellipsoid_cell(f"{name} base view", scene.activated(),
+                                   base, dev, plain_iters=2)
+    scene, base, _ = scenes["trained_116k"]
+    act = scene.activated()
+    mn, mx = (x.cpu().numpy() for x in scene.bbox())
+    center = 0.5 * (mn + mx)
+    inside = base.replace(view=look_at(center, center + np.array(
+        [0.3, 0.1, 1.0], np.float32), device=dev))
+    out["inside"] = ellipsoid_cell("trained_116k, camera at its centre",
+                                   act, inside, dev)
+    assert out["inside"]["whole_spans"] > 0, out["inside"]
+    out["edge"] = ellipsoid_cell(
+        "trained_116k, an image not a multiple of 16", act,
+        auto_frame(mn, mx, *ELLIPSOID_EDGE, device=dev), dev, BACKGROUND)
+    culled = dc.replace(act, opacities=torch.full_like(act.opacities, 0.29))
+    out["culled"] = ellipsoid_cell("trained_116k, no Gaussian above the "
+                                   "cull", culled, base, dev, BACKGROUND)
+    # The 1M scene culled: the kernel's span walk alone at its largest N.
+    act = scenes["1M"][0].activated()
+    culled = dc.replace(act, opacities=torch.full_like(act.opacities, 0.29))
+    out["culled_1M"] = ellipsoid_cell("1M, no Gaussian above the cull",
+                                      culled, scenes["1M"][1], dev,
+                                      BACKGROUND)
+    for key in ("culled", "culled_1M"):
+        assert out[key]["pairs"] == 0
+        assert out[key]["drawn_share"] == 0.0, out[key]
+    return out
+
+
+def phase_frame(dev) -> dict:
+    """Phase 23: render_app on trained_116k at WIDTH x HEIGHT in each mode
+    through FrameGraph (the main path: counts reset just before, read just
+    after); each mode's frames on trained_116k and the 1M scene, replays
+    against eager frames bit for bit, timed in turns; the ellipsoid kernel
+    against its plain version (`ellipsoid_cells`). Returns the results."""
+    from gsrast_tpu_torch import _kernels
+    from gsrast_tpu_torch.apps import render_app
+    from gsrast_tpu_torch.diag.frame_timing import frame_draws, frame_scenes
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    res = {"card": smi, "occupancy": ellipsoid_occupancy(), "app": {}}
+    print(f"phase 23 card: {smi}; ellipsoid kernel's launch: "
+          f"{json.dumps(res['occupancy'])}", flush=True)
+    size = ["--width", str(WIDTH), "--height", str(HEIGHT)]
+    for mode in FRAME_MODES:
+        _kernels.reset_launch_counts()
+        ms, report, log = run_main(render_app.main, [
+            FIXTURE_116K, "--mode", mode, "--frames", str(FRAME_VIEWS),
+            *size, "--outdir", os.path.join(OUT_DIR, f"frames_{mode}")])
+        torch.cuda.synchronize()
+        app = {"ms": ms, "launches": {
+            k: v for k, v in _kernels.launch_counts.items() if v},
+            "replayed": {k: v for k, v in _kernels.replayed_counts.items()
+                         if v}, "report": report}
+        res["app"][mode] = app
+        print(f"phase 23 render_app --mode {mode} --frames {FRAME_VIEWS} "
+              f"trained_116k {WIDTH}x{HEIGHT} (CUDA events for the call): "
+              f"{json.dumps(app)}", flush=True)
+        assert log.splitlines()[-1].startswith(
+            f"frames: {{'frames': {FRAME_VIEWS}"), log
+        kernels = {"gaussians": FORWARD_KERNELS, "ellipsoids":
+                   ("ellipsoids",), "pointcloud": ()}[mode]
+        for k in kernels:  # a warm-up and a capture, then replays
+            per_frame = app["replayed"][k] // (FRAME_VIEWS - 1)
+            assert app["replayed"][k] == (FRAME_VIEWS - 1) * per_frame > 0
+            # (the tier plan's preprocess before the frames launches too)
+            assert (app["launches"][k] >= 2 * per_frame if
+                    k == "preprocess_forward" else
+                    app["launches"][k] == 2 * per_frame), app
+        if not kernels:
+            assert not app["launches"] and not app["replayed"], app
+    with torch.inference_mode():
+        scenes = frame_scenes(dev, WIDTH, HEIGHT)
+        res["frames"] = {}
+        for name, (scene, base, views) in scenes.items():
+            for mode, (draw, backend) in frame_draws(scene, base).items():
+                res["frames"][f"{name}_{mode}"] = frame_cell(
+                    name, mode, draw, backend, views)
+            torch.cuda.empty_cache()
+        res["ellipsoids"] = ellipsoid_cells(scenes, dev)
+    print(f"phase 23 frame ms ({smi}; best / median over {FRAME_ROUNDS} "
+          f"rounds of eager, graphed, graphed, eager): " + json.dumps({
+              key: {kind: [round(cell[f"{kind}_best_ms"], 4),
+                           round(cell[f"{kind}_median_ms"], 4)]
+                    for kind in ("eager", "graphed")}
+              for key, cell in res["frames"].items()}), flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4034,6 +4330,12 @@ def main() -> int:
     adam_res = phase_adam(dev, scene_dir)
     print(f"phase 22 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- phase 23: the viewer frame in a CUDA graph ------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    frame_res = phase_frame(dev)
+    print(f"phase 23 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     b116 = bwd["trained_116k"]
     rows_full, tiles_full = int(full_starts[-1]) // 8, t
     print(json.dumps({"kernels": [{
@@ -4121,6 +4423,20 @@ def main() -> int:
         "cells": {cell: {key: adam_res[cell][key] for key in (
             "ms", "warm_ms", "plain_ms", "bound_ms", "share", "library_ms",
             "library_with_glue_ms")} for cell in ADAM_CELLS},
+    }, {
+        "name": "ellipsoids", "route": "cuda",
+        "source": "gsrast_tpu_torch/csrc/ellipsoids.cu",
+        "replaces": "gsrast_tpu/viz/ellipsoids.py:26-100",
+        "launches": frame_res["app"]["ellipsoids"]["launches"]["ellipsoids"],
+        "replayed": frame_res["app"]["ellipsoids"]["replayed"]["ellipsoids"],
+        "max_abs_err": max(frame_res["ellipsoids"][cell]["max_abs_err"]
+                           for cell in ELLIPSOID_CELLS),
+        **{key: frame_res["ellipsoids"]["trained_116k"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "cells": {cell: {key: frame_res["ellipsoids"][cell][key] for key in (
+            "ms", "warm_ms", "plain_ms", "bound_ms", "share", "differ")}
+            for cell in ELLIPSOID_CELLS},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

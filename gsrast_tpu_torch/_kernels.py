@@ -20,9 +20,11 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from .camera import CAMERA_TENSORS
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -35,7 +37,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 launch_counts = {"tile_order": 0, "blend_forward": 0, "blend_backward": 0,
                  "bisect_a": 0, "bisect_b": 0, "bisect_c": 0, "bisect_d": 0,
                  "preprocess_forward": 0, "preprocess_backward": 0,
-                 "loss_forward": 0, "loss_backward": 0, "adam": 0}
+                 "loss_forward": 0, "loss_backward": 0, "adam": 0,
+                 "ellipsoids": 0}
 
 
 # Runs per kernel inside CUDA graph replays since the last reset: a replay
@@ -47,6 +50,13 @@ replayed_counts = dict.fromkeys(launch_counts, 0)
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = replayed_counts[name] = 0
+
+
+def uses_kernel(backend: str, device: torch.device) -> bool:
+    """The dispatch rule of every kernel: the kernel runs for CUDA tensors
+    under backend 'cuda', and its plain version otherwise (the 'torch',
+    'autograd' and 'dense' oracles never reach a kernel)."""
+    return backend == "cuda" and device.type == "cuda"
 
 
 def replay(graph, launches: dict) -> None:
@@ -85,6 +95,81 @@ def capture(fn: Callable, what: str) -> tuple:
         raise RuntimeError(
             f"capturing {what} in a CUDA graph failed: {err}") from err
     return graph, out, {k: launch_counts[k] - before[k] for k in before}
+
+
+@dataclasses.dataclass
+class GraphSlot:
+    """One image shape's static inputs (a camera and further tensors, which
+    each call copies its own into), its graph, the graph's output and the
+    launches per kernel its capture recorded."""
+
+    camera: object
+    inputs: tuple
+    graph: Optional[torch.cuda.CUDAGraph] = None
+    out: object = None
+    launches: Optional[dict] = None
+
+    def load(self, camera, inputs: tuple) -> None:
+        for name in CAMERA_TENSORS:
+            getattr(self.camera, name).copy_(getattr(camera, name))
+        for static, given in zip(self.inputs, inputs):
+            static.copy_(given)
+
+
+class ShapeGraphs:
+    """A function of a camera (and further tensors) captured once per image
+    shape (height, width) into a CUDA graph and replayed: the counterpart of
+    the reference's `jax.jit`, which compiles once and dispatches one
+    program a call.
+
+    `run(fn, camera, *inputs)` returns fn(camera, *inputs) computed on the
+    shape's static inputs, into which each call copies the given ones, so
+    views visited round robin, each with its own intrinsics, share one
+    graph. The first call of a shape runs fn eagerly on a side stream
+    (`on_side_stream`: every kernel loads and every allocation has a block
+    before the capture) and returns its output; the second captures fn
+    and replays it once, so fn runs once a call; every later call is one
+    `replay()`. From the second call on, the output is the graph's own,
+    rewritten by the next replay. A failed capture raises, chained to fn's
+    error and naming `what`; nothing falls back to eager calls.
+
+    `captures` and `replays` count graphs captured and replays run;
+    `captured`, per kernel of `launch_counts`, the launches the captures
+    recorded. A replay launches no wrapper, so it adds nothing to
+    `launch_counts`, and its capture's launches to `replayed_counts`."""
+
+    def __init__(self, what: str):
+        self.what = what
+        self.slots = {}  # (height, width) -> GraphSlot
+        self.captures = self.replays = 0
+        self.captured = dict.fromkeys(launch_counts, 0)
+
+    def replays_next(self, camera) -> bool:
+        """Whether a call with `camera` is a replay of a captured graph."""
+        slot = self.slots.get((camera.height, camera.width))
+        return slot is not None and slot.graph is not None
+
+    def run(self, fn: Callable, camera, *inputs):
+        shape = (camera.height, camera.width)
+        slot = self.slots.get(shape)
+        if slot is None:
+            slot = self.slots[shape] = GraphSlot(
+                camera.replace(**{name: getattr(camera, name).clone()
+                                  for name in CAMERA_TENSORS}),
+                tuple(x.clone() for x in inputs))
+            return on_side_stream(lambda: fn(slot.camera, *slot.inputs),
+                                  camera.device)
+        slot.load(camera, inputs)
+        if slot.graph is None:
+            slot.graph, slot.out, slot.launches = capture(
+                lambda: fn(slot.camera, *slot.inputs),
+                f"{self.what} ({shape[0]} x {shape[1]})")
+            for name, count in slot.launches.items():
+                self.captured[name] += count
+            self.captures += 1
+        replay(slot.graph, slot.launches)
+        self.replays += 1
+        return slot.out
 
 
 class Launch(NamedTuple):
@@ -217,6 +302,12 @@ def load() -> Library:
     fn.argtypes = [i32, *[vp] * 5, f32, vp]
     fn.restype = ctypes.c_int
     fn = lib.gsrast_adam_occupancy
+    fn.argtypes = [vp] * 5
+    fn.restype = ctypes.c_int
+    fn = lib.gsrast_ellipsoids
+    fn.argtypes = [*[vp] * 5, *[i32] * 3, vp, vp, vp]
+    fn.restype = ctypes.c_int
+    fn = lib.gsrast_ellipsoids_occupancy
     fn.argtypes = [vp] * 5
     fn.restype = ctypes.c_int
     return Library(lib=lib, path=path, build_seconds=seconds, build_log=log)

@@ -1,7 +1,10 @@
 """The viewer, offline: load a scene, frame its bbox, render frames along
 an orbit (or a scripted first-person walk, `--flythrough`) in any of the
 three modes, record frame statistics, write each frame as a PNG and print
-the inspector's scene and camera reports.
+the inspector's scene and camera reports. On a card every frame goes
+through `render.frame.FrameGraph` (captured once per image shape and
+replayed, as the reference jits its frame); on the CPU frames are drawn
+eagerly.
 
     python -m gsrast_tpu_torch.apps.render_app scene.ply
         [--mode gaussians|ellipsoids|pointcloud] [--frames 8]
@@ -24,6 +27,7 @@ from .. import cli
 from ..camera import (auto_frame, fp_camera, fp_init, fp_look, fp_move,
                       fp_speed, look_at)
 from ..render.api import auto_render_config, render
+from ..render.frame import FrameGraph
 from ..scene.gaussians import random_scene
 from ..scene.ply import load_ply
 from ..utils.image import save_png
@@ -103,6 +107,9 @@ def main(argv=None) -> dict:
                 return render_ellipsoids(act, cam)
             return render_pointcloud(act, cam)
 
+        frame = FrameGraph(draw, args.mode,
+                           rcfg.backend if rcfg is not None else "cuda")
+
         if args.flythrough:
             views = flythrough_views(center, radius, args.frames, args.width,
                                      args.height, device)
@@ -115,7 +122,7 @@ def main(argv=None) -> dict:
         os.makedirs(args.outdir, exist_ok=True)
         for i, view in enumerate(views):
             t0 = time.perf_counter()
-            img = draw(base.replace(view=view))
+            img = frame(base.replace(view=view))
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             stats.record(time.perf_counter() - t0,

@@ -138,7 +138,7 @@ def capture_refusal(backend: str) -> Optional[str]:
         return None
     return ("the plain blend versions read the tiles' segment lengths on "
             "the host" if backend == "torch" else
-            "the autograd oracle is not capture-safe")
+            f"the {backend} oracle is not capture-safe")
 
 
 def check_chain(backend: str, device, chain: int) -> None:

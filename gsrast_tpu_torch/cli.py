@@ -143,7 +143,9 @@ def cmd_render(argv) -> torch.Tensor:
                          "versions on any device, 'autograd' the capped "
                          "closed-form oracle (the reference's 'xla'), "
                          "'dense' brute force; default: 'cuda' on a CUDA "
-                         "device, else 'torch'")
+                         "device, else 'torch'. ellipsoids mode: 'cuda' "
+                         "(the default) the ray-trace kernel on a CUDA "
+                         "device, any other the plain version")
     _add_view(ap, cfg.DEFAULT_WIDTH, cfg.DEFAULT_HEIGHT)
     _add_device(ap)
     _add_dist(ap)
@@ -164,7 +166,8 @@ def cmd_render(argv) -> torch.Tensor:
             img = render(scene, camera, _render_cfg(args, scene,
                                                     camera)).image
         elif args.mode == "ellipsoids":
-            img = render_ellipsoids(scene.activated(), camera)
+            img = render_ellipsoids(scene.activated(), camera,
+                                    backend=args.backend or "cuda")
         else:
             img = render_pointcloud(scene.activated(), camera)
         if device.type == "cuda":

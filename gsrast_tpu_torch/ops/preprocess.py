@@ -358,11 +358,9 @@ class PreprocessFunction(torch.autograd.Function):
 
 def preprocess_pair(render_cfg: cfg.RenderConfig,
                     device: torch.device) -> Optional[PreprocessPair]:
-    """The kernels (`PREPROCESS_CUDA`) for CUDA tensors under backend
-    'cuda'; None, the plain version differentiated by autograd, for every
-    other device and backend, so that the 'torch', 'autograd' and 'dense'
-    oracles never reach the kernels."""
-    if render_cfg.backend == "cuda" and device.type == "cuda":
+    """The kernels (`PREPROCESS_CUDA`) where `_kernels.uses_kernel`; None,
+    the plain version differentiated by autograd, otherwise."""
+    if _kernels.uses_kernel(render_cfg.backend, device):
         return PREPROCESS_CUDA
     return None
 

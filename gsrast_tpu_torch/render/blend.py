@@ -224,7 +224,7 @@ def _dispatch(backend: str, device: torch.device, cuda_fn, torch_fn):
     'torch' runs the plain version on tensors of any device, as the
     caller's explicit choice. 'cuda' on other tensors raises: nothing falls
     back."""
-    if backend == "cuda" and device.type == "cuda":
+    if _kernels.uses_kernel(backend, device):
         return cuda_fn
     if backend == "torch":
         return torch_fn

@@ -229,12 +229,12 @@ def adam_update_cuda(groups: Sequence[Group], live: torch.Tensor,
 def update(optimizer: torch.optim.Adam, live: torch.Tensor,
            rest_scale: float, backend: str = "cuda") -> None:
     """One update of every group of `optimizer` from its parameters'
-    `.grad` (module docstring): the kernel for CUDA tensors under backend
-    'cuda', the plain version for every other device and backend. Makes
-    Adam's state first where it has none (`make_state`)."""
+    `.grad` (module docstring): the kernel where `_kernels.uses_kernel`,
+    the plain version otherwise. Makes Adam's state first where it has
+    none (`make_state`)."""
     make_state(optimizer)
     groups = groups_of(optimizer)
-    if backend == "cuda" and live.device.type == "cuda":
+    if _kernels.uses_kernel(backend, live.device):
         adam_update_cuda(groups, live, rest_scale)
     else:
         adam_update_torch(groups, live, rest_scale)

@@ -272,11 +272,9 @@ class LossFunction(torch.autograd.Function):
 
 
 def loss_pair(backend: str, device: torch.device) -> Optional[LossPair]:
-    """The kernels (`LOSS_CUDA`) for CUDA tensors under backend 'cuda';
-    None, the plain version differentiated by autograd, for every other
-    device and backend, so that the 'torch', 'autograd' and 'dense' oracles
-    never reach the kernels."""
-    if backend == "cuda" and device.type == "cuda":
+    """The kernels (`LOSS_CUDA`) where `_kernels.uses_kernel`; None, the
+    plain version differentiated by autograd, otherwise."""
+    if _kernels.uses_kernel(backend, device):
         return LOSS_CUDA
     return None
 

@@ -19,7 +19,7 @@ import torch
 
 from .. import _kernels
 from .. import config as cfg
-from ..camera import CAMERA_TENSORS, Camera
+from ..camera import Camera
 from ..render.api import render
 from ..render.pipeline import span
 from ..scene.gaussians import GaussianScene
@@ -192,40 +192,25 @@ def make_train_step(render_cfg: cfg.RenderConfig, tc: TrainConfig,
     return train_step
 
 
-@dataclasses.dataclass
-class _GraphSlot:
-    """One image shape's static inputs, its graph and the graph's metrics."""
-
-    camera: Camera
-    target: torch.Tensor
-    graph: Optional[torch.cuda.CUDAGraph] = None
-    out: Optional[dict] = None
-    launches: Optional[dict] = None  # per kernel, what the capture recorded
-
-    def load(self, camera: Camera, target: torch.Tensor) -> None:
-        for name in CAMERA_TENSORS:
-            getattr(self.camera, name).copy_(getattr(camera, name))
-        self.target.copy_(target)
-
-
-class TrainGraph:
+class TrainGraph(_kernels.ShapeGraphs):
     """The train step captured once per image shape into a CUDA graph and
     replayed: the counterpart of the reference's `jax.jit(train_step)`,
     which compiles the step once and dispatches it as one program.
 
     `TrainGraph(step_fn)(state, camera, target)` takes what `step_fn` (a
-    `make_train_step` step) takes and returns its metrics. Per image shape
-    (height, width) it keeps static inputs, a camera (`CAMERA_TENSORS`) and
-    a target, into which each call copies the ones it is given, so views
-    visited round robin, each with its own intrinsics, share one graph. The
-    first call of a shape runs one eager step on a side stream (it creates
-    Adam's state and the allocator's blocks); the second captures the step
-    and replays it once, so no step is lost or run twice; every later call
-    is one `replay()` and advances `state.step` on the host. Everything
-    else the step changes it changes in place, so densify, the opacity
-    reset, a checkpoint restore and a rollback between calls, which write
-    into the same tensors (`train/densify.py`, `train/checkpoint.py`), are
-    what the next replay reads.
+    `make_train_step` step) takes and returns its metrics, through
+    `_kernels.ShapeGraphs`: per image shape (height, width) static inputs,
+    a camera (`CAMERA_TENSORS`) and a target, into which each call copies
+    the ones it is given, so views visited round robin, each with its own
+    intrinsics, share one graph. The first call of a shape runs one eager
+    step on a side stream (it creates Adam's state and the allocator's
+    blocks); the second captures the step and replays it once, so no step
+    is lost or run twice; every later call is one `replay()` and advances
+    `state.step` on the host. Everything else the step changes it changes
+    in place, so densify, the opacity reset, a checkpoint restore and a
+    rollback between calls, which write into the same tensors
+    (`train/densify.py`, `train/checkpoint.py`), are what the next replay
+    reads.
 
     A graph replays on the tensors of the state it was captured with: call
     it with that state. The metrics of a replay are the graph's own
@@ -233,52 +218,20 @@ class TrainGraph:
     that fails raises, chained to the step's error; nothing falls back to
     eager steps. On the CPU every call is `step_fn` itself.
 
-    `captures` and `replays` count graphs captured and replays run;
-    `captured`, per kernel of `_kernels.launch_counts`, the launches the
-    captures recorded (one step's each). A replay launches no wrapper, so
-    it adds nothing to `launch_counts`, and its capture's launches to
-    `_kernels.replayed_counts`."""
+    `captures`, `replays` and `captured` are `ShapeGraphs`'."""
 
     def __init__(self, step_fn: Callable):
+        super().__init__("the train step")
         self.step_fn = step_fn
-        self.slots = {}  # (height, width) -> _GraphSlot
-        self.captures = self.replays = 0
-        self.captured = dict.fromkeys(_kernels.launch_counts, 0)
 
     def __call__(self, state: TrainState, camera: Camera,
                  target: torch.Tensor) -> dict:
         if camera.device.type != "cuda":
             return self.step_fn(state, camera, target)
-        shape = (camera.height, camera.width)
-        slot = self.slots.get(shape)
-        if slot is None:
-            slot = self.slots[shape] = _GraphSlot(
-                camera.replace(**{name: getattr(camera, name).clone()
-                                  for name in CAMERA_TENSORS}),
-                target.clone())
-            return self._warm_up(slot, state)
-        slot.load(camera, target)
-        if slot.graph is None:
-            self._capture(slot, state, shape)
-        else:
+        if self.replays_next(camera):
             state.step += 1
-        _kernels.replay(slot.graph, slot.launches)
-        self.replays += 1
-        return slot.out
-
-    def _warm_up(self, slot: _GraphSlot, state: TrainState) -> dict:
-        return _kernels.on_side_stream(
-            lambda: self.step_fn(state, slot.camera, slot.target),
-            slot.target.device)
-
-    def _capture(self, slot: _GraphSlot, state: TrainState,
-                 shape: tuple) -> None:
-        slot.graph, slot.out, slot.launches = _kernels.capture(
-            lambda: self.step_fn(state, slot.camera, slot.target),
-            f"the train step ({shape[0]} x {shape[1]})")
-        for name, count in slot.launches.items():
-            self.captured[name] += count
-        self.captures += 1
+        return self.run(lambda cam, tgt: self.step_fn(state, cam, tgt),
+                        camera, target)
 
 
 def surgery_opt_state(optimizer: torch.optim.Adam,

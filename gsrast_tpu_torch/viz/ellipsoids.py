@@ -17,29 +17,43 @@ outside them cannot hit, so this changes no pixel. The solve is the reference's,
 (o, d) in the ellipsoid's unit-sphere frame is (oo, dd) with
 oo = S^-1 R^T (o - mu) and dd = S^-1 R^T d, a = dd.dd, b = 2 oo.dd,
 c = oo.oo - 1, t the nearest root beyond 1e-4. Each pixel keeps the least
-(t, Gaussian index) over its pairs, taken as one 64-bit key by
-`scatter_reduce` (a positive float's bits order as an integer).
+(t, Gaussian index) over its pairs, taken as one 64-bit key (a positive
+float's bits order as an integer). Every 3-term product is written out,
+summed left to right, so that the kernel repeats it bit for bit.
+
+`ellipsoid_terms`, the prologue over all N Gaussians with static shapes,
+gives each its solve's terms and its span of tiles (empty where culled).
+Then `render_ellipsoids_cuda` (the hand-written kernel of
+`csrc/ellipsoids.cu`: one launch, nothing read on the host, so a CUDA graph
+captures it) or `render_ellipsoids_torch`, the plain version, which lists
+the (Gaussian, tile) pairs and solves them in chunks with `scatter_reduce`.
+`render_ellipsoids` dispatches by `_kernels.uses_kernel`.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from ..camera import Camera, camera_rays, no_tf32
+from .. import _kernels
+from ..camera import Camera, camera_rays
 from ..ops.covariance import quat_to_rotmat
 from ..ops.projection import to_camera
 from ..scene.gaussians import ActivatedGaussians
+from .pointcloud import background_row
 
 ALPHA_CULL = 0.3  # drawn at opacity >= 0.3
 SCALE_MULT = 2.0  # ellipsoid semi-axes: 2x the Gaussian's scales
 T_MIN = 1e-4      # nearest root beyond this distance
 TILE = 16         # rays are grouped in TILE x TILE pixel tiles
 MARGIN_PX = 2.0   # pixels added on each side of a projected sphere's box
+TERMS = 16        # floats of a Gaussian's terms: R^T (9), 1/s (3), oo (3), c
 _NO_HIT = torch.iinfo(torch.int64).max
-# Bytes per (Gaussian, tile) pair alive at once in a chunk: the gathered
-# directions and dd (3 x 256 floats each), eight 256-float work rows, the
-# 64-bit keys and pixel indices.
-_PAIR_BYTES = 4 * TILE * TILE * 18
+# Bytes per (Gaussian, tile) pair alive at once in a chunk of the plain
+# version: the gathered directions, three (3, 256) product rows and their
+# sums, dd, eight 256-float work rows, the 64-bit keys and pixel indices.
+_PAIR_BYTES = 4 * TILE * TILE * 30
 
 
 def _chunk_size(device: torch.device) -> int:
@@ -70,9 +84,16 @@ def _tile_span(lo_c, hi_c, z_lo, z_hi, tan_half, n: int, grid: int):
     return first.clamp(max=grid), end.clamp(max=grid)
 
 
-def _pairs(mu_cam, radius, camera, grid_h: int, grid_w: int):
-    """(Gaussian, tile) pairs, as two index vectors, of every tile a
-    Gaussian's bounding sphere can project to."""
+def _dot3(x: torch.Tensor, y: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """x.y over a dimension of size 3, summed left to right, each product
+    and sum rounded alone on every device."""
+    return (x.select(dim, 0) * y.select(dim, 0) + x.select(dim, 1)
+            * y.select(dim, 1) + x.select(dim, 2) * y.select(dim, 2))
+
+
+def _spans(mu_cam, radius, camera, grid_h: int, grid_w: int):
+    """First and end tiles along x, then y, of every tile a Gaussian's
+    bounding sphere can project to."""
     cx, cy, cz = mu_cam.unbind(-1)
     z_lo, z_hi = cz - radius, cz + radius
     x0, x1 = _tile_span(cx - radius, cx + radius, z_lo, z_hi,
@@ -85,6 +106,45 @@ def _pairs(mu_cam, radius, camera, grid_h: int, grid_w: int):
     x0, y0 = torch.where(whole, 0, x0), torch.where(whole, 0, y0)
     x1, y1 = torch.where(whole, grid_w, x1), torch.where(whole, grid_h, y1)
     x1 = torch.where(z_hi > 0.0, x1, x0)
+    return x0, x1, y0, y1
+
+
+class Terms(NamedTuple):
+    """The prologue's output, one row a Gaussian."""
+
+    terms: torch.Tensor  # (N, TERMS) float32: R^T row-major, 1/s, oo, c
+    spans: torch.Tensor  # (N, 4) int32: x0, x1, y0, y1 in tiles, [x0, x1)
+    color: torch.Tensor  # (N, 3) float32: 0.2 SH-DC + 0.5, not clamped
+
+
+def ellipsoid_terms(gaussians: ActivatedGaussians, camera: Camera) -> Terms:
+    """Each Gaussian's solve terms, its span of tiles and its colour, by
+    torch ops of static shapes over all N (both versions take them). A
+    Gaussian below the cull, masked out or non-finite gets an empty span."""
+    grid_h, grid_w = -(-camera.height // TILE), -(-camera.width // TILE)
+    o = camera.position  # every ray starts at the camera centre
+    mu = gaussians.means
+    rot_t = quat_to_rotmat(gaussians.quats).transpose(1, 2)  # R^T
+    isc = 1.0 / torch.clamp(gaussians.scales * SCALE_MULT, min=1e-8)
+    oo = (_dot3(rot_t, o) - _dot3(rot_t, mu[:, None, :])) * isc
+    c = _dot3(oo, oo) - 1.0
+    # The bounding sphere, widened for the rounding of its camera-space
+    # centre.
+    mu_cam = to_camera(mu, camera.view)
+    radius = ((1.0 / isc).amax(-1) * 1.001
+              + 1e-6 * (mu_cam.abs().amax(-1) + 1.0))
+    x0, x1, y0, y1 = _spans(mu_cam, radius, camera, grid_h, grid_w)
+    live = (gaussians.opacities >= ALPHA_CULL) & gaussians.mask
+    x1 = torch.where(live, x1, x0)
+    return Terms(torch.cat([rot_t.reshape(-1, 9), isc, oo, c[:, None]], 1),
+                 torch.stack([x0, x1, y0, y1], 1).int(),
+                 0.2 * gaussians.sh[:, 0, :] + 0.5)
+
+
+def _pairs(spans: torch.Tensor, grid_w: int):
+    """(Gaussian, tile) pairs, as two index vectors, of every tile in a
+    Gaussian's span."""
+    x0, x1, y0, y1 = spans.long().unbind(-1)
     span_x = x1 - x0
     counts = span_x * (y1 - y0)
     gauss = torch.repeat_interleave(
@@ -96,72 +156,143 @@ def _pairs(mu_cam, radius, camera, grid_h: int, grid_w: int):
     return gauss, tile
 
 
-def render_ellipsoids(gaussians: ActivatedGaussians, camera: Camera,
-                      background=(0.0, 0.0, 0.0),
-                      pair_chunk: int | None = None) -> torch.Tensor:
-    """Returns the (H, W, 3) image. `pair_chunk`: (Gaussian, tile) pairs
-    solved at once (default: see `_chunk_size`); it changes memory and
-    time, not the image."""
+def hit_distance(terms: torch.Tensor, dirs: torch.Tensor) -> tuple:
+    """(t, hit), each (K, P): the ray solve of K Gaussians' `terms` (K,
+    TERMS) against (K, 3, P) unit directions, t the nearest root beyond
+    T_MIN where `hit`."""
+    rot_t = terms[:, :9].reshape(-1, 3, 3)
+    isc, oo, c = terms[:, 9:12], terms[:, 12:15], terms[:, 15]
+    dd = _dot3(rot_t[:, :, :, None], dirs[:, None], dim=2) * isc[:, :, None]
+    a = _dot3(dd, dd, dim=1)  # (K, P)
+    b = 2.0 * _dot3(oo[:, :, None], dd, dim=1)
+    del dd
+    disc = b * b - 4.0 * a * c[:, None]
+    hit = disc >= 0.0
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    a2 = 2.0 * a
+    del a, disc
+    t0 = (-b - sq) / a2
+    t1 = (-b + sq) / a2
+    del b, sq, a2
+    t = torch.where(t0 > T_MIN, t0, t1)
+    hit &= (t > T_MIN) & (t < float("inf"))
+    return t, hit
+
+
+def render_ellipsoids_torch(gaussians: ActivatedGaussians, camera: Camera,
+                            background=(0.0, 0.0, 0.0),
+                            pair_chunk: int | None = None) -> torch.Tensor:
+    """The plain version: returns the (H, W, 3) image. `pair_chunk`:
+    (Gaussian, tile) pairs solved at once (default: see `_chunk_size`); it
+    changes memory and time, not the image."""
     h, w, dev = camera.height, camera.width, camera.device
     grid_h, grid_w = -(-h // TILE), -(-w // TILE)
-    origin, direction = camera_rays(camera)
-    o = origin[0, 0]  # every ray starts at the camera centre
+    pre = ellipsoid_terms(gaussians, camera)
+    _, direction = camera_rays(camera)
     # Ray directions by tile, (tiles, 3, TILE * TILE); the padding past the
     # image's edge is dropped at the end.
     pad = torch.zeros((grid_h * TILE, grid_w * TILE, 3), device=dev)
     pad[:h, :w] = direction
     dirs = (pad.reshape(grid_h, TILE, grid_w, TILE, 3)
             .permute(0, 2, 4, 1, 3).reshape(grid_h * grid_w, 3, TILE * TILE))
-
-    # Gaussians below the cull never hit.
-    idx = ((gaussians.opacities >= ALPHA_CULL)
-           & gaussians.mask).nonzero().squeeze(1)
-    mu = gaussians.means[idx]
-    rot_t = quat_to_rotmat(gaussians.quats[idx]).transpose(1, 2)  # R^T
-    isc = 1.0 / torch.clamp(gaussians.scales[idx] * SCALE_MULT, min=1e-8)
-    oo = ((rot_t * o).sum(-1) - (rot_t * mu[:, None, :]).sum(-1)) * isc
-    c = (oo * oo).sum(-1) - 1.0
-    # The bounding sphere, widened for the rounding of its camera-space
-    # centre.
-    mu_cam = to_camera(mu, camera.view)
-    radius = ((1.0 / isc).amax(-1) * 1.001
-              + 1e-6 * (mu_cam.abs().amax(-1) + 1.0))
-    gauss, tile = _pairs(mu_cam, radius, camera, grid_h, grid_w)
+    gauss, tile = _pairs(pre.spans, grid_w)
 
     best = torch.full((grid_h * grid_w * TILE * TILE,), _NO_HIT,
                       dtype=torch.long, device=dev)
     lane = torch.arange(TILE * TILE, device=dev)
     chunk = pair_chunk or _chunk_size(dev)
-    with no_tf32():
-        for k0 in range(0, len(gauss), chunk):
-            g, t_id = gauss[k0:k0 + chunk], tile[k0:k0 + chunk]
-            dd = torch.bmm(rot_t[g], dirs[t_id]) * isc[g][:, :, None]
-            a = (dd * dd).sum(1)  # (K, TILE * TILE)
-            b = 2.0 * (oo[g][:, :, None] * dd).sum(1)
-            del dd
-            disc = b * b - 4.0 * a * c[g][:, None]
-            hit = disc >= 0.0
-            sq = torch.sqrt(torch.clamp(disc, min=0.0))
-            a2 = 2.0 * a
-            del a, disc
-            t0 = (-b - sq) / a2
-            t1 = (-b + sq) / a2
-            del b, sq, a2
-            t = torch.where(t0 > T_MIN, t0, t1)
-            hit &= (t > T_MIN) & (t < float("inf"))
-            del t0, t1
-            key = torch.where(hit, (t.view(torch.int32).long() << 32)
-                              | g[:, None], _NO_HIT)
-            del t, hit
-            best.scatter_reduce_(0, (t_id[:, None] * TILE * TILE
-                                     + lane).reshape(-1),
-                                 key.reshape(-1), "amin")
+    for k0 in range(0, len(gauss), chunk):
+        g, t_id = gauss[k0:k0 + chunk], tile[k0:k0 + chunk]
+        t, hit = hit_distance(pre.terms[g], dirs[t_id])
+        key = torch.where(hit, (t.view(torch.int32).long() << 32)
+                          | g[:, None], _NO_HIT)
+        del t, hit
+        best.scatter_reduce_(0, (t_id[:, None] * TILE * TILE
+                                 + lane).reshape(-1),
+                             key.reshape(-1), "amin")
 
     best = (best.reshape(grid_h, grid_w, TILE, TILE).permute(0, 2, 1, 3)
             .reshape(grid_h * TILE, grid_w * TILE)[:h, :w].reshape(-1))
-    # Colours of the live Gaussians, then the background for no hit.
-    color = torch.cat([0.2 * gaussians.sh[idx, 0, :] + 0.5,
-                       torch.tensor([background], dtype=torch.float32,
-                                    device=dev)])
-    winner = torch.where(best == _NO_HIT, len(idx), best & 0xFFFFFFFF)
+    # The Gaussians' colours, then the background for no hit.
+    bg = background_row(tuple(float(v) for v in background), dev)
+    color = torch.cat([pre.color, bg[None]])
+    winner = torch.where(best == _NO_HIT, len(pre.color), best & 0xFFFFFFFF)
     return torch.clamp(color[winner].reshape(h, w, 3), 0.0, 1.0)
+
+
+def _check(pre: Terms, dirs: torch.Tensor, background: torch.Tensor,
+           height: int, width: int) -> torch.device:
+    """The kernel's inputs: one CUDA device, contiguous, 16-byte aligned
+    rows of terms and spans; raises on anything else."""
+    n = pre.terms.shape[0]
+    want = {"terms": (pre.terms, (n, TERMS), torch.float32),
+            "spans": (pre.spans, (n, 4), torch.int32),
+            "color": (pre.color, (n, 3), torch.float32),
+            "dirs": (dirs, (height, width, 3), torch.float32),
+            "background": (background, (3,), torch.float32)}
+    dev = pre.terms.device
+    for name, (x, shape, dtype) in want.items():
+        if (tuple(x.shape) != shape or x.dtype != dtype
+                or not x.is_contiguous() or x.device != dev):
+            raise ValueError(
+                f"{name} must be a contiguous {shape} {dtype} tensor on "
+                f"{dev}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"the ellipsoid kernel needs CUDA tensors, got {dev}")
+    for name in ("terms", "spans"):
+        if want[name][0].data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return dev
+
+
+def region_room(n: int, device) -> torch.Tensor:
+    """The kernel's scratch for n Gaussians: their spans packed as the
+    regions they meet, 8 bytes each, n rounded up to even (int32, 16-byte
+    aligned as every fresh allocation)."""
+    return torch.empty(((n + 1) // 2 * 4,), dtype=torch.int32, device=device)
+
+
+def ellipsoids_launch(pre: Terms, dirs: torch.Tensor,
+                      background: torch.Tensor, height: int,
+                      width: int) -> _kernels.Launch:
+    """The kernel's launch on checked inputs; `out` is the (height, width,
+    3) image it writes. Its scratch: the room of the Gaussians' packed
+    regions (`region_room`)."""
+    dev = _check(pre, dirs, background, height, width)
+    out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    regions = region_room(pre.terms.shape[0], dev)
+    args = (pre.terms.data_ptr(), pre.spans.data_ptr(), pre.color.data_ptr(),
+            dirs.data_ptr(), background.data_ptr(), pre.terms.shape[0],
+            height, width, regions.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    return _kernels.Launch(_kernels.load().lib.gsrast_ellipsoids, args, out,
+                           dict(pre=pre, dirs=dirs, background=background,
+                                regions=regions), dev)
+
+
+def render_ellipsoids_cuda(gaussians: ActivatedGaussians, camera: Camera,
+                           background=(0.0, 0.0, 0.0)) -> torch.Tensor:
+    """The hand-written kernel (`csrc/ellipsoids.cu`) on CUDA tensors:
+    `render_ellipsoids_torch`'s image after the prologue's torch ops, in
+    two launches counted as one (the spans packed as regions, then the ray
+    trace). Allocates only its output and scratch and reads nothing on the
+    host, so a CUDA graph captures it."""
+    pre = ellipsoid_terms(gaussians, camera)
+    _, dirs = camera_rays(camera)
+    bg = background_row(tuple(float(v) for v in background), camera.device)
+    launch = ellipsoids_launch(pre, dirs, bg, camera.height, camera.width)
+    _kernels.run(launch, "ellipsoids")
+    return launch.out
+
+
+def render_ellipsoids(gaussians: ActivatedGaussians, camera: Camera,
+                      background=(0.0, 0.0, 0.0),
+                      pair_chunk: int | None = None,
+                      backend: str = "cuda") -> torch.Tensor:
+    """Returns the (H, W, 3) image: the kernel where
+    `_kernels.uses_kernel(backend, device)`, else the plain version (with
+    `pair_chunk`). A failed build or launch raises; nothing falls back to
+    the plain version on CUDA tensors."""
+    if _kernels.uses_kernel(backend, gaussians.means.device):
+        return render_ellipsoids_cuda(gaussians, camera, background)
+    return render_ellipsoids_torch(gaussians, camera, background, pair_chunk)

@@ -8,15 +8,28 @@ later pass overwrites an earlier one whatever the depth. The reference's
 scatter keeps the last of several writes to one pixel; a CUDA scatter keeps
 any, so each pass here takes the winner explicitly: the largest far-to-near
 rank (`scatter_reduce` "amax") among the points that reach the pixel.
+
+Every shape here is static and nothing is read on the host, so a CUDA graph
+captures the frame (`render/frame.py::FrameGraph`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..camera import Camera
 from ..ops import projection
 from ..scene.gaussians import ActivatedGaussians
+
+
+@functools.lru_cache()
+def background_row(background: tuple, device: torch.device) -> torch.Tensor:
+    """(3,) float32 `background` on `device`, copied there once: a copy
+    from host memory inside a CUDA graph's capture is refused."""
+    with torch.inference_mode(False):
+        return torch.tensor(background, dtype=torch.float32, device=device)
 
 
 def render_pointcloud(gaussians: ActivatedGaussians, camera: Camera,
@@ -37,17 +50,21 @@ def render_pointcloud(gaussians: ActivatedGaussians, camera: Camera,
     rank = torch.empty_like(order)
     rank[order] = torch.arange(order.numel(), device=dev)
 
-    img = torch.tensor(background, dtype=torch.float32,
-                       device=dev).repeat(h * w + 1, 1)  # + a dump row
+    bg = background_row(tuple(float(v) for v in background), dev)
+    ranked = torch.cat([color[order], bg[None]])  # far to near, background
+    img = bg.expand(h * w, 3)
+    n = order.numel()
     half = point_size // 2
     for dy in range(-half, point_size - half):
         for dx in range(-half, point_size - half):
             xx, yy = pix[:, 0] + dx, pix[:, 1] + dy
             ok = visible & (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
-            flat = torch.where(ok, yy * w + xx, h * w)
+            flat = torch.where(ok, yy * w + xx, h * w)  # h * w: a dump slot
             winner = torch.full((h * w + 1,), -1, dtype=torch.long,
                                 device=dev)
             winner.scatter_reduce_(0, flat, rank, "amax")
-            hit = (winner[:h * w] >= 0).nonzero().squeeze(1)
-            img[hit] = color[order[winner[hit]]]
-    return torch.clamp(img[:h * w].reshape(h, w, 3), 0.0, 1.0)
+            hit = winner[:h * w] >= 0
+            img = torch.where(hit[:, None],
+                              ranked[torch.where(hit, winner[:h * w], n)],
+                              img)
+    return torch.clamp(img.reshape(h, w, 3), 0.0, 1.0)

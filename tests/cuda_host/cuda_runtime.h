@@ -9,9 +9,11 @@
 // args...)` stands for `kernel<<<grid, block, shared, stream>>>(args...)`.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <thread>
 #include <vector>
 
@@ -45,6 +47,17 @@ struct float2 {
 struct float4 {
   float x, y, z, w;
 };
+struct int4 {
+  int x, y, z, w;
+};
+struct uint2 {
+  unsigned x, y;
+};
+struct uint4 {
+  unsigned x, y, z, w;
+};
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 struct double2 {
   double x, y;
 };
@@ -56,6 +69,15 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fdividef(float a, float b) { return a / b; }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+inline unsigned __float_as_uint(float a) {
+  unsigned u;
+  std::memcpy(&u, &a, sizeof u);
+  return u;
+}
+// A block's threads are real threads: shared-memory atomics are atomic.
+inline int atomicAdd(int* address, int value) {
+  return std::atomic_ref<int>(*address).fetch_add(value);
+}
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
