@@ -77,8 +77,10 @@ passes; phases 8, 9, 10, 12, 13 and 19 train through it), and the
 viewer's frame in a CUDA graph (phase 23: render_app in each mode through
 its FrameGraph, replayed frames bit for bit against eager ones on
 trained_116k and the 1M scene at 1080p and timed in turns, the ellipsoid
-ray-trace kernel against its plain version pixel for pixel on seven cells,
-with its time beside its operations bound); and
+ray-trace kernel against its plain version pixel for pixel on six cells,
+its first launch against the prologue's torch ops bit for bit, with its
+time beside its bound, its counting build's counters and each
+launch's registers, spills, shared bytes, blocks an SM and grid); and
 checks that each path went through the kernels.
 Each phase prints its lines before the next begins; the line before the last is the per-kernel
 JSON record, and the last is {"ok": true, "device": {...}}. Any failure
@@ -3237,8 +3239,14 @@ FRAME_MODES = ("gaussians", "ellipsoids", "pointcloud")
 # ELLIPSOID_T_RTOL of each other (a ray grazing two hits).
 ELLIPSOID_MAX_DIFFER = 1e-3
 ELLIPSOID_T_RTOL = 1e-5
-ELLIPSOID_SOLVE_FLOPS = 33  # a ray's solve to its discriminant (the code's)
-ELLIPSOID_TEST_OPS = 6      # a span test against a block's region
+# A pixel's solve to its discriminant: 31 operations without the exact x2
+# and x4 (the kernel's form where they cannot change a bit), 33 with them.
+ELLIPSOID_SOLVE_OPS = 31
+ELLIPSOID_WRITTEN_OUT_OPS = 33
+# An activated Gaussian's bytes that the first launch reads: mean, scales,
+# quaternion, opacity, SH-DC (float32) and the mask's byte.
+ELLIPSOID_INPUT_BYTES = 4 * (3 + 3 + 4 + 1 + 3) + 1
+ELLIPSOID_LAUNCHES = ("terms", "plan", "trace", "resolve")
 FP32_OPS = 67e12            # an H100's float32 rate outside the tensor cores
 ELLIPSOID_EDGE = (1901, 1061)  # 119 x 67 tiles: neither a multiple of 4
 ELLIPSOID_CELLS = ("trained_116k", "1M", "inside", "edge", "culled",
@@ -3297,26 +3305,33 @@ def frame_cell(label: str, mode: str, draw, backend: str, views) -> dict:
 
 
 def ellipsoid_work(pre, height: int, width: int) -> dict:
-    """The kernel's work on these inputs, as its code does it: a ray solve
-    for each pixel of each (Gaussian, tile) pair of the spans, a span test
-    of each Gaussian against each block's region of 4 x 4 tiles; the bytes
-    each Gaussian's terms, span and colour, each pixel's direction and
-    output. Its bound is the larger of operations over FP32_OPS (the tests'
-    integer compares counted at that rate) and bytes over HBM_BPS."""
+    """The least work the function needs on these inputs: a solve to its
+    discriminant (ELLIPSOID_SOLVE_OPS) for each pixel inside the image of
+    each (Gaussian, tile) pair of the spans, the plain version's own
+    pairs; each activated Gaussian's ELLIPSOID_INPUT_BYTES read once, the
+    image written once and the background read. Not counted: what only
+    this kernel does (the regions' walk, the hits' roots, the scratch's
+    terms and keys, the rays it computes). Its bound is the larger of
+    operations over FP32_OPS and bytes over HBM_BPS. `written_out_ops`:
+    the solves at ELLIPSOID_WRITTEN_OUT_OPS, the plain version's form."""
     tiles_h, tiles_w = -(-height // 16), -(-width // 16)
-    regions = -(-tiles_h // 4) * -(-tiles_w // 4)
     x0, x1, y0, y1 = pre.spans.long().unbind(-1)
     pairs = int(((x1 - x0) * (y1 - y0)).sum())
     whole = int(((x0 == 0) & (x1 == tiles_w) & (y0 == 0)
                  & (y1 == tiles_h)).sum())
+    # A span's pixels inside the image: only the last tile of a row or
+    # column can be cut by the image's edge.
+    cols = (torch.clamp(16 * x1, max=width) - 16 * x0).clamp(min=0)
+    rows = (torch.clamp(16 * y1, max=height) - 16 * y0).clamp(min=0)
+    solves = int((cols * rows).sum())
     n = pre.terms.shape[0]
-    ops = pairs * 256 * ELLIPSOID_SOLVE_FLOPS + n * regions * ELLIPSOID_TEST_OPS
-    nbytes = n * (16 * 4 + 16 + 12) + height * width * 24 + 12
+    ops = solves * ELLIPSOID_SOLVE_OPS
+    nbytes = n * ELLIPSOID_INPUT_BYTES + height * width * 12 + 12
     ops_ms, bytes_ms = 1e3 * ops / FP32_OPS, 1e3 * nbytes / HBM_BPS
     return {"gaussians": n, "pairs": pairs, "whole_spans": whole,
-            "pixel_solves": pairs * 256,
-            "span_tests": n * regions, "ops": ops, "bytes": nbytes,
-            "bound_ms": max(ops_ms, bytes_ms),
+            "pixel_solves": solves, "ops": ops,
+            "written_out_ops": solves * ELLIPSOID_WRITTEN_OUT_OPS,
+            "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
@@ -3352,41 +3367,62 @@ def compare_ellipsoids(got, ref, pre, dirs) -> dict:
             "max_abs_err": float((got - ref).abs().max())}
 
 
-def ellipsoid_occupancy() -> dict:
-    """The kernel's launch as the library reports it."""
+def ellipsoid_occupancy(n: int, height: int, width: int) -> dict:
+    """Each of the kernel's launches (ELLIPSOID_LAUNCHES) as the library
+    reports it for a frame of n Gaussians at height x width."""
     import ctypes
 
     from gsrast_tpu_torch import _kernels
 
-    vals = [ctypes.c_int() for _ in range(5)]
-    assert _kernels.load().lib.gsrast_ellipsoids_occupancy(
-        *(ctypes.byref(v) for v in vals)) == 0
-    return dict(zip(("threads", "blocks_per_sm", "registers", "local_bytes",
-                     "static_shared"), (v.value for v in vals)))
+    out = {}
+    for i, name in enumerate(ELLIPSOID_LAUNCHES):
+        vals = [ctypes.c_int() for _ in range(6)]
+        assert _kernels.load().lib.gsrast_ellipsoids_occupancy(
+            i, n, height, width, *(ctypes.byref(v) for v in vals)) == 0
+        out[name] = dict(zip(("threads", "blocks_per_sm", "registers",
+                              "local_bytes", "shared_bytes", "grid"),
+                             (v.value for v in vals)))
+    return out
 
 
-def ellipsoid_cell(label: str, act, cam, dev, background=(0.0, 0.0, 0.0),
-                   plain_iters: int = 1) -> dict:
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two float32 or int32 tensors hold the same bits."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def ellipsoid_cell(label: str, act, cam, dev, probe,
+                   background=(0.0, 0.0, 0.0), plain_iters: int = 1) -> dict:
     """The kernel (one raw launch, not counted) against the plain version
-    on one input; the kernel's time cold (the L2 flushed before each
-    launch) and warm, its bound, and the plain version's time."""
+    on one input, and its first launch's terms, spans and colours against
+    `ellipsoid_terms` bit for bit; its launches' registers, spills, shared
+    bytes, blocks an SM and grids for this input; the kernel's time cold
+    (the L2 flushed before each launch) and warm, its bound, the plain
+    version's time, and the counters of its counting build (`probe`: the
+    library of `diag.ellipsoid_probe.build()`)."""
     from gsrast_tpu_torch.camera import camera_rays
+    from gsrast_tpu_torch.diag import ellipsoid_probe
     from gsrast_tpu_torch.viz.ellipsoids import (ellipsoid_terms,
+                                                 ellipsoid_terms_cuda,
                                                  ellipsoids_launch,
                                                  render_ellipsoids_torch)
     from gsrast_tpu_torch.viz.pointcloud import background_row
 
     pre = ellipsoid_terms(act, cam)
     _, dirs = camera_rays(cam)
-    launch = ellipsoids_launch(pre, dirs, background_row(background, dev),
-                               cam.height, cam.width)
+    launch = ellipsoids_launch(act, cam, background_row(background, dev))
     assert launch.fn(*launch.args) == 0
     torch.cuda.synchronize()
     got = launch.out.clone()
+    first = ellipsoid_terms_cuda(act, cam)
+    terms_equal = {name: same_bits(getattr(first, name), getattr(pre, name))
+                   for name in ("terms", "spans", "color")}
     ref = render_ellipsoids_torch(act, cam, background)
     res = {**compare_ellipsoids(got, ref, pre, dirs),
            **ellipsoid_work(pre, cam.height, cam.width),
-           **image_stats(ref, background)}
+           **image_stats(ref, background), "terms_bits_equal": terms_equal,
+           "launch": ellipsoid_occupancy(act.means.shape[0], cam.height,
+                                         cam.width)}
     res["ms"] = cold_ms(lambda: launch.fn(*launch.args), dev)
     res["warm_ms"] = cuda_ms(lambda: launch.fn(*launch.args), iters=5,
                              warmup=1)
@@ -3394,12 +3430,17 @@ def ellipsoid_cell(label: str, act, cam, dev, background=(0.0, 0.0, 0.0),
     res["plain_ms"] = cuda_ms(
         lambda: render_ellipsoids_torch(act, cam, background),
         iters=plain_iters, warmup=0)
+    res["counters"] = ellipsoid_probe.counts(probe, act, cam, background,
+                                             ref)
     print(f"phase 23 ellipsoid kernel, {label} ({cam.width}x{cam.height}, "
           f"{res['gaussians']} Gaussians; ms by CUDA events): "
           f"{json.dumps(res)}", flush=True)
     assert res["share"] <= 1.0 and res["max_abs_err"] <= 1.0, res
     assert res["differ"] <= ELLIPSOID_MAX_DIFFER * res["pixels"], res
     assert res["worst_t_rel"] <= ELLIPSOID_T_RTOL, res
+    assert all(terms_equal.values()), res
+    assert res["counters"]["pixels_differ"] <= (
+        ELLIPSOID_MAX_DIFFER * res["pixels"]), res
     return res
 
 
@@ -3407,18 +3448,21 @@ def ellipsoid_cells(scenes: dict, dev) -> dict:
     """The kernel against its plain version on the two scenes' base views,
     a camera inside trained_116k (many spans cover the whole image), an
     edge cell of ELLIPSOID_EDGE pixels, and trained_116k and the 1M scene
-    with no Gaussian above the cull (the span walk alone)."""
+    with no Gaussian above the cull (no region has a pair: the prologue,
+    plan and resolve alone)."""
     import dataclasses as dc
 
     import numpy as np
 
     from gsrast_tpu_torch.camera import auto_frame, look_at
+    from gsrast_tpu_torch.diag import ellipsoid_probe
 
+    probe = ellipsoid_probe.build()
     out = {}
     for name in ("trained_116k", "1M"):
         scene, base, _ = scenes[name]
         out[name] = ellipsoid_cell(f"{name} base view", scene.activated(),
-                                   base, dev, plain_iters=2)
+                                   base, dev, probe, plain_iters=2)
     scene, base, _ = scenes["trained_116k"]
     act = scene.activated()
     mn, mx = (x.cpu().numpy() for x in scene.bbox())
@@ -3426,19 +3470,21 @@ def ellipsoid_cells(scenes: dict, dev) -> dict:
     inside = base.replace(view=look_at(center, center + np.array(
         [0.3, 0.1, 1.0], np.float32), device=dev))
     out["inside"] = ellipsoid_cell("trained_116k, camera at its centre",
-                                   act, inside, dev)
+                                   act, inside, dev, probe)
     assert out["inside"]["whole_spans"] > 0, out["inside"]
     out["edge"] = ellipsoid_cell(
         "trained_116k, an image not a multiple of 16", act,
-        auto_frame(mn, mx, *ELLIPSOID_EDGE, device=dev), dev, BACKGROUND)
+        auto_frame(mn, mx, *ELLIPSOID_EDGE, device=dev), dev, probe,
+        BACKGROUND)
     culled = dc.replace(act, opacities=torch.full_like(act.opacities, 0.29))
     out["culled"] = ellipsoid_cell("trained_116k, no Gaussian above the "
-                                   "cull", culled, base, dev, BACKGROUND)
-    # The 1M scene culled: the kernel's span walk alone at its largest N.
+                                   "cull", culled, base, dev, probe,
+                                   BACKGROUND)
+    # The 1M scene culled: the kernel's launches over its largest N.
     act = scenes["1M"][0].activated()
     culled = dc.replace(act, opacities=torch.full_like(act.opacities, 0.29))
     out["culled_1M"] = ellipsoid_cell("1M, no Gaussian above the cull",
-                                      culled, scenes["1M"][1], dev,
+                                      culled, scenes["1M"][1], dev, probe,
                                       BACKGROUND)
     for key in ("culled", "culled_1M"):
         assert out[key]["pairs"] == 0
@@ -3460,9 +3506,8 @@ def phase_frame(dev) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    res = {"card": smi, "occupancy": ellipsoid_occupancy(), "app": {}}
-    print(f"phase 23 card: {smi}; ellipsoid kernel's launch: "
-          f"{json.dumps(res['occupancy'])}", flush=True)
+    res = {"card": smi, "app": {}}
+    print(f"phase 23 card: {smi}", flush=True)
     size = ["--width", str(WIDTH), "--height", str(HEIGHT)]
     for mode in FRAME_MODES:
         _kernels.reset_launch_counts()
@@ -4434,6 +4479,7 @@ def main() -> int:
         **{key: frame_res["ellipsoids"]["trained_116k"][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
+        "launch": frame_res["ellipsoids"]["trained_116k"]["launch"],
         "cells": {cell: {key: frame_res["ellipsoids"][cell][key] for key in (
             "ms", "warm_ms", "plain_ms", "bound_ms", "share", "differ")}
             for cell in ELLIPSOID_CELLS},

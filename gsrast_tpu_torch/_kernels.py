@@ -216,6 +216,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+# The inputs of the ellipsoid kernel's entry points (`viz/ellipsoids.py::
+# frame_args`): the activated Gaussians' pointers and the SH row's floats,
+# the mask, the camera's four pointers, then N, height, width.
+ELLIPSOID_INPUT_ARGTYPES = [*[ctypes.c_void_p] * 5, ctypes.c_int,
+                            *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 3]
+
+
+def set_ellipsoid_argtypes(lib) -> None:
+    """The ellipsoid kernel's entry points' argument types (also for a
+    build of `csrc/ellipsoids.cu` alone)."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.gsrast_ellipsoids.argtypes = [*ELLIPSOID_INPUT_ARGTYPES, *[vp] * 4]
+    lib.gsrast_ellipsoids_terms.argtypes = [*ELLIPSOID_INPUT_ARGTYPES, vp, vp]
+    lib.gsrast_ellipsoids_scratch.argtypes = [
+        i32, i32, i32, ctypes.POINTER(ctypes.c_longlong)]
+    lib.gsrast_ellipsoids_occupancy.argtypes = [*[i32] * 4, *[vp] * 6]
+    for name in ("gsrast_ellipsoids", "gsrast_ellipsoids_terms",
+                 "gsrast_ellipsoids_scratch", "gsrast_ellipsoids_occupancy"):
+        getattr(lib, name).restype = i32
+
+
 @functools.cache
 def load() -> Library:
     """Build (if needed) and load the kernel library. Raises if nvcc fails."""
@@ -304,10 +325,5 @@ def load() -> Library:
     fn = lib.gsrast_adam_occupancy
     fn.argtypes = [vp] * 5
     fn.restype = ctypes.c_int
-    fn = lib.gsrast_ellipsoids
-    fn.argtypes = [*[vp] * 5, *[i32] * 3, vp, vp, vp]
-    fn.restype = ctypes.c_int
-    fn = lib.gsrast_ellipsoids_occupancy
-    fn.argtypes = [vp] * 5
-    fn.restype = ctypes.c_int
+    set_ellipsoid_argtypes(lib)
     return Library(lib=lib, path=path, build_seconds=seconds, build_log=log)

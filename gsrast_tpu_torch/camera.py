@@ -297,18 +297,27 @@ def auto_frame(bbox_min, bbox_max, width: int, height: int,
                        device=device)
 
 
+def _recip_f32(n: int) -> float:
+    """1 / n rounded to float32 (a float32 division), as a Python float."""
+    return float(np.float32(1.0) / np.float32(n))
+
+
 def camera_rays(camera: Camera):
     """Per-pixel world-space ray origins and unit directions, each
-    (H, W, 3), for the ellipsoid ray trace."""
+    (H, W, 3), for the ellipsoid ray trace. Each operation is rounded alone
+    and the same on every device (the ellipsoid kernel repeats it bit for
+    bit): the pixel centre times 1 / n in float32, (px, py, 1) V[:3, :3]
+    summed left to right, the norm's square root correctly rounded."""
     h, w, dev = camera.height, camera.width, camera.device
-    xs, ys = ((torch.arange(n, dtype=torch.float32, device=dev) + 0.5) / n
-              * 2.0 - 1.0 for n in (w, h))
+    xs, ys = ((torch.arange(n, dtype=torch.float32, device=dev) + 0.5)
+              * _recip_f32(n) * 2.0 - 1.0 for n in (w, h))
     py, px = torch.meshgrid(ys, xs, indexing="ij")  # (h, w)
-    dir_cam = torch.stack([px * camera.tan_fov_x, py * camera.tan_fov_y,
-                           torch.ones_like(px)], dim=-1)
-    dir_world = matmul_f32(dir_cam, camera.view[:3, :3])  # R^T on each dir
-    dir_world = dir_world / _norm(dir_world)
-    return camera.position.expand(h, w, 3), dir_world
+    rot = camera.view[:3, :3]  # R^T on each direction: (px, py, 1) rot
+    dir_world = ((px * camera.tan_fov_x)[..., None] * rot[0]
+                 + (py * camera.tan_fov_y)[..., None] * rot[1] + rot[2])
+    x, y, z = dir_world.unbind(-1)
+    norm = torch.sqrt((x * x + y * y + z * z).double()).float()
+    return camera.position.expand(h, w, 3), dir_world / norm[..., None]
 
 
 def debug_camera(width: int = 979, height: int = 546, device="cpu") -> Camera:

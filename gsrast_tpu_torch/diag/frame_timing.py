@@ -2,7 +2,7 @@
 compare their images.
 
     python -m gsrast_tpu_torch.diag.frame_timing [--tree DIR ...]
-        [--rounds R] [--reps K]
+        [--rounds R] [--reps K] [--kernel] [--no-frames]
 
 Builds every tree's kernels at once (`diag/turns.py`), then runs the trees
 in turns (in the order given and back, R times), each in a process of its
@@ -15,7 +15,14 @@ K passes over the orbit after a warm-up call): drawn eagerly,
 and, where the tree has `render/frame.py`, through its `FrameGraph` (after
 its warm-up and capture). Each run prints one JSON line of best and median
 ms per cell and kind; the first view's image of each cell is saved on the
-tree's first run. Last, one JSON line a cell: per tree its runs' best and
+tree's first run. With `--kernel`, each run also times the ellipsoid
+kernel alone on each scene's base view (`ellipsoids_<scene>_kernel`: its
+launches as its wrapper makes them ready, no torch op between; a tree from
+before the kernel took the prologue gets `ellipsoid_terms` and
+`camera_rays` computed first, outside the timing), cold (the tree's
+`chip_smoke.cold_ms`: the L2 flushed before each launch, median of 10) and
+warm (best and median of 10 after a warm-up); `--no-frames` times that
+alone. Last, one JSON line a cell: per tree its runs' best and
 median, and the pixels of its first view that differ from the first
 tree's. A tree must lie inside this checkout (the parent: `git archive
 HEAD chip_smoke.py gsrast_tpu_torch native tests/fixtures | tar -x -C
@@ -83,9 +90,27 @@ def frame_draws(scene, base) -> dict:
             "pointcloud": (lambda cam: render_pointcloud(act, cam), "cuda")}
 
 
-def run_tree(tree: Path, reps: int) -> None:
-    """Time one tree's frames (run as a script, in a process of its own, so
-    that the tree's package is the one imported)."""
+def kernel_launch(act, cam, dev):
+    """The tree's ellipsoid kernel made ready on the base view: fn() runs
+    its launches, out is the image they write."""
+    from gsrast_tpu_torch.camera import camera_rays
+    from gsrast_tpu_torch.viz import ellipsoids as E
+    from gsrast_tpu_torch.viz.pointcloud import background_row
+
+    bg = background_row((0.0, 0.0, 0.0), dev)
+    try:
+        launch = E.ellipsoids_launch(act, cam, bg)
+    except TypeError:  # a tree whose kernel takes the torch prologue's terms
+        pre = E.ellipsoid_terms(act, cam)
+        _, dirs = camera_rays(cam)
+        launch = E.ellipsoids_launch(pre, dirs, bg, cam.height, cam.width)
+    return (lambda: launch.fn(*launch.args)), launch.out
+
+
+def run_tree(tree: Path, reps: int, kernel: bool = False,
+             frames: bool = True) -> None:
+    """Time one tree's frames and kernel (run as a script, in a process of
+    its own, so that the tree's package is the one imported)."""
     sys.path[0] = str(tree)
     import torch
 
@@ -103,7 +128,19 @@ def run_tree(tree: Path, reps: int) -> None:
     ms = {}
     with torch.inference_mode():
         for name, (scene, base, views) in frame_scenes(dev).items():
+            if kernel:
+                import chip_smoke
+
+                fn, out = kernel_launch(scene.activated(), base, dev)
+                key = f"ellipsoids_{name}_kernel"
+                if keep is not None:
+                    fn()
+                    keep[key] = out.cpu()
+                ms[key] = {"cold": chip_smoke.cold_ms(fn, dev),
+                           "warm": benchmark.timeit(fn, 10, dev)}
             for mode, (draw, backend) in frame_draws(scene, base).items():
+                if not frames:
+                    continue
                 key = f"{name}_{mode}"
                 kinds = {"eager": draw}
                 if FrameGraph is not None:
@@ -156,10 +193,15 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--reps", type=int, default=2,
                     help="timed passes over the orbit a kind")
+    ap.add_argument("--kernel", action="store_true",
+                    help="also time the ellipsoid kernel alone")
+    ap.add_argument("--no-frames", action="store_true",
+                    help="time the ellipsoid kernel alone (with --kernel)")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        run_tree(Path(args.worker), args.reps)
+        run_tree(Path(args.worker), args.reps, args.kernel,
+                 not args.no_frames)
         return 0
     sys.path.insert(0, str(HERE))
     from gsrast_tpu_torch.diag import turns
@@ -177,8 +219,10 @@ def main(argv=None) -> int:
     print(json.dumps({"card": turns.card(), "trees": [
         str(tree.relative_to(HERE)) for tree in turns.build(trees)]}),
         flush=True)
-    code = turns.in_turns(Path(__file__).resolve(), trees,
-                          ["--reps", str(args.reps)], rounds=args.rounds)
+    flags = ["--reps", str(args.reps)] + ["--kernel"] * args.kernel + [
+        "--no-frames"] * args.no_frames
+    code = turns.in_turns(Path(__file__).resolve(), trees, flags,
+                          rounds=args.rounds)
     if code == 0:
         summarise(trees)
     return code

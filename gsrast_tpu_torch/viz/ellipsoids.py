@@ -21,17 +21,20 @@ c = oo.oo - 1, t the nearest root beyond 1e-4. Each pixel keeps the least
 float's bits order as an integer). Every 3-term product is written out,
 summed left to right, so that the kernel repeats it bit for bit.
 
-`ellipsoid_terms`, the prologue over all N Gaussians with static shapes,
-gives each its solve's terms and its span of tiles (empty where culled).
-Then `render_ellipsoids_cuda` (the hand-written kernel of
-`csrc/ellipsoids.cu`: one launch, nothing read on the host, so a CUDA graph
-captures it) or `render_ellipsoids_torch`, the plain version, which lists
-the (Gaussian, tile) pairs and solves them in chunks with `scatter_reduce`.
+`render_ellipsoids_torch`, the plain version: `ellipsoid_terms` (the
+prologue over all N Gaussians with static shapes: each one's solve terms
+and span of tiles, empty where culled), the rays of `camera_rays`, then
+the (Gaussian, tile) pairs solved in chunks with `scatter_reduce`.
+`render_ellipsoids_cuda`: the hand-written kernel of `csrc/ellipsoids.cu`,
+which computes the same prologue, rays and keys from the activated
+Gaussians and the camera in its own launches, reads nothing on the host
+and allocates only its output and scratch, so a CUDA graph captures it.
 `render_ellipsoids` dispatches by `_kernels.uses_kernel`.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -39,7 +42,6 @@ import torch
 from .. import _kernels
 from ..camera import Camera, camera_rays
 from ..ops.covariance import quat_to_rotmat
-from ..ops.projection import to_camera
 from ..scene.gaussians import ActivatedGaussians
 from .pointcloud import background_row
 
@@ -129,8 +131,8 @@ def ellipsoid_terms(gaussians: ActivatedGaussians, camera: Camera) -> Terms:
     oo = (_dot3(rot_t, o) - _dot3(rot_t, mu[:, None, :])) * isc
     c = _dot3(oo, oo) - 1.0
     # The bounding sphere, widened for the rounding of its camera-space
-    # centre.
-    mu_cam = to_camera(mu, camera.view)
+    # centre (`to_camera`'s product written out left to right).
+    mu_cam = _dot3(mu[:, None, :], camera.view[:3, :3]) + camera.view[:3, 3]
     radius = ((1.0 / isc).amax(-1) * 1.001
               + 1e-6 * (mu_cam.abs().amax(-1) + 1.0))
     x0, x1, y0, y1 = _spans(mu_cam, radius, camera, grid_h, grid_w)
@@ -220,67 +222,128 @@ def render_ellipsoids_torch(gaussians: ActivatedGaussians, camera: Camera,
     return torch.clamp(color[winner].reshape(h, w, 3), 0.0, 1.0)
 
 
-def _check(pre: Terms, dirs: torch.Tensor, background: torch.Tensor,
-           height: int, width: int) -> torch.device:
-    """The kernel's inputs: one CUDA device, contiguous, 16-byte aligned
-    rows of terms and spans; raises on anything else."""
-    n = pre.terms.shape[0]
-    want = {"terms": (pre.terms, (n, TERMS), torch.float32),
-            "spans": (pre.spans, (n, 4), torch.int32),
-            "color": (pre.color, (n, 3), torch.float32),
-            "dirs": (dirs, (height, width, 3), torch.float32),
-            "background": (background, (3,), torch.float32)}
-    dev = pre.terms.device
-    for name, (x, shape, dtype) in want.items():
+def frame_inputs(gaussians: ActivatedGaussians, camera: Camera) -> dict:
+    """The kernel's inputs, in the C entry points' order: the activated
+    Gaussians, made contiguous, and the camera (its position and tan(fov /
+    2) each a few torch ops of its tensors)."""
+    return {"means": gaussians.means, "scales": gaussians.scales,
+            "quats": gaussians.quats, "opacities": gaussians.opacities,
+            "sh": gaussians.sh, "mask": gaussians.mask, "view": camera.view,
+            "position": camera.position, "tan_x": camera.tan_fov_x,
+            "tan_y": camera.tan_fov_y}
+
+
+def _check(inputs: dict, cuda: bool = True) -> torch.device:
+    """The kernel's inputs: one device (CUDA where `cuda`), contiguous,
+    float32 but the bool mask, of matching shapes; raises on anything
+    else."""
+    n = inputs["means"].shape[0]
+    k = inputs["sh"].shape[1] if inputs["sh"].dim() == 3 else 0
+    shapes = {"means": (n, 3), "scales": (n, 3), "quats": (n, 4),
+              "opacities": (n,), "sh": (n, max(k, 1), 3), "mask": (n,),
+              "view": (4, 4), "position": (3,), "tan_x": (), "tan_y": ()}
+    dev = inputs["means"].device
+    for name, shape in shapes.items():
+        x = inputs[name]
+        dtype = torch.bool if name == "mask" else torch.float32
         if (tuple(x.shape) != shape or x.dtype != dtype
                 or not x.is_contiguous() or x.device != dev):
             raise ValueError(
                 f"{name} must be a contiguous {shape} {dtype} tensor on "
                 f"{dev}, got {tuple(x.shape)} {x.dtype} on {x.device}")
-    if dev.type != "cuda":
+    if cuda and dev.type != "cuda":
         raise ValueError(f"the ellipsoid kernel needs CUDA tensors, got {dev}")
-    for name in ("terms", "spans"):
-        if want[name][0].data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
     return dev
 
 
-def region_room(n: int, device) -> torch.Tensor:
-    """The kernel's scratch for n Gaussians: their spans packed as the
-    regions they meet, 8 bytes each, n rounded up to even (int32, 16-byte
-    aligned as every fresh allocation)."""
-    return torch.empty(((n + 1) // 2 * 4,), dtype=torch.int32, device=device)
+def frame_args(inputs: dict, height: int, width: int, *tail) -> tuple:
+    """The C entry points' arguments: the inputs' pointers, the SH row's
+    floats, N, height, width, then `tail` (pointers)."""
+    ptr = {name: x.data_ptr() for name, x in inputs.items()}
+    n, sh = inputs["means"].shape[0], inputs["sh"]
+    return (ptr["means"], ptr["scales"], ptr["quats"], ptr["opacities"],
+            ptr["sh"], sh.shape[1] * 3, ptr["mask"], ptr["view"],
+            ptr["position"], ptr["tan_x"], ptr["tan_y"], n, height, width,
+            *tail)
 
 
-def ellipsoids_launch(pre: Terms, dirs: torch.Tensor,
-                      background: torch.Tensor, height: int,
-                      width: int) -> _kernels.Launch:
+def scratch_offsets(lib, n: int, height: int, width: int) -> list:
+    """The kernel's scratch for a frame as byte offsets: terms, spans,
+    packed regions, colours, regions' pairs, queue, items, keys, then the
+    total bytes (`gsrast_ellipsoids_scratch`)."""
+    offsets = (ctypes.c_longlong * 9)()
+    code = lib.gsrast_ellipsoids_scratch(n, height, width, offsets)
+    if code != 0:
+        raise RuntimeError(f"ellipsoid scratch layout failed: CUDA error {code}")
+    return list(offsets)
+
+
+def scratch_terms(scratch: torch.Tensor, offsets: list, n: int) -> Terms:
+    """The first launch's terms, spans and colours: views of the scratch."""
+    def part(i, count, dtype, shape):
+        return scratch[offsets[i]:offsets[i] + 4 * count].view(dtype).view(shape)
+
+    return Terms(part(0, n * TERMS, torch.float32, (n, TERMS)),
+                 part(1, n * 4, torch.int32, (n, 4)),
+                 part(3, n * 3, torch.float32, (n, 3)))
+
+
+def ellipsoids_launch(gaussians: ActivatedGaussians, camera: Camera,
+                      background: torch.Tensor) -> _kernels.Launch:
     """The kernel's launch on checked inputs; `out` is the (height, width,
-    3) image it writes. Its scratch: the room of the Gaussians' packed
-    regions (`region_room`)."""
-    dev = _check(pre, dirs, background, height, width)
-    out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
-    regions = region_room(pre.terms.shape[0], dev)
-    args = (pre.terms.data_ptr(), pre.spans.data_ptr(), pre.color.data_ptr(),
-            dirs.data_ptr(), background.data_ptr(), pre.terms.shape[0],
-            height, width, regions.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    return _kernels.Launch(_kernels.load().lib.gsrast_ellipsoids, args, out,
-                           dict(pre=pre, dirs=dirs, background=background,
-                                regions=regions), dev)
+    3) image it writes; `held["scratch"]` its scratch (sized from N and the
+    image: the terms, spans, colours and packed regions of the first launch,
+    the plan's items, the key image)."""
+    inputs = {k: v.contiguous() for k, v in
+              frame_inputs(gaussians, camera).items()}
+    dev = _check(inputs)
+    if (tuple(background.shape) != (3,) or background.dtype != torch.float32
+            or background.device != dev):
+        raise ValueError("background must be a (3,) float32 tensor on "
+                         f"{dev}")
+    h, w, n = camera.height, camera.width, inputs["means"].shape[0]
+    lib = _kernels.load().lib
+    offsets = scratch_offsets(lib, n, h, w)
+    scratch = torch.empty((offsets[8],), dtype=torch.uint8, device=dev)
+    out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = frame_args(inputs, h, w, background.data_ptr(), scratch.data_ptr(),
+                      out.data_ptr(), stream)
+    return _kernels.Launch(lib.gsrast_ellipsoids, args, out,
+                           dict(inputs=inputs, background=background,
+                                scratch=scratch, offsets=offsets), dev)
+
+
+def ellipsoid_terms_cuda(gaussians: ActivatedGaussians,
+                         camera: Camera) -> Terms:
+    """The debug entry: the kernel's first launch alone on CUDA tensors,
+    its terms, spans and colours (bit-equal to `ellipsoid_terms`). Not
+    counted as a frame's launch."""
+    inputs = {k: v.contiguous() for k, v in
+              frame_inputs(gaussians, camera).items()}
+    dev = _check(inputs)
+    h, w, n = camera.height, camera.width, inputs["means"].shape[0]
+    lib = _kernels.load().lib
+    offsets = scratch_offsets(lib, n, h, w)
+    scratch = torch.empty((offsets[8],), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.gsrast_ellipsoids_terms(*frame_args(
+            inputs, h, w, scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream))
+    if code != 0:
+        raise RuntimeError(f"ellipsoid terms launch failed: CUDA error {code}")
+    return scratch_terms(scratch, offsets, n)
 
 
 def render_ellipsoids_cuda(gaussians: ActivatedGaussians, camera: Camera,
                            background=(0.0, 0.0, 0.0)) -> torch.Tensor:
     """The hand-written kernel (`csrc/ellipsoids.cu`) on CUDA tensors:
-    `render_ellipsoids_torch`'s image after the prologue's torch ops, in
-    two launches counted as one (the spans packed as regions, then the ray
-    trace). Allocates only its output and scratch and reads nothing on the
-    host, so a CUDA graph captures it."""
-    pre = ellipsoid_terms(gaussians, camera)
-    _, dirs = camera_rays(camera)
+    `render_ellipsoids_torch`'s image, the prologue and the rays computed
+    in the kernel's own launches (a frame counted as one launch). Allocates
+    only its output and scratch and reads nothing on the host, so a CUDA
+    graph captures it."""
     bg = background_row(tuple(float(v) for v in background), camera.device)
-    launch = ellipsoids_launch(pre, dirs, bg, camera.height, camera.width)
+    launch = ellipsoids_launch(gaussians, camera, bg)
     _kernels.run(launch, "ellipsoids")
     return launch.out
 

@@ -4,7 +4,8 @@
 // A block's threads are std::threads that meet at a std::barrier, so
 // __syncthreads and per-thread state (registers) behave as on the card;
 // blocks run one after another, and a kernel's dynamic shared memory is one
-// host array that the test defines. The _rn intrinsics are plain float
+// host array that the test defines. Each warp's 32 threads meet at a barrier of
+// their own in __syncwarp. The _rn intrinsics are plain float
 // operations: build with -ffp-contract=off. `launch(grid, block, kernel,
 // args...)` stands for `kernel<<<grid, block, shared, stream>>>(args...)`.
 #pragma once
@@ -14,6 +15,7 @@
 #include <cmath>
 #include <cstddef>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -39,7 +41,11 @@ inline thread_local uint3 threadIdx;
 inline uint3 blockIdx;
 inline dim3 blockDim, gridDim;
 inline std::barrier<>* host_block_barrier;
+inline std::vector<std::unique_ptr<std::barrier<>>>* host_warp_barriers;
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  (*host_warp_barriers)[threadIdx.x / 32]->arrive_and_wait();
+}
 
 struct float2 {
   float x, y;
@@ -47,9 +53,14 @@ struct float2 {
 struct float4 {
   float x, y, z, w;
 };
+struct int2 {
+  int x, y;
+};
 struct int4 {
   int x, y, z, w;
 };
+inline int2 make_int2(int a, int b) { return {a, b}; }
+inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 struct uint2 {
   unsigned x, y;
 };
@@ -77,6 +88,13 @@ inline unsigned __float_as_uint(float a) {
 // A block's threads are real threads: shared-memory atomics are atomic.
 inline int atomicAdd(int* address, int value) {
   return std::atomic_ref<int>(*address).fetch_add(value);
+}
+inline unsigned long long atomicMin(unsigned long long* address, unsigned long long value) {
+  std::atomic_ref<unsigned long long> ref(*address);
+  unsigned long long old = ref.load();
+  while (value < old && !ref.compare_exchange_weak(old, value)) {
+  }
+  return old;
 }
 
 typedef int cudaError_t;
@@ -112,6 +130,10 @@ cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* attr, T) {
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaMemsetAsync(void* p, int value, size_t bytes, cudaStream_t = nullptr) {
+  std::memset(p, value, bytes);
+  return cudaSuccess;
+}
 
 template <class K, class... A>
 void launch(dim3 grid, dim3 block, K kernel, A... args) {
@@ -123,6 +145,10 @@ void launch(dim3 grid, dim3 block, K kernel, A... args) {
         blockIdx = {x, y, z};
         std::barrier<> barrier(block.x);
         host_block_barrier = &barrier;
+        std::vector<std::unique_ptr<std::barrier<>>> warps;
+        for (unsigned w = 0; w < (block.x + 31) / 32; ++w)
+          warps.push_back(std::make_unique<std::barrier<>>(std::min(32u, block.x - 32 * w)));
+        host_warp_barriers = &warps;
         std::vector<std::thread> threads;
         for (unsigned t = 0; t < block.x; ++t) {
           threads.emplace_back([&, t] {

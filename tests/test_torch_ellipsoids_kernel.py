@@ -4,15 +4,22 @@
 On the CPU: the prologue's terms against float64 numpy; its spans cull
 what cannot hit (a float64 solve of every live (Gaussian, pixel) pair finds
 each hit inside its Gaussian's span) and are empty for culled, masked and
-non-finite Gaussians; the plain version lists exactly the span's pairs; the
-one dispatch rule of `_kernels.uses_kernel`; the wrapper's checks; `render
---mode ellipsoids --backend torch`. The `cuda` cases hold the kernel to its
-plain version on the card, pixel for pixel, eager and in a CUDA graph
+non-finite Gaussians; the rays and the prologue's sums in a fixed order,
+bit for bit against numpy float32 operations in that order; the kernel's
+first launch (its CUDA source built for the host, `ellipsoids_host.py`)
+bit-equal to `ellipsoid_terms`; the plain version lists exactly the span's
+pairs; `chip_smoke.ellipsoid_work`'s count of the solves the spans need;
+the counting build's records as `diag/ellipsoid_probe.py` reads them;
+the one dispatch rule of `_kernels.uses_kernel`; the wrapper's
+checks; `render --mode ellipsoids --backend torch`. The `cuda` cases hold
+the kernel to its plain version on the card, pixel for pixel, eager and in
+a CUDA graph, and its first launch to `ellipsoid_terms` bit for bit
 (phase 23 of `chip_smoke.py` does so at 1080p); they import only the
 port."""
 
 import dataclasses
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -129,6 +136,111 @@ def test_spans_empty_where_culled():
     assert int((~empty).sum()) > 50
 
 
+def _f32(x) -> np.ndarray:
+    return x.detach().cpu().numpy().astype(np.float32)
+
+
+def test_camera_rays_fixed_order_bits():
+    """camera_rays as numpy float32 operations in its written order: the
+    pixel centre times 1 / n in float32, (px tan_x, py tan_y, 1) V[:3, :3]
+    summed left to right, the norm's square root correctly rounded (in
+    float64, then float32), the division: the same bits on any device."""
+    for width, height in ((64, 48), (83, 37)):
+        _, cam = _seeded(width=width, height=height)
+        _, dirs = camera_rays(cam)
+        one = np.float32(1.0)
+        xs, ys = ((np.arange(n, dtype=np.float32) + np.float32(0.5))
+                  * (one / np.float32(n)) * np.float32(2.0) - one
+                  for n in (width, height))
+        rot = _f32(cam.view)[:3, :3]
+        px = (xs * _f32(cam.tan_fov_x))[None, :, None]
+        py = (ys * _f32(cam.tan_fov_y))[:, None, None]
+        w = px * rot[0] + py * rot[1] + rot[2]
+        sq = (w[..., 0] * w[..., 0] + w[..., 1] * w[..., 1]
+              + w[..., 2] * w[..., 2])
+        norm = np.sqrt(sq.astype(np.float64)).astype(np.float32)
+        want = w / norm[..., None]
+        np.testing.assert_array_equal(_f32(dirs).view(np.int32),
+                                      want.view(np.int32))
+
+
+def test_prologue_sums_fixed_order_bits():
+    """The prologue's 3-term sums as numpy float32 operations left to
+    right: R^T o - R^T mu, oo.oo - 1, and the camera-space centre whose
+    box gives the spans, bit for bit."""
+    act, cam = _seeded(n=500)
+    pre = E.ellipsoid_terms(act, cam)
+    rt = _f32(pre.terms[:, :9]).reshape(-1, 3, 3)
+    isc, o, mu = _f32(pre.terms[:, 9:12]), _f32(cam.position), _f32(act.means)
+
+    def dot3(x, y):
+        return x[..., 0] * y[..., 0] + x[..., 1] * y[..., 1] + x[..., 2] * y[..., 2]
+
+    oo = (dot3(rt, o) - dot3(rt, mu[:, None, :])) * isc
+    np.testing.assert_array_equal(_f32(pre.terms[:, 12:15]).view(np.int32),
+                                  oo.view(np.int32))
+    c = dot3(oo, oo) - np.float32(1.0)
+    np.testing.assert_array_equal(_f32(pre.terms[:, 15]).view(np.int32),
+                                  c.view(np.int32))
+    view = _f32(cam.view)
+    mu_cam = dot3(mu[:, None, :], view[None, :3, :3]) + view[:3, 3]
+    got = _f32(E._dot3(act.means[:, None, :], cam.view[:3, :3])
+               + cam.view[:3, 3])
+    np.testing.assert_array_equal(got.view(np.int32), mu_cam.view(np.int32))
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """`csrc/ellipsoids.cu` built for the host (`ellipsoids_host.py`)."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    import ellipsoids_host
+
+    return ellipsoids_host.build(tmp_path_factory.mktemp("ellipsoids_host"))
+
+
+def _first_launch_cases():
+    act, cam = _seeded(n=400, width=83, height=37)
+    opac, mask = act.opacities.clone(), act.mask.clone()
+    means, scales, quats = (act.means.clone(), act.scales.clone(),
+                            act.quats.clone())
+    opac[0:30] = 0.2999
+    mask[30:50] = False
+    means[50] = float("nan")
+    scales[51] = float("nan")
+    scales[52] = 0.0
+    quats[53] = float("inf")
+    edited = dataclasses.replace(act, opacities=opac, mask=mask, means=means,
+                                 scales=scales, quats=quats)
+    scene = gt.load_ply(TRAINED_SMALL)
+    framed = gt.auto_frame(*scene.bbox(), 64, 48)
+    lo, hi = (x.numpy() for x in scene.bbox())
+    center = 0.5 * (lo + hi)
+    inside = framed.replace(view=gt.look_at(center, center + [0.3, 0.1, 1.0]))
+    return {"seeded_ragged": (act, cam), "culled_and_non_finite": (edited, cam),
+            "trained_small_framed": (scene.activated(), framed),
+            "trained_small_inside": (scene.activated(), inside)}
+
+
+@pytest.mark.parametrize("case", ["seeded_ragged", "culled_and_non_finite",
+                                  "trained_small_framed",
+                                  "trained_small_inside"])
+def test_first_launch_matches_prologue(host_lib, case):
+    """The kernel's first launch (host build) writes `ellipsoid_terms`'
+    terms, spans and colours bit for bit, NaN and infinity included."""
+    import ellipsoids_host
+
+    act, cam = _first_launch_cases()[case]
+    with torch.no_grad():
+        want = E.ellipsoid_terms(act, cam)
+        got = ellipsoids_host.terms(host_lib, act, cam)
+    for name in ("terms", "spans", "color"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.shape == b.shape, name
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), (
+            name, int((a.view(torch.int32) != b.view(torch.int32)).sum()))
+
+
 def test_pairs_are_the_spans_tiles():
     """The plain version's (Gaussian, tile) pairs are the spans' tiles,
     each once, Gaussian by Gaussian."""
@@ -140,6 +252,60 @@ def test_pairs_are_the_spans_tiles():
             for i, (x0, x1, y0, y1) in enumerate(pre.spans.tolist())
             for y in range(y0, y1) for x in range(x0, x1)]
     assert list(zip(gauss.tolist(), tile.tolist())) == want
+
+
+@pytest.mark.parametrize("size", [(83, 37), (64, 48)])
+def test_bound_counts_the_spans_pixels_in_the_image(size):
+    """chip_smoke.ellipsoid_work, which bounds the kernel's time, counts a
+    solve for each pixel inside the image of each (Gaussian, tile) pair,
+    at 31 operations (33 written out), and bytes for the activated
+    Gaussians, the image and the background."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(HERE))
+    import chip_smoke
+
+    act, cam = _seeded(n=120, width=size[0], height=size[1])
+    pre = E.ellipsoid_terms(act, cam)
+    solves = sum((min(cam.width, 16 * x + 16) - 16 * x)
+                 * (min(cam.height, 16 * y + 16) - 16 * y)
+                 for x0, x1, y0, y1 in pre.spans.tolist()
+                 for y in range(y0, y1) for x in range(x0, x1))
+    work = chip_smoke.ellipsoid_work(pre, cam.height, cam.width)
+    assert work["pixel_solves"] == solves > 0
+    assert work["ops"] == 31 * solves
+    assert work["written_out_ops"] == 33 * solves
+    assert work["bytes"] == 120 * 57 + cam.height * cam.width * 12 + 12
+    assert work["pairs"] == int(((pre.spans[:, 1] - pre.spans[:, 0])
+                                 * (pre.spans[:, 3] - pre.spans[:, 2])).sum())
+
+
+def test_probe_summary_reads_the_counting_build_records():
+    """diag.ellipsoid_probe.summarise reads the counting build's records
+    (per block: cycles, warps, the phases' cycles, then per warp its
+    fields) into totals, shares and ratios."""
+    from gsrast_tpu_torch.diag import ellipsoid_probe as P
+
+    warps, phases, fields = 2, len(P.PHASES), len(P.WARP_FIELDS)
+    rec = torch.zeros((2, 2 + phases + warps * fields), dtype=torch.int64)
+    rec[:, 0] = torch.tensor([100, 300])
+    rec[:, 1] = warps
+    rec[:, 2:2 + phases] = torch.tensor([[10, 20, 60, 5, 5],
+                                         [30, 30, 200, 20, 20]])
+    w = rec[:, 2 + phases:].view(2, warps, fields)
+    w[0] = torch.tensor([[40, 2, 64, 50, 5, 4], [20, 1, 16, 10, 1, 1]])
+    w[1] = torch.tensor([[90, 3, 96, 96, 9, 9], [90, 3, 96, 96, 9, 9]])
+    res = P.summarise(rec)
+    assert res["phase_share"] == pytest.approx(
+        {"walk": 0.1, "stage": 0.125, "units": 0.65, "merge": 0.0625,
+         "rest": 0.0625})
+    assert (res["blocks"], res["busy_blocks"]) == (2, 2)
+    assert (res["pixel_solves"], res["disc_hits"], res["key_hits"]) == (
+        252, 24, 23)
+    assert res["idle_lane_share"] == pytest.approx(1 - 272 / (32 * 9))
+    assert res["busiest_warp_cycles_over_mean"] == pytest.approx(
+        [(40 / 30 + 1.0) / 2, 40 / 30])
+    assert res["block_cycles_max_over_mean"] == pytest.approx(1.5)
 
 
 @pytest.mark.parametrize("backend", ["cuda", "torch", "autograd", "dense"])
@@ -176,16 +342,15 @@ def test_wrapper_checks():
     """The wrapper refuses CPU tensors and inputs of the wrong shape or
     type before it builds anything."""
     act, cam = _seeded(n=20, width=32, height=16)
-    pre = E.ellipsoid_terms(act, cam)
-    _, dirs = camera_rays(cam)
     bg = torch.zeros(3)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        E.ellipsoids_launch(pre, dirs, bg, 16, 32)
-    with pytest.raises(ValueError, match="spans"):
-        E.ellipsoids_launch(pre._replace(spans=pre.spans.long()), dirs, bg,
-                            16, 32)
-    with pytest.raises(ValueError, match="dirs"):
-        E.ellipsoids_launch(pre, dirs, bg, 32, 16)
+        E.ellipsoids_launch(act, cam, bg)
+    with pytest.raises(ValueError, match="quats"):
+        E.ellipsoids_launch(dataclasses.replace(act, quats=act.quats[:, :3]),
+                            cam, bg)
+    with pytest.raises(ValueError, match="mask"):
+        E.ellipsoids_launch(dataclasses.replace(act, mask=act.mask.int()),
+                            cam, bg)
 
 
 def test_cli_render_ellipsoids_backend(tmp_path):
@@ -236,6 +401,23 @@ def test_cuda_kernel_matches_plain(case):
         torch.cuda.synchronize()
     assert _kernels.launch_counts["ellipsoids"] == 1
     assert torch.equal(got, expected), int((got != expected).any(-1).sum())
+
+
+@pytest.mark.cuda
+def test_cuda_first_launch_matches_prologue():
+    """The kernel's first launch on the card writes `ellipsoid_terms`'
+    terms, spans and colours (the torch ops on the card) bit for bit."""
+    dev = _cuda()
+    scene = gt.load_ply(TRAINED_SMALL, device=dev)
+    cam = gt.auto_frame(*scene.bbox(), 128, 96, device=dev)
+    act = scene.activated()
+    with torch.no_grad():
+        want = E.ellipsoid_terms(act, cam)
+        got = E.ellipsoid_terms_cuda(act, cam)
+        torch.cuda.synchronize()
+    for name in ("terms", "spans", "color"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
 
 
 @pytest.mark.cuda

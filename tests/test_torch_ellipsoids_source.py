@@ -1,81 +1,53 @@
 """The ellipsoid ray trace's CUDA source (`csrc/ellipsoids.cu`) run on the
-CPU: compiled by g++ against the host stand-in of the CUDA runtime in
-`tests/cuda_host/` (each block's threads real threads at a barrier, blocks
-one after another, the _rn intrinsics plain float operations built without
-contraction, shared-memory atomics real atomics), its C entry point called
-through ctypes on the prologue's CPU tensors (`ellipsoid_terms`, the
-directions of `camera_rays`), and held to the plain version
-(`render_ellipsoids_torch`) on the same inputs: the image equal pixel for
-pixel. The cases cover a framed trained scene, a camera inside the scene
-(spans over the whole image, so the kernel's list fills and flushes within
-a pass), more Gaussians than one pass tests, an image whose size is not a
-multiple of 16 (nor its tile grid of 4), culled, masked and non-finite
-Gaussians, a scene with none above the cull, and no Gaussians at all."""
+CPU: built by g++ against the host stand-in of the CUDA runtime
+(`tests/ellipsoids_host.py`), its C entry point called through ctypes with
+the wrapper's own arguments on CPU tensors (the activated Gaussians and
+the camera: its first launch computes the prologue, its trace the rays),
+and held to the plain version (`render_ellipsoids_torch`) on the same
+inputs: the image equal pixel for pixel. The cases cover a framed trained
+scene, a camera inside the scene (spans over the whole image, so the
+walk's list fills and flushes within a pass), more Gaussians than one pass
+tests, images whose size is not a multiple of 16 (nor of the 4 x 4-tile
+region), one tile whose list is many times longer than its neighbours'
+(the warps' units balance it; the region's Gaussians split into items), a
+camera inside an ellipsoid (t from the far root), Gaussians whose terms
+leave the exact-scaling range (the written-out solve), culled, masked and
+non-finite Gaussians, a scene with none above the cull, and no Gaussians
+at all; and the host card's SM count, which sets the persistent blocks and
+the plan's items, does not change the image."""
 
 import ctypes
 import dataclasses
-import os
-import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
+import ellipsoids_host as host
 import gsrast_tpu_torch as gt
-from gsrast_tpu_torch.camera import camera_rays
 from gsrast_tpu_torch.scene.gaussians import ActivatedGaussians, random_scene
 from gsrast_tpu_torch.viz import ellipsoids as E
-from gsrast_tpu_torch.viz.pointcloud import background_row
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(os.path.dirname(HERE), "gsrast_tpu_torch", "csrc",
-                      "ellipsoids.cu")
-TRAINED_SMALL = os.path.join(HERE, "fixtures", "trained_small.ply")
-LAUNCH = re.compile(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+),\s*(.*?)>>>\(")
+TRAINED_SMALL = host.HERE + "/fixtures/trained_small.ply"
 BACKGROUND = (0.1, 0.2, 0.3)
+SPECIAL_DC = (1.0, -1.0, 0.5)  # SH-DC of the Gaussians a case is about
 
 torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    """`ellipsoids.cu` built for the host: each launch rewritten to the
-    shim's `launch(grid, block, kernel, ...)`."""
+    """`ellipsoids.cu` built for the host."""
+    import shutil
+
     if shutil.which("g++") is None:
         pytest.skip("needs g++")
-    out = tmp_path_factory.mktemp("ellipsoids_host")
-    with open(SOURCE) as f:
-        src = LAUNCH.sub(r"launch(\2, \3, \1, ", f.read())
-    cpp, so = out / "ellipsoids_host.cpp", out / "libellipsoids_host.so"
-    cpp.write_text(src)
-    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
-                    "-shared", "-pthread", "-I", os.path.join(HERE,
-                                                              "cuda_host"),
-                    "-o", str(so), str(cpp)], check=True)
-    dll = ctypes.CDLL(str(so))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    dll.gsrast_ellipsoids.argtypes = [*[vp] * 5, *[i32] * 3, vp, vp, vp]
-    dll.gsrast_ellipsoids.restype = ctypes.c_int
-    dll.gsrast_ellipsoids_occupancy.argtypes = [vp] * 5
-    dll.gsrast_ellipsoids_occupancy.restype = ctypes.c_int
-    return dll
+    return host.build(tmp_path_factory.mktemp("ellipsoids_host"))
 
 
-def _host_kernel(lib, act, cam, background=BACKGROUND) -> torch.Tensor:
+def _host_kernel(lib, act, cam, background=BACKGROUND, sms=1) -> torch.Tensor:
     """The kernel's image on the CPU, from the wrapper's inputs."""
-    pre = E.ellipsoid_terms(act, cam)
-    _, dirs = camera_rays(cam)
-    bg = background_row(background, torch.device("cpu"))
-    out = torch.full((cam.height, cam.width, 3), -7.0)
-    regions = E.region_room(pre.terms.shape[0], "cpu").fill_(-1)
-    code = lib.gsrast_ellipsoids(
-        pre.terms.data_ptr(), pre.spans.data_ptr(), pre.color.data_ptr(),
-        dirs.data_ptr(), bg.data_ptr(), pre.terms.shape[0], cam.height,
-        cam.width, regions.data_ptr(), out.data_ptr(), None)
-    assert code == 0
-    return out
+    return host.frame(lib, act, cam, background, sms)
 
 
 def _framed(width, height, inside=False):
@@ -100,11 +72,64 @@ def _edited(act: ActivatedGaussians, **fields) -> ActivatedGaussians:
     return dataclasses.replace(act, **fields)
 
 
+def _cluster(n=6000, width=96, height=64):
+    """Most Gaussians packed in front of one tile, a few spread over the
+    image: that tile's list is many times its neighbours', a region's list
+    overflows a flush within one pass, and with n >= 4,096 its Gaussians
+    split into several items."""
+    act, cam = _seeded(n, width, height, seed=11)
+    means = act.means.clone()
+    g = torch.Generator().manual_seed(11)
+    dense = torch.arange(n) % 10 != 0
+    means[dense] = (torch.tensor([0.05, -0.02, 0.0])
+                    + 0.04 * torch.randn(int(dense.sum()), 3, generator=g))
+    scales = act.scales.clone()
+    scales[dense] *= 0.3
+    return _edited(act, means=means, scales=scales), cam
+
+
+def _inside_ellipsoid(width=64, height=48):
+    """The camera inside a large ellipsoid (and among smaller ones): its
+    pixels take t from the far root, t1."""
+    act, cam = _seeded(400, width, height, seed=5)
+    means, scales = act.means.clone(), act.scales.clone()
+    means[7] = torch.tensor([0.0, 0.0, -2.4])
+    scales[7] = torch.tensor([0.9, 0.6, 1.2])
+    opac, sh = act.opacities.clone(), act.sh.clone()
+    opac[7] = 0.9
+    sh[7, 0] = torch.tensor(SPECIAL_DC)
+    return _edited(act, means=means, scales=scales, opacities=opac,
+                   sh=sh), cam
+
+
+def _out_of_range(width=80, height=60):
+    """Terms outside the exact-scaling range, so those Gaussians take the
+    written-out solve: quaternions far from unit length (R^T not
+    orthonormal), tiny far Gaussians (|oo| > 2^28), a huge one holding the
+    camera (1 / (2s) < 2^-28), beside ordinary ones."""
+    act, cam = _seeded(800, width, height, seed=9)
+    quats, scales = act.quats.clone(), act.scales.clone()
+    means = act.means.clone()
+    quats[0::4] *= 1.7
+    quats[1::4] *= 0.4
+    scales[2::16] = 1e-9
+    means[2::16] *= 40.0
+    scales[3] = 4e8
+    means[3] = torch.tensor([0.0, 0.0, -2.5])
+    sh = act.sh.clone()
+    sh[0::4, 0] = torch.tensor(SPECIAL_DC)  # the stretched rotations' colour
+    return _edited(act, quats=quats, scales=scales, means=means, sh=sh), cam
+
+
 CASES = {
     "trained_small_64x48": lambda: _framed(64, 48),
     "trained_small_inside_48x40": lambda: _framed(48, 40, inside=True),
     "seeded_3000_96x64": lambda: _seeded(3000, 96, 64),
     "seeded_1500_ragged_83x37": lambda: _seeded(1500, 83, 37),
+    "cluster_6000_96x64": _cluster,
+    "inside_an_ellipsoid_64x48": _inside_ellipsoid,
+    "out_of_range_80x60": _out_of_range,
+    "seeded_2500_ragged_131x75": lambda: _seeded(2500, 131, 75, seed=4),
 }
 
 
@@ -161,8 +186,71 @@ def test_kernel_source_nothing_drawn(lib, n):
 
 
 def test_kernel_source_occupancy(lib):
-    threads, blocks, regs, local, shared = (ctypes.c_int() for _ in range(5))
-    assert lib.gsrast_ellipsoids_occupancy(
-        *(ctypes.byref(v) for v in (threads, blocks, regs, local,
-                                    shared))) == 0
-    assert threads.value == 256 and blocks.value >= 1
+    """Each launch as the library reports it: the trace's grid is the host
+    card's resident blocks (by shared memory: 3 an SM)."""
+    lib.host_set_multiprocessors(2)
+    grids = []
+    for kernel in range(4):
+        vals = [ctypes.c_int() for _ in range(6)]
+        assert lib.gsrast_ellipsoids_occupancy(
+            kernel, 1000, 64, 96, *(ctypes.byref(v) for v in vals)) == 0
+        threads, blocks = vals[0].value, vals[1].value
+        assert threads == 256 and blocks >= 1
+        grids.append(vals[5].value)
+    assert grids == [4, 1, 6, 24]
+    lib.host_set_multiprocessors(1)
+
+
+@pytest.mark.parametrize("sms", [2, 8])
+def test_kernel_source_sms_do_not_change_the_image(lib, sms):
+    """More resident blocks and more planned items (the host card's SMs):
+    the same image."""
+    act, cam = _cluster(5000, 70, 50)
+    with torch.no_grad():
+        expected = E.render_ellipsoids_torch(act, cam, BACKGROUND)
+    assert torch.equal(_host_kernel(lib, act, cam, sms=sms), expected)
+
+
+@pytest.mark.parametrize("case", ["inside_an_ellipsoid_64x48",
+                                  "out_of_range_80x60"])
+def test_kernel_source_special_gaussians_are_drawn(case):
+    """The premise of the t1 and the written-out cases: the Gaussians they
+    are about (their colour, 0.2 SPECIAL_DC + 0.5) win many pixels of the
+    plain image; the camera lies inside the large ellipsoid (c < 0)."""
+    act, cam = CASES[case]()
+    with torch.no_grad():
+        img = E.render_ellipsoids_torch(act, cam, BACKGROUND)
+        pre = E.ellipsoid_terms(act, cam)
+    colour = torch.clamp(0.2 * torch.tensor(SPECIAL_DC) + 0.5, 0.0, 1.0)
+    shown = (img == colour).all(-1)
+    assert int(shown.sum()) >= 20, int(shown.sum())
+    if case.startswith("inside"):
+        assert float(pre.terms[7, 15]) < 0.0
+
+
+def test_kernel_source_pairs_counted_in_global_memory(tmp_path):
+    """With more regions than a block sums in shared memory (here more
+    than one), the first launch adds each Gaussian's pairs to the frame's
+    counts directly: the same image."""
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    lib = host.build(tmp_path, [("constexpr int kPairBins = 4096;",
+                                 "constexpr int kPairBins = 1;")])
+    act, cam = _seeded(1500, 83, 37)
+    with torch.no_grad():
+        expected = E.render_ellipsoids_torch(act, cam, BACKGROUND)
+    assert torch.equal(_host_kernel(lib, act, cam, sms=2), expected)
+
+
+def test_kernel_source_cluster_is_unbalanced():
+    """The cluster case's premise: its busiest tile's list is many times
+    its neighbours' and its region's pairs need several items."""
+    act, cam = _cluster()
+    pre = E.ellipsoid_terms(act, cam)
+    grid_w = -(-cam.width // E.TILE)
+    _, tile = E._pairs(pre.spans, grid_w)
+    counts = torch.bincount(tile, minlength=grid_w * -(-cam.height // 16))
+    assert int(counts.max()) >= 4 * float(counts.float().median())
+    assert int(counts.max()) > 256  # more than one flush's stage
