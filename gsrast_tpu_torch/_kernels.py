@@ -38,7 +38,7 @@ launch_counts = {"tile_order": 0, "blend_forward": 0, "blend_backward": 0,
                  "bisect_a": 0, "bisect_b": 0, "bisect_c": 0, "bisect_d": 0,
                  "preprocess_forward": 0, "preprocess_backward": 0,
                  "loss_forward": 0, "loss_backward": 0, "adam": 0,
-                 "ellipsoids": 0}
+                 "ellipsoids": 0, "plan_tiers": 0}
 
 
 # Runs per kernel inside CUDA graph replays since the last reset: a replay
@@ -237,6 +237,16 @@ def set_ellipsoid_argtypes(lib) -> None:
         getattr(lib, name).restype = i32
 
 
+def set_plan_argtypes(lib) -> None:
+    """The tile plan's entry points' argument types (also for a build of
+    `csrc/plan.cu` alone; `ops/binning.py::plan_tiers_launch` calls them)."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.gsrast_plan_prologue.argtypes = [vp, vp, ctypes.c_float, *[vp] * 6]
+    lib.gsrast_plan_slots.argtypes = [*[vp] * 13, ctypes.c_longlong, vp]
+    for name in ("gsrast_plan_prologue", "gsrast_plan_slots"):
+        getattr(lib, name).restype = i32
+
+
 @functools.cache
 def load() -> Library:
     """Build (if needed) and load the kernel library. Raises if nvcc fails."""
@@ -326,4 +336,5 @@ def load() -> Library:
     fn.argtypes = [vp] * 5
     fn.restype = ctypes.c_int
     set_ellipsoid_argtypes(lib)
+    set_plan_argtypes(lib)
     return Library(lib=lib, path=path, build_seconds=seconds, build_log=log)

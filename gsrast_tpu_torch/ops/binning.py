@@ -19,15 +19,24 @@ row-local and routed modes for the sharded paths (`parallel/`):
 The integer structure is identical to the reference's, slot for slot, so
 the sorts in `render.pipeline` order intersections exactly as the
 reference does.
+
+The multi-tier plan has two versions: `plan_tiers_torch`, the plain
+version in torch ops on any device, and the hand-written kernel of
+`csrc/plan.cu` (`plan_tiers_cuda`, CUDA tensors only: two launches around
+one stable torch.sort of N narrow keys, every field bit for bit the plain
+version's). `plan_tiers` takes the kernel for CUDA tensors under backend
+'cuda' and the plain version otherwise (`_kernels.uses_kernel`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from .. import _kernels
 from .. import config as cfg
 from . import projection
 from .preprocess import Preprocessed
@@ -359,6 +368,11 @@ def route_bits(dest_rows: int, grid_w: int, n_dest: int) -> int:
     return bits
 
 
+# The alpha the cull tests against, 0.98 ALPHA_MIN (rounded to float32 where
+# it is used).
+ALPHA_FLOOR = 0.98 * cfg.ALPHA_MIN
+
+
 def cull_bounds(prep: Preprocessed) -> tuple:
     """(lam_min, cull_thresh) per Gaussian for the tile-vs-ellipse cull:
     alpha at the tile's closest pixel, d from the mean, is bounded by
@@ -370,8 +384,13 @@ def cull_bounds(prep: Preprocessed) -> tuple:
         0.5 * (a + c)
         - torch.sqrt(torch.clamp(0.25 * (a - c) ** 2 + b * b, min=0.0)),
         min=0.0)
+    # A true division by the float32 constant on every device (the
+    # reference's): divided by a host scalar, a CUDA tensor is multiplied by
+    # its reciprocal instead.
+    alpha_floor = torch.full((), ALPHA_FLOOR, dtype=prep.opacity.dtype,
+                             device=prep.opacity.device)
     cull_thresh = 2.0 * torch.log(
-        torch.clamp(prep.opacity, min=1e-12) / (0.98 * cfg.ALPHA_MIN))
+        torch.clamp(prep.opacity, min=1e-12) / alpha_floor)
     return lam_min, cull_thresh
 
 
@@ -388,11 +407,74 @@ def tile_reachable(gx, gy, mx, my, lam_min, cull_thresh, tile_h: int,
     return (dx * dx + dy * dy) * lam_min <= cull_thresh
 
 
+# The kernel's tier table holds at most this many tiers (csrc/plan.cu).
+PLAN_MAX_TIERS = 24
+
+
+class PlanLayout(NamedTuple):
+    """A tier plan's static structure, from the host's values alone."""
+
+    n: int
+    num_rows: int     # owned tile rows
+    row0: int
+    row_stride: int
+    sentinel: int     # the local tile count, or routed mode's n_dest << bits
+    dest_rows: int | None  # routed mode's rows a destination, else None
+    ltile_bits: int   # routed mode's local tile bits, else 0
+    dims: tuple       # tier_dims: (w_j, B_j, off_j) a tier
+    s0: int           # the grid's slots
+    pad: int          # padding slots up to a multiple of 128
+
+
+def plan_layout(n: int, grid_h: int, grid_w: int, render_cfg: cfg.RenderConfig,
+                num_local_rows: int | None = None, row0: int = 0,
+                row_stride: int = 1, dest_rows: int | None = None,
+                n_dest: int = 1) -> PlanLayout:
+    """`plan_tiers`' mode and bound checks and its static structure."""
+    tiers = render_cfg.tiers
+    if not tiers:
+        raise ValueError("plan_tiers requires render_cfg.tiers")
+    ltile_bits = 0
+    if dest_rows is not None:
+        if num_local_rows not in (None, grid_h) or row_stride != 1:
+            raise ValueError("routed mode enumerates the whole grid")
+        ltile_bits = route_bits(dest_rows, grid_w, n_dest)
+    if tiers[-1][0] * grid_w >= 4_000_000:
+        raise ValueError(
+            f"k_last={tiers[-1][0]} x grid_w={grid_w} exceeds the bound the "
+            "reference planner is exact under; use wider tiles")
+    if num_local_rows is None:
+        num_local_rows, row0 = grid_h, 0
+    sentinel = (num_local_rows * grid_w if dest_rows is None
+                else n_dest << ltile_bits)
+    dims, s0 = tier_dims(n, tiers)
+    return PlanLayout(n, num_local_rows, row0, row_stride, sentinel,
+                      dest_rows, ltile_bits, dims, s0,
+                      -(-s0 // 128) * 128 - s0)
+
+
 def plan_tiers(prep: Preprocessed, grid_h: int, grid_w: int,
                render_cfg: cfg.RenderConfig, num_local_rows: int | None = None,
                row0: int = 0, row_stride: int = 1, dest_rows: int | None = None,
                n_dest: int = 1) -> TierPlan:
-    """The slot grid of (tile, depth) keys for `render_cfg.tiers`.
+    """The slot grid of (tile, depth) keys for `render_cfg.tiers`
+    (`plan_tiers_torch`): the hand-written kernel (`plan_tiers_cuda`) for
+    CUDA tensors under backend 'cuda' (`_kernels.uses_kernel`), the plain
+    version otherwise."""
+    fn = (plan_tiers_cuda
+          if _kernels.uses_kernel(render_cfg.backend, prep.depth.device)
+          else plan_tiers_torch)
+    return fn(prep, grid_h, grid_w, render_cfg, num_local_rows, row0,
+              row_stride, dest_rows, n_dest)
+
+
+def plan_tiers_torch(prep: Preprocessed, grid_h: int, grid_w: int,
+                     render_cfg: cfg.RenderConfig,
+                     num_local_rows: int | None = None, row0: int = 0,
+                     row_stride: int = 1, dest_rows: int | None = None,
+                     n_dest: int = 1) -> TierPlan:
+    """The plain version of `plan_tiers`, in torch ops on any device: the
+    slot grid of (tile, depth) keys for `render_cfg.tiers`.
 
     By default over the whole tile grid. Row-local mode (the tile-sharded
     path): only the owned rows {row0 + r * row_stride : r < num_local_rows}
@@ -408,22 +490,11 @@ def plan_tiers(prep: Preprocessed, grid_h: int, grid_w: int,
     exactly and keeps the same bound, so both stay identical wherever the
     reference is defined."""
     tiers = render_cfg.tiers
-    if not tiers:
-        raise ValueError("plan_tiers requires render_cfg.tiers")
-    if dest_rows is not None:
-        if num_local_rows not in (None, grid_h) or row_stride != 1:
-            raise ValueError("routed mode enumerates the whole grid")
-        ltile_bits = route_bits(dest_rows, grid_w, n_dest)
-    if tiers[-1][0] * grid_w >= 4_000_000:
-        raise ValueError(
-            f"k_last={tiers[-1][0]} x grid_w={grid_w} exceeds the bound the "
-            "reference planner is exact under; use wider tiles")
-    n = prep.depth.shape[0]
+    lay = plan_layout(prep.depth.shape[0], grid_h, grid_w, render_cfg,
+                      num_local_rows, row0, row_stride, dest_rows, n_dest)
+    n, num_local_rows, row0 = lay.n, lay.num_rows, lay.row0
+    sentinel, ltile_bits = lay.sentinel, lay.ltile_bits
     device = prep.depth.device
-    if num_local_rows is None:
-        num_local_rows, row0 = grid_h, 0
-    num_tiles = num_local_rows * grid_w
-    sentinel = num_tiles if dest_rows is None else n_dest << ltile_bits
     k_last = tiers[-1][0]
     i32 = torch.int32
 
@@ -449,7 +520,7 @@ def plan_tiers(prep: Preprocessed, grid_h: int, grid_w: int,
                            prep.mean2d[..., 0], prep.mean2d[..., 1],
                            lam_min, cull_thresh))
 
-    dims, s0 = tier_dims(n, tiers)
+    dims, s0 = lay.dims, lay.s0
     tkeys, gausses = [], []
     rank = torch.arange(n, dtype=i32, device=device)
     granted_k = torch.where(rank < dims[0][1], tiers[0][0], 0).to(i32)
@@ -488,7 +559,7 @@ def plan_tiers(prep: Preprocessed, grid_h: int, grid_w: int,
     gauss = torch.cat(gausses)
     # The reference pads the grid to a multiple of 128 slots; so does this
     # port, so that plans compare slot for slot.
-    pad = -(-s0 // 128) * 128 - s0
+    pad = lay.pad
     if pad:
         tile_key = torch.cat(
             [tile_key, torch.full((pad,), sentinel, dtype=i32, device=device)])
@@ -504,3 +575,146 @@ def plan_tiers(prep: Preprocessed, grid_h: int, grid_w: int,
     return TierPlan(tile_key=tile_key, depth_key=depth_key,
                     gauss=torch.where(live, gauss, -1), order=order,
                     total=total, overflow_tile_cap=dropped.to(i32))
+
+
+def plan_key_dtype(k_last: int) -> torch.dtype:
+    """The kernel's sort key, k_last - count: the narrowest type that holds
+    k_last, since the ranking's radix sort takes a pass a byte."""
+    if k_last <= 0xFF:
+        return torch.uint8
+    return torch.int16 if k_last <= 0x7FFF else torch.int32
+
+
+def plan_inputs(prep: Preprocessed) -> tuple:
+    """The kernel's inputs, checked and contiguous (a copy only where a
+    field is a strided view, as the sharded exchange's columns are):
+    mean2d (N, 2), depth, conic (N, 3), opacity (float32), radius and the
+    rect's four fields (int32), all on one device."""
+    n = prep.depth.shape[0]
+    fields = (("mean2d", prep.mean2d, (n, 2), torch.float32),
+              ("depth", prep.depth, (n,), torch.float32),
+              ("conic", prep.conic, (n, 3), torch.float32),
+              ("opacity", prep.opacity, (n,), torch.float32),
+              ("radius", prep.radius, (n,), torch.int32),
+              *((f"rect.{name}", t, (n,), torch.int32)
+                for name, t in zip(projection.TileRect._fields, prep.rect)))
+    dev = prep.depth.device
+    for name, t, shape, dtype in fields:
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"the plan kernel needs {name} {dtype} of shape {shape} on "
+                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return tuple(t.contiguous() for _, t, _, _ in fields)
+
+
+class PlanRecords(NamedTuple):
+    """The kernel's prologue's outputs: the sort key and three records a
+    Gaussian, in index order."""
+
+    key: torch.Tensor        # (N,) k_last - count (`plan_key_dtype`)
+    rec_a: torch.Tensor      # (N, 4) int32: x_min, rw_safe, rho0, count
+    rec_depth: torch.Tensor  # (N,) int32: the depth's bits
+    rec_cull: torch.Tensor   # (N, 4) float32: mean2d, lam_min, cull_thresh
+    counters: torch.Tensor   # (2,) int32: live slots (0), dropped tiles
+
+
+def plan_prologue(lib, prep: Preprocessed, lay: PlanLayout, k_last: int,
+                  stream=None, check: Callable = None) -> PlanRecords:
+    """The prologue entry point of `csrc/plan.cu` in `lib` (the card's
+    library, or a host build of the source) on `prep`'s device, for the
+    plan `lay` whose last tier ends at k_last. `check(code, 'prologue')`
+    sees its return code (by default: raise where it is not 0)."""
+    inputs = plan_inputs(prep)
+    n, dev, i32 = lay.n, prep.depth.device, torch.int32
+    rec = PlanRecords(
+        torch.empty(n, dtype=plan_key_dtype(k_last), device=dev),
+        torch.empty((n, 4), dtype=i32, device=dev),
+        torch.empty(n, dtype=i32, device=dev),
+        torch.empty((n, 4), dtype=torch.float32, device=dev),
+        torch.empty(2, dtype=i32, device=dev))
+    vp = ctypes.c_void_p
+    (check or _raise_on_error)(lib.gsrast_plan_prologue(
+        (vp * len(inputs))(*(t.data_ptr() for t in inputs)),
+        (ctypes.c_int * 6)(n, lay.num_rows, lay.row0, lay.row_stride, k_last,
+                           rec.key.element_size()),
+        ALPHA_FLOOR, *(t.data_ptr() for t in rec), stream), "prologue")
+    return rec
+
+
+def plan_tiers_launch(lib, prep: Preprocessed, grid_h: int, grid_w: int,
+                      render_cfg: cfg.RenderConfig,
+                      num_local_rows: int | None = None, row0: int = 0,
+                      row_stride: int = 1, dest_rows: int | None = None,
+                      n_dest: int = 1, stream=None,
+                      check: Callable = None) -> TierPlan:
+    """`plan_tiers` through the C entry points of `csrc/plan.cu` in `lib`
+    (the card's library, or a host build of the source) on `prep`'s
+    device: the prologue (`plan_prologue`), the stable torch.sort of its
+    keys, the slots. `check(code, launch)` sees each entry point's return
+    code, launch 'prologue' then 'slots' (by default: raise where it is
+    not 0). Allocates the outputs and scratch with torch and reads nothing
+    back, so a CUDA graph captures it."""
+    check = check or _raise_on_error
+    lay = plan_layout(prep.depth.shape[0], grid_h, grid_w, render_cfg,
+                      num_local_rows, row0, row_stride, dest_rows, n_dest)
+    tiers = render_cfg.tiers
+    if len(tiers) > PLAN_MAX_TIERS:
+        raise ValueError(f"the plan kernel takes at most {PLAN_MAX_TIERS} "
+                         f"tiers, got {len(tiers)}")
+    rec = plan_prologue(lib, prep, lay, tiers[-1][0], stream, check)
+    ranking = torch.sort(rec.key, stable=True).indices
+    tile_key, depth_key, gauss = torch.empty(
+        (3, lay.s0 + lay.pad), dtype=torch.int32,
+        device=ranking.device).unbind(0)
+    order = torch.empty(lay.n, dtype=torch.int32, device=ranking.device)
+    routed = lay.dest_rows is not None
+    nt = len(tiers)
+    check(lib.gsrast_plan_slots(
+        ranking.data_ptr(), *(t.data_ptr() for t in rec[1:4]),
+        tile_key.data_ptr(), depth_key.data_ptr(), gauss.data_ptr(),
+        order.data_ptr(), rec.counters.data_ptr(),
+        (ctypes.c_int * 12)(lay.n, grid_w, lay.row0, lay.row_stride,
+                            int(routed), lay.dest_rows if routed else 1,
+                            lay.ltile_bits, lay.sentinel, render_cfg.tile_h,
+                            render_cfg.tile_w, nt, lay.pad),
+        (ctypes.c_int * nt)(*(k for k, _ in tiers)),
+        (ctypes.c_int * nt)(*(b for _, b, _ in lay.dims)),
+        (ctypes.c_longlong * nt)(*(off for _, _, off in lay.dims)),
+        lay.s0, stream), "slots")
+    return TierPlan(tile_key=tile_key, depth_key=depth_key, gauss=gauss,
+                    order=order, total=rec.counters[0],
+                    overflow_tile_cap=rec.counters[1])
+
+
+def _raise_on_error(code: int, launch: str) -> None:
+    if code != 0:
+        raise RuntimeError(
+            f"plan_tiers {launch} launch failed: CUDA error {code}")
+
+
+def _count_and_check(code: int, launch: str) -> None:
+    """A plan's launches count as one: its prologue's."""
+    if launch == "prologue":
+        _kernels.launch_counts["plan_tiers"] += 1
+    _raise_on_error(code, launch)
+
+
+def plan_tiers_cuda(prep: Preprocessed, grid_h: int, grid_w: int,
+                    render_cfg: cfg.RenderConfig,
+                    num_local_rows: int | None = None, row0: int = 0,
+                    row_stride: int = 1, dest_rows: int | None = None,
+                    n_dest: int = 1) -> TierPlan:
+    """The hand-written kernel (`csrc/plan.cu`) on CUDA tensors:
+    `plan_tiers_torch`'s plan, every field bit for bit, in two launches
+    around a stable torch.sort of N narrow keys (`plan_tiers_launch`),
+    counted as one under `plan_tiers`. Runs on the current stream without
+    synchronising; raises where the card refuses a launch."""
+    dev = prep.depth.device
+    if dev.type != "cuda":
+        raise ValueError(f"the plan kernel needs CUDA tensors, got {dev}")
+    lib = _kernels.load().lib
+    with torch.cuda.device(dev):
+        return plan_tiers_launch(
+            lib, prep, grid_h, grid_w, render_cfg, num_local_rows, row0,
+            row_stride, dest_rows, n_dest,
+            torch.cuda.current_stream(dev).cuda_stream, _count_and_check)

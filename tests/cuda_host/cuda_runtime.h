@@ -85,6 +85,11 @@ inline unsigned __float_as_uint(float a) {
   std::memcpy(&u, &a, sizeof u);
   return u;
 }
+inline int __float_as_int(float a) {
+  int i;
+  std::memcpy(&i, &a, sizeof i);
+  return i;
+}
 // A block's threads are real threads: shared-memory atomics are atomic.
 inline int atomicAdd(int* address, int value) {
   return std::atomic_ref<int>(*address).fetch_add(value);
