@@ -84,11 +84,12 @@ time beside its bound, its counting build's counters and each
 launch's registers, spills, shared bytes, blocks an SM and grid), and
 the tile plan kernel (phase 24: every TierPlan field against the plain
 version and two launches against each other on the 1M scene, whole,
-row-local, routed, under budgets that drop tiles and in a view that
-culls every splat, on trained_116k, the COLMAP init and --small; its
-prologue's cull values against `cull_bounds`; its time cold and warm
-beside its byte bound, the plain version's and the ranking sort's in
-each key width; the kernels of one eager step's binning stage); and
+row-local, routed, under budgets that drop tiles, with a wide bucket
+table (k_last 32,768) and in a view that culls every splat, on
+trained_116k, the COLMAP init and --small; its cull values against
+`cull_bounds`; its time cold and warm beside its byte bound and the plain
+version's, split into its two launches; the kernels of one eager step's
+binning stage); and
 checks that each path went through the kernels.
 Each phase prints its lines before the next begins; the line before the last is the per-kernel
 JSON record, and the last is {"ok": true, "device": {...}}. Any failure
@@ -3569,21 +3570,24 @@ def phase_frame(dev) -> dict:
 
 # -- phase 24: the tile plan kernel -------------------------------------------
 
-# The `render.binning` stage of one eager fwd+bwd step at 1M and
-# trained_116k: the kernel's prologue and slots, the ranking's sort (at most
-# four kernels for a key of 1 or 2 bytes) and nothing else.
-PLAN_STAGE_KERNELS = 8
+# A plan's device operations (its rank and slots launches, no memset), and
+# the `render.binning` stage of one eager fwd+bwd step at 1M and
+# trained_116k: those two kernels and nothing else.
+PLAN_LAUNCHES = 2
 PLAN_D = 4  # devices of the row-local and routed plans
 # The 1M scene's plan under budgets that drop tiles (a tenth of the
 # Gaussians get a second tile, a hundredth a third; its largest count is 12).
 PLAN_BUDGET = ((1, 1.0), (2, 0.1), (3, 0.01))
+# The 1M scene's plan with a wide bucket table: k_last 32,768 (under the
+# planner's bound of 4e6 / grid_w), a last tier of 128 ranks.
+PLAN_WIDE = ((1, 1.0), (2, 0.5), (32_768, 0.0001))
 
 
 def plan_modes(rcfg, grid_h: int) -> dict:
     """The 1M cell's further plans: label -> (config, `plan_tiers`
     keywords): rows {3 + 4 r} with `shard_tiers`' scaled tiers (the
     tile-sharded path's rank 3 of 4), 4 destinations of contiguous rows
-    (the primitive-sharded path), and PLAN_BUDGET."""
+    (the primitive-sharded path), PLAN_BUDGET and PLAN_WIDE."""
     from gsrast_tpu_torch.ops import binning
 
     rpd = -(-grid_h // PLAN_D)
@@ -3592,6 +3596,7 @@ def plan_modes(rcfg, grid_h: int) -> dict:
                    dict(num_local_rows=rpd, row0=3, row_stride=PLAN_D)),
         "routed": (rcfg, dict(dest_rows=rpd, n_dest=PLAN_D)),
         "budgeted": (rcfg.replace(tiers=PLAN_BUDGET), {}),
+        "wide": (rcfg.replace(tiers=PLAN_WIDE), {}),
     }
 
 
@@ -3600,12 +3605,13 @@ def phase_plan(dev) -> dict:
     version on the card, every TierPlan field exactly, and two launches
     against each other, on the plan's cells (`diag/plan_timing.py`: 1M,
     trained_116k, the COLMAP SfM init, --small) and on the 1M scene's
-    row-local, routed and budgeted plans (`plan_modes`) and a view that
-    culls every splat; per cell its time cold and warm beside its byte
-    bound, the plain version's and the ranking sort's; at 1M and
-    trained_116k the sort in each key width (`sort_widths`) and the
-    `render.binning` stage of one eager step, at most PLAN_STAGE_KERNELS
-    kernels. Returns the results by cell."""
+    row-local, routed, budgeted and wide-table plans (`plan_modes`) and a
+    view that culls every splat; per cell its time cold and warm beside
+    its byte bound, the plain version's, its launches (`launch_split`:
+    PLAN_LAUNCHES, each one's time by CUDA events) and its device
+    operations by the profiler (`split`); the wide plan timed once; at 1M
+    and trained_116k the `render.binning` stage of one eager step,
+    PLAN_LAUNCHES kernels. Returns the results by cell."""
     from gsrast_tpu_torch.camera import look_at, make_camera
     from gsrast_tpu_torch.diag import plan_timing as pt
 
@@ -3621,17 +3627,25 @@ def phase_plan(dev) -> dict:
         gh, gw = rcfg.grid_shape(cam.height, cam.width)
         cells = {name: pt.compare(prep, gh, gw, rcfg)}
         if name == "1M":
-            for label, (cfg_m, kw) in plan_modes(rcfg, gh).items():
+            modes = plan_modes(rcfg, gh)
+            for label, (cfg_m, kw) in modes.items():
                 cells[f"1M_{label}"] = pt.compare(prep, gh, gw, cfg_m, **kw)
             away = make_camera(look_at([0.0, 0.0, -2.5], [0.0, 0.0, -5.0],
                                        device=dev), 1.2, 1.0, cam.width,
                                cam.height, device=dev)
             cells["1M_culled"] = pt.compare(pt.cell_prep(scene, away, rcfg),
                                             gh, gw, rcfg)
+            wide = pt.time_cell(prep, gh, gw, modes["wide"][0], dev,
+                                plain=False)
+            print(f"phase 24 plan kernel, 1M_wide ({smi}): "
+                  f"{json.dumps(wide)}", flush=True)
+            assert wide["shape"]["warp_counts"] > 0, wide
+            cells["1M_wide"].update(wide)
         for label, cell in cells.items():
+            shown = {k: v for k, v in cell.items() if k != "split"}
             print(f"phase 24 plan kernel against plain, {label} "
                   f"({cam.width}x{cam.height}, {prep.depth.shape[0]} "
-                  f"Gaussians): {json.dumps(cell)}", flush=True)
+                  f"Gaussians): {json.dumps(shown)}", flush=True)
             assert cell["differ"] == zero, (label, cell)
             assert cell["repeat_differ"] == zero, (label, cell)
             assert cell["cull_differ"] == [0, 0], (label, cell)
@@ -3639,16 +3653,17 @@ def phase_plan(dev) -> dict:
             assert cells["1M_budgeted"]["overflow_tile_cap"] > 0, cells
             assert cells["1M_culled"]["total"] == 0, cells
             assert min(cells[f"1M_{m}"]["total"] for m in (
-                "rows_3", "routed")) > 0, cells
+                "rows_3", "routed", "wide")) > 0, cells
         timing = pt.time_cell(prep, gh, gw, rcfg, dev)
         if name in pt.STAGE_CELLS:
-            timing["sort_widths"] = pt.sort_widths(prep, gh, rcfg.tiers[-1][0])
             timing["binning_stage"] = pt.binning_stage(scene, cam, rcfg, dev,
                                                        name)
         print(f"phase 24 plan kernel, {name} ({smi}): {json.dumps(timing)}",
               flush=True)
+        assert len(timing["launches"]["names"]) == PLAN_LAUNCHES, (
+            name, timing)
         if name in pt.STAGE_CELLS:
-            assert timing["binning_stage"]["kernels"] <= PLAN_STAGE_KERNELS, (
+            assert timing["binning_stage"]["kernels"] == PLAN_LAUNCHES, (
                 name, timing)
         res.update(cells)
         res[name].update(timing)
@@ -4502,6 +4517,8 @@ def main() -> int:
         "plain_ms": order_ms["plain"],
         **dict(zip(("bound_ms", "bound_by"), order_bound(n_tiles_116k))),
         "library_ms": None, "legacy_path": legacy["tile_order"],
+        "note": "one single-block launch, whose time is the launch itself; "
+                "the next kernel to redesign (ROADMAP.md)",
     }, {
         "name": "blend_forward", "route": "cuda",
         "source": "gsrast_tpu_torch/csrc/blend_forward.cu",
@@ -4602,13 +4619,20 @@ def main() -> int:
                            for cell in plan_res),
         "ms": plan_res["1M"]["cold_ms"], "warm_ms": plan_res["1M"]["warm_ms"],
         **{key: plan_res["1M"][key] for key in (
-            "plain_ms", "bound_ms", "bound_by", "sort_ms")},
+            "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
-        "cells": {cell: {key: plan_res[cell][key] for key in (
-            "cold_ms", "warm_ms", "plain_ms", "sort_ms", "bound_ms", "share",
-            "slots", "tiers", "key")} for cell in plan_timing.CELLS},
+        "cells": {cell: {key: plan_res[cell].get(key) for key in (
+            "cold_ms", "warm_ms", "plain_ms", "bound_ms", "share", "slots",
+            "tiers", "k_last")} | {
+                "launches": plan_res[cell]["launches"]["names"],
+                "launch_us": plan_res[cell]["launches"]["us"]}
+            for cell in (*plan_timing.CELLS, "1M_wide")},
         "binning_stage": {cell: plan_res[cell]["binning_stage"]
                           for cell in plan_timing.STAGE_CELLS},
+        "parent": "the design before the counting sort (a prologue, "
+                  "torch.sort, a slot launch): its times beside these in "
+                  "PERF.md section 6, measured in turns by "
+                  "gsrast_tpu_torch/diag/plan_timing.py",
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

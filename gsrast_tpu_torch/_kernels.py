@@ -240,10 +240,14 @@ def set_ellipsoid_argtypes(lib) -> None:
 def set_plan_argtypes(lib) -> None:
     """The tile plan's entry points' argument types (also for a build of
     `csrc/plan.cu` alone; `ops/binning.py::plan_tiers_launch` calls them)."""
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gsrast_plan_prologue.argtypes = [vp, vp, ctypes.c_float, *[vp] * 6]
-    lib.gsrast_plan_slots.argtypes = [*[vp] * 13, ctypes.c_longlong, vp]
-    for name in ("gsrast_plan_prologue", "gsrast_plan_slots"):
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.gsrast_plan_shape.argtypes = [ctypes.c_longlong, i32, vp]
+    lib.gsrast_plan_shape.restype = None
+    lib.gsrast_plan_rank.argtypes = [vp] * 8
+    lib.gsrast_plan_slots.argtypes = [vp, vp, f32, *[vp] * 11,
+                                      ctypes.c_longlong, vp]
+    lib.gsrast_plan_cull.argtypes = [vp, vp, f32, vp, vp]
+    for name in ("gsrast_plan_rank", "gsrast_plan_slots", "gsrast_plan_cull"):
         getattr(lib, name).restype = i32
 
 

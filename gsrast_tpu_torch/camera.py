@@ -51,6 +51,13 @@ def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(np.array(x, np.float32), device=device)
 
 
+def _true_div(n: int, d: torch.Tensor) -> torch.Tensor:
+    """n / d as a float32 division on every device, as the reference
+    divides (an int or float divided by a tensor is PyTorch's reciprocal of
+    the tensor times the scalar, an ulp off at some d)."""
+    return torch.full_like(d, float(n)) / d
+
+
 def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
 
@@ -81,11 +88,11 @@ class Camera:
 
     @property
     def focal_x(self) -> torch.Tensor:
-        return self.width / (2.0 * self.tan_fov_x)
+        return _true_div(self.width, 2.0 * self.tan_fov_x)
 
     @property
     def focal_y(self) -> torch.Tensor:
-        return self.height / (2.0 * self.tan_fov_y)
+        return _true_div(self.height, 2.0 * self.tan_fov_y)
 
     @property
     def position(self) -> torch.Tensor:
@@ -137,15 +144,15 @@ class DeviceCamera(NamedTuple):
 
 def device_camera(camera: Camera) -> DeviceCamera:
     """The camera's block, built by torch ops from its device tensors, each
-    float as `Camera`'s properties round it (focal = size / (2 tan), which
-    PyTorch takes as reciprocal(2 tan) * size). A CUDA graph that captures
-    this call rebuilds the block from the camera's tensors at each replay:
-    the kernels never take the camera as host scalars."""
-    tan = torch.tan(torch.stack([camera.fov_x, camera.fov_y]) * 0.5)
-    inv = (2.0 * tan).reciprocal()
+    float as `Camera`'s properties round it (focal = size / (2 tan), a
+    true division). A CUDA graph that captures this call rebuilds the block
+    from the camera's tensors at each replay: the kernels never take the
+    camera as host scalars."""
     block = torch.cat([camera.view.reshape(16),
                        camera.full_projection().reshape(16), camera.position,
-                       inv[:1] * camera.width, inv[1:] * camera.height, tan])
+                       camera.focal_x.reshape(1), camera.focal_y.reshape(1),
+                       camera.tan_fov_x.reshape(1),
+                       camera.tan_fov_y.reshape(1)])
     return DeviceCamera(block, camera.width, camera.height)
 
 

@@ -22,10 +22,11 @@ reference does.
 
 The multi-tier plan has two versions: `plan_tiers_torch`, the plain
 version in torch ops on any device, and the hand-written kernel of
-`csrc/plan.cu` (`plan_tiers_cuda`, CUDA tensors only: two launches around
-one stable torch.sort of N narrow keys, every field bit for bit the plain
-version's). `plan_tiers` takes the kernel for CUDA tensors under backend
-'cuda' and the plain version otherwise (`_kernels.uses_kernel`).
+`csrc/plan.cu` (`plan_tiers_cuda`, CUDA tensors only: two launches, the
+ranking a stable counting sort of the counts inside the first, every field
+bit for bit the plain version's). `plan_tiers` takes the kernel for CUDA
+tensors under backend 'cuda' and the plain version otherwise
+(`_kernels.uses_kernel`).
 """
 
 from __future__ import annotations
@@ -577,14 +578,6 @@ def plan_tiers_torch(prep: Preprocessed, grid_h: int, grid_w: int,
                     total=total, overflow_tile_cap=dropped.to(i32))
 
 
-def plan_key_dtype(k_last: int) -> torch.dtype:
-    """The kernel's sort key, k_last - count: the narrowest type that holds
-    k_last, since the ranking's radix sort takes a pass a byte."""
-    if k_last <= 0xFF:
-        return torch.uint8
-    return torch.int16 if k_last <= 0x7FFF else torch.int32
-
-
 def plan_inputs(prep: Preprocessed) -> tuple:
     """The kernel's inputs, checked and contiguous (a copy only where a
     field is a strided view, as the sharded exchange's columns are):
@@ -607,38 +600,105 @@ def plan_inputs(prep: Preprocessed) -> tuple:
     return tuple(t.contiguous() for _, t, _, _ in fields)
 
 
-class PlanRecords(NamedTuple):
-    """The kernel's prologue's outputs: the sort key and three records a
-    Gaussian, in index order."""
+class PlanShape(NamedTuple):
+    """The rank launch's shape (`gsrast_plan_shape` of `csrc/plan.cu`)."""
 
-    key: torch.Tensor        # (N,) k_last - count (`plan_key_dtype`)
-    rec_a: torch.Tensor      # (N, 4) int32: x_min, rw_safe, rho0, count
-    rec_depth: torch.Tensor  # (N,) int32: the depth's bits
-    rec_cull: torch.Tensor   # (N, 4) float32: mean2d, lam_min, cull_thresh
-    counters: torch.Tensor   # (2,) int32: live slots (0), dropped tiles
+    rounds: int        # rounds of 256 Gaussians a block
+    blocks: int
+    table: int         # the bucket table's int32s: blocks x (k_last + 1)
+    warp_counts: int   # int32 scratch for warp counts (0: shared memory)
 
 
-def plan_prologue(lib, prep: Preprocessed, lay: PlanLayout, k_last: int,
-                  stream=None, check: Callable = None) -> PlanRecords:
-    """The prologue entry point of `csrc/plan.cu` in `lib` (the card's
-    library, or a host build of the source) on `prep`'s device, for the
-    plan `lay` whose last tier ends at k_last. `check(code, 'prologue')`
-    sees its return code (by default: raise where it is not 0)."""
+def plan_shape(lib, n: int, k_last: int) -> PlanShape:
+    out = (ctypes.c_longlong * 4)()
+    lib.gsrast_plan_shape(n, k_last, out)
+    return PlanShape(*out)
+
+
+# A zero int32 a device, which the rank launch's last block takes back to
+# zero: its count of the blocks done (`csrc/plan.cu`). Per device and not per
+# caller: a plan's launches find it zero only if no other plan runs on the
+# device at the same time.
+_TICKETS: dict = {}
+
+
+def plan_ticket(device: torch.device) -> torch.Tensor:
+    """The device's ticket, made (zero) at its first plan: outside a CUDA
+    graph's capture, as every capture here follows an eager warm-up."""
+    key = (device.type, device.index)
+    if key not in _TICKETS:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("make one plan on the device before capturing "
+                               "one in a CUDA graph")
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
+# A plan with a tier at least this wide has its slots written by rank
+# (`csrc/plan.cu`'s slots launch): a Gaussian's own thread would write a
+# long row alone, its stores to other ranks' lines.
+PLAN_WIDE_TIER = 32
+
+
+def plan_by_rank(lay: PlanLayout) -> bool:
+    """Whether the slots launch writes `lay`'s slots by rank, from records
+    (a tier PLAN_WIDE_TIER wide or wider), rather than a Gaussian's thread
+    writing its own."""
+    return max(w for w, _, _ in lay.dims) >= PLAN_WIDE_TIER
+
+
+def _dims(lay: PlanLayout, k_last: int) -> list:
+    return [lay.n, lay.num_rows, lay.row0, lay.row_stride, k_last]
+
+
+def plan_cull(lib, prep: Preprocessed, stream=None) -> torch.Tensor:
+    """`cull_bounds` (lam_min, cull_thresh) of each Gaussian by the entry
+    point `gsrast_plan_cull` of `csrc/plan.cu` in `lib`, as its slots
+    launch computes them: (N, 2) float32 on `prep`'s device."""
     inputs = plan_inputs(prep)
-    n, dev, i32 = lay.n, prep.depth.device, torch.int32
-    rec = PlanRecords(
-        torch.empty(n, dtype=plan_key_dtype(k_last), device=dev),
-        torch.empty((n, 4), dtype=i32, device=dev),
-        torch.empty(n, dtype=i32, device=dev),
-        torch.empty((n, 4), dtype=torch.float32, device=dev),
-        torch.empty(2, dtype=i32, device=dev))
+    n = prep.depth.shape[0]
+    out = torch.empty((n, 2), dtype=torch.float32, device=prep.depth.device)
+    _raise_on_error(lib.gsrast_plan_cull(  # the rows and k_last: unread
+        (ctypes.c_void_p * len(inputs))(*(t.data_ptr() for t in inputs)),
+        (ctypes.c_int * 5)(n, 1, 0, 1, 1), ALPHA_FLOOR, out.data_ptr(),
+        stream), "cull")
+    return out
+
+
+class PlanRanks(NamedTuple):
+    """The rank launch's outputs."""
+
+    table: torch.Tensor   # (k_last + 1, blocks) int32: each bucket's first
+    #                       rank in each block
+    local: torch.Tensor   # (N,) int32: rank within the block's bucket
+    counters: torch.Tensor  # (4,) int32, zero: [live slots, dropped tiles] and
+    #                         the slots launch's two block counts
+
+
+def plan_rank(lib, prep: Preprocessed, lay: PlanLayout, k_last: int,
+              stream=None, check: Callable = None) -> PlanRanks:
+    """The rank entry point of `csrc/plan.cu` in `lib` (the card's library,
+    or a host build of the source) on `prep`'s device, for the plan `lay`
+    whose last tier ends at k_last. `check(code, 'rank')` sees its return
+    code (by default: raise where it is not 0)."""
+    inputs = plan_inputs(prep)
+    dev, i32 = prep.depth.device, torch.int32
+    shape = plan_shape(lib, lay.n, k_last)
+    ranks = PlanRanks(
+        torch.empty((k_last + 1, shape.blocks), dtype=i32, device=dev),
+        torch.empty(lay.n, dtype=i32, device=dev),
+        torch.empty(4, dtype=i32, device=dev))
+    warp_counts = (torch.empty(shape.warp_counts, dtype=i32, device=dev)
+                   if shape.warp_counts else None)
     vp = ctypes.c_void_p
-    (check or _raise_on_error)(lib.gsrast_plan_prologue(
+    (check or _raise_on_error)(lib.gsrast_plan_rank(
         (vp * len(inputs))(*(t.data_ptr() for t in inputs)),
-        (ctypes.c_int * 6)(n, lay.num_rows, lay.row0, lay.row_stride, k_last,
-                           rec.key.element_size()),
-        ALPHA_FLOOR, *(t.data_ptr() for t in rec), stream), "prologue")
-    return rec
+        (ctypes.c_int * 5)(*_dims(lay, k_last)), ranks.table.data_ptr(),
+        ranks.local.data_ptr(),
+        None if warp_counts is None else warp_counts.data_ptr(),
+        plan_ticket(dev).data_ptr(), ranks.counters.data_ptr(), stream),
+        "rank")
+    return ranks
 
 
 def plan_tiers_launch(lib, prep: Preprocessed, grid_h: int, grid_w: int,
@@ -649,11 +709,12 @@ def plan_tiers_launch(lib, prep: Preprocessed, grid_h: int, grid_w: int,
                       check: Callable = None) -> TierPlan:
     """`plan_tiers` through the C entry points of `csrc/plan.cu` in `lib`
     (the card's library, or a host build of the source) on `prep`'s
-    device: the prologue (`plan_prologue`), the stable torch.sort of its
-    keys, the slots. `check(code, launch)` sees each entry point's return
-    code, launch 'prologue' then 'slots' (by default: raise where it is
-    not 0). Allocates the outputs and scratch with torch and reads nothing
-    back, so a CUDA graph captures it."""
+    device: the rank launch (`plan_rank`: each Gaussian's place by a
+    stable counting sort of its count), then the slots launch. `check(code,
+    launch)` sees each entry point's return code, launch 'rank' then
+    'slots' (by default: raise where it is not 0). Allocates the outputs
+    and scratch with torch and reads nothing back, so a CUDA graph captures
+    it."""
     check = check or _raise_on_error
     lay = plan_layout(prep.depth.shape[0], grid_h, grid_w, render_cfg,
                       num_local_rows, row0, row_stride, dest_rows, n_dest)
@@ -661,29 +722,36 @@ def plan_tiers_launch(lib, prep: Preprocessed, grid_h: int, grid_w: int,
     if len(tiers) > PLAN_MAX_TIERS:
         raise ValueError(f"the plan kernel takes at most {PLAN_MAX_TIERS} "
                          f"tiers, got {len(tiers)}")
-    rec = plan_prologue(lib, prep, lay, tiers[-1][0], stream, check)
-    ranking = torch.sort(rec.key, stable=True).indices
+    k_last = tiers[-1][0]
+    ranks = plan_rank(lib, prep, lay, k_last, stream, check)
+    inputs = plan_inputs(prep)
+    dev = prep.depth.device
     tile_key, depth_key, gauss = torch.empty(
-        (3, lay.s0 + lay.pad), dtype=torch.int32,
-        device=ranking.device).unbind(0)
-    order = torch.empty(lay.n, dtype=torch.int32, device=ranking.device)
+        (3, lay.s0 + lay.pad), dtype=torch.int32, device=dev).unbind(0)
+    order = torch.empty(lay.n, dtype=torch.int32, device=dev)
+    by_rank = plan_by_rank(lay)
+    records = (torch.empty(9 * lay.n, dtype=torch.int32, device=dev)
+               if by_rank else None)
     routed = lay.dest_rows is not None
     nt = len(tiers)
+    vp = ctypes.c_void_p
     check(lib.gsrast_plan_slots(
-        ranking.data_ptr(), *(t.data_ptr() for t in rec[1:4]),
+        (vp * len(inputs))(*(t.data_ptr() for t in inputs)),
+        (ctypes.c_int * 15)(*_dims(lay, k_last), grid_w, int(routed),
+                            lay.dest_rows if routed else 1, lay.ltile_bits,
+                            lay.sentinel, render_cfg.tile_h,
+                            render_cfg.tile_w, nt, lay.pad, int(by_rank)),
+        ALPHA_FLOOR, ranks.table.data_ptr(), ranks.local.data_ptr(),
+        None if records is None else records.data_ptr(),
         tile_key.data_ptr(), depth_key.data_ptr(), gauss.data_ptr(),
-        order.data_ptr(), rec.counters.data_ptr(),
-        (ctypes.c_int * 12)(lay.n, grid_w, lay.row0, lay.row_stride,
-                            int(routed), lay.dest_rows if routed else 1,
-                            lay.ltile_bits, lay.sentinel, render_cfg.tile_h,
-                            render_cfg.tile_w, nt, lay.pad),
+        order.data_ptr(), ranks.counters.data_ptr(),
         (ctypes.c_int * nt)(*(k for k, _ in tiers)),
         (ctypes.c_int * nt)(*(b for _, b, _ in lay.dims)),
         (ctypes.c_longlong * nt)(*(off for _, _, off in lay.dims)),
         lay.s0, stream), "slots")
     return TierPlan(tile_key=tile_key, depth_key=depth_key, gauss=gauss,
-                    order=order, total=rec.counters[0],
-                    overflow_tile_cap=rec.counters[1])
+                    order=order, total=ranks.counters[0],
+                    overflow_tile_cap=ranks.counters[1])
 
 
 def _raise_on_error(code: int, launch: str) -> None:
@@ -693,8 +761,8 @@ def _raise_on_error(code: int, launch: str) -> None:
 
 
 def _count_and_check(code: int, launch: str) -> None:
-    """A plan's launches count as one: its prologue's."""
-    if launch == "prologue":
+    """A plan's launches count as one: its rank launch's."""
+    if launch == "rank":
         _kernels.launch_counts["plan_tiers"] += 1
     _raise_on_error(code, launch)
 
@@ -706,9 +774,9 @@ def plan_tiers_cuda(prep: Preprocessed, grid_h: int, grid_w: int,
                     n_dest: int = 1) -> TierPlan:
     """The hand-written kernel (`csrc/plan.cu`) on CUDA tensors:
     `plan_tiers_torch`'s plan, every field bit for bit, in two launches
-    around a stable torch.sort of N narrow keys (`plan_tiers_launch`),
-    counted as one under `plan_tiers`. Runs on the current stream without
-    synchronising; raises where the card refuses a launch."""
+    (`plan_tiers_launch`), counted as one under `plan_tiers`. Runs on the
+    current stream without synchronising; raises where the card refuses a
+    launch."""
     dev = prep.depth.device
     if dev.type != "cuda":
         raise ValueError(f"the plan kernel needs CUDA tensors, got {dev}")

@@ -5,11 +5,13 @@
 // __syncthreads and per-thread state (registers) behave as on the card;
 // blocks run one after another, and a kernel's dynamic shared memory is one
 // host array that the test defines. Each warp's 32 threads meet at a barrier of
-// their own in __syncwarp. The _rn intrinsics are plain float
+// their own in __syncwarp, and exchange values through slots of their own in the
+// vote and match intrinsics. The _rn intrinsics are plain float
 // operations: build with -ffp-contract=off. `launch(grid, block, kernel,
 // args...)` stands for `kernel<<<grid, block, shared, stream>>>(args...)`.
 #pragma once
 #include <algorithm>
+#include <array>
 #include <atomic>
 #include <barrier>
 #include <cmath>
@@ -46,6 +48,38 @@ inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) {
   (*host_warp_barriers)[threadIdx.x / 32]->arrive_and_wait();
 }
+// The warp vote and match intrinsics: each lane publishes a value in its warp's slots,
+// the warp meets at its barrier, every lane reads the others', and the warp meets again
+// before the slots are reused. Every lane of the warp must call them (as with a full
+// mask on the card); lanes outside `mask` are not counted.
+inline std::vector<std::array<unsigned long long, 32>>* host_warp_slots;
+template <class T>
+unsigned host_warp_vote(unsigned mask, T value, bool match) {
+  auto& slots = (*host_warp_slots)[threadIdx.x / 32];
+  const unsigned lane = threadIdx.x % 32;
+  unsigned long long bits = 0;
+  std::memcpy(&bits, &value, sizeof value);
+  slots[lane] = bits;
+  __syncwarp();
+  const unsigned width = std::min(32u, blockDim.x - threadIdx.x / 32 * 32);
+  unsigned out = 0;
+  for (unsigned l = 0; l < width; ++l) {
+    if ((mask >> l & 1u) && (match ? slots[l] == bits : slots[l] != 0)) out |= 1u << l;
+  }
+  __syncwarp();
+  return out;
+}
+template <class T>
+unsigned __match_any_sync(unsigned mask, T value) { return host_warp_vote(mask, value, true); }
+inline unsigned __ballot_sync(unsigned mask, int predicate) {
+  return host_warp_vote(mask, static_cast<unsigned long long>(predicate != 0), false);
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline void __nanosleep(unsigned) { std::this_thread::yield(); }
+template <class T>
+T __ldcg(const T* address) { return *address; }
 
 struct float2 {
   float x, y;
@@ -72,6 +106,7 @@ inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return
 struct double2 {
   double x, y;
 };
+inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline double2 make_double2(double a, double b) { return {a, b}; }
 inline float __fmul_rn(float a, float b) { return a * b; }
@@ -93,6 +128,14 @@ inline int __float_as_int(float a) {
 // A block's threads are real threads: shared-memory atomics are atomic.
 inline int atomicAdd(int* address, int value) {
   return std::atomic_ref<int>(*address).fetch_add(value);
+}
+// atomicInc: the old value; stores 0 where it was >= limit, else old + 1.
+inline unsigned atomicInc(unsigned* address, unsigned limit) {
+  std::atomic_ref<unsigned> ref(*address);
+  unsigned old = ref.load();
+  while (!ref.compare_exchange_weak(old, old >= limit ? 0u : old + 1u)) {
+  }
+  return old;
 }
 inline unsigned long long atomicMin(unsigned long long* address, unsigned long long value) {
   std::atomic_ref<unsigned long long> ref(*address);
@@ -154,6 +197,8 @@ void launch(dim3 grid, dim3 block, K kernel, A... args) {
         for (unsigned w = 0; w < (block.x + 31) / 32; ++w)
           warps.push_back(std::make_unique<std::barrier<>>(std::min(32u, block.x - 32 * w)));
         host_warp_barriers = &warps;
+        std::vector<std::array<unsigned long long, 32>> slots((block.x + 31) / 32);
+        host_warp_slots = &slots;
         std::vector<std::thread> threads;
         for (unsigned t = 0; t < block.x; ++t) {
           threads.emplace_back([&, t] {

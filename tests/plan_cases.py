@@ -19,7 +19,7 @@ CASES = {
     # tiers >= 1 cull; k_last = 12 and small budgets drop tiles
     "budgeted": (1, 1_500, (96, 128), (8, 16),
                  ((2, 1.0), (6, 0.3), (12, 0.05)), 0.3, 1.0),
-    # ten tiers over a skewed scene: k_last 512 (a 2-byte sort key)
+    # ten tiers over a skewed scene: k_last 512
     "skewed_10": (2, 3_000, (256, 256), (8, 8),
                   ((1, 1.0), (2, 0.9), (4, 0.7), (8, 0.5), (16, 0.3),
                    (32, 0.2), (64, 0.1), (128, 0.05), (256, 0.03),
@@ -30,7 +30,31 @@ CASES = {
     "one": (4, 1, (64, 64), (8, 8), ((3, 1.0), (20, 1.0)), 0.0, 1.5),
     # 900 grid slots, padded to 1,024
     "padded": (5, 300, (64, 64), (8, 8), ((3, 1.0),), 0.1, 0.8),
+    # no Gaussian
+    "empty": (6, 0, (64, 64), (8, 8), ((2, 1.0), (6, 0.5)), 0.1, 1.0),
+    # every Gaussian on 2 tiles (`FIXED_RECTS`): one bucket over 8 blocks
+    "one_count": (7, 2_000, (128, 128), (8, 8), ((1, 1.0), (4, 0.5)), 0.0,
+                  1.0),
+    # k_last 255 and 256: the last bucket counts of a 1-byte key and the
+    # first of a 2-byte one
+    "k255": (8, 2_500, (256, 256), (8, 8), ((1, 1.0), (4, 0.3), (255, 0.05)),
+             0.2, 1.6),
+    "k256": (9, 2_500, (256, 256), (8, 8), ((1, 1.0), (4, 0.3), (256, 0.05)),
+             0.2, 1.6),
+    # trained_116k's k_last 460 over 20,000 Gaussians: 3 rounds a block, the
+    # last block ragged
+    "k460": (10, 20_000, (256, 512), (8, 8),
+             ((1, 1.0), (2, 0.5), (4, 0.3), (16, 0.1), (64, 0.03),
+              (460, 0.01)), 0.2, 1.5),
+    # wide tables, warp counts in scratch: k_last 32,767 in one block, and
+    # 32,768 over two blocks of 64 rounds (k_last x grid_w under 4e6)
+    "k32767": (11, 4_000, (2_200, 960), (8, 8), ((1, 1.0), (32_767, 0.01)),
+               0.2, 2.5),
+    "k32768": (12, 20_000, (2_200, 960), (8, 8), ((1, 1.0), (32_768, 0.005)),
+               0.2, 2.5),
 }
+# Cases whose every rectangle is (width, height) tiles, at a drawn tile.
+FIXED_RECTS = {"one_count": (2, 1)}
 D = 4  # devices of the row-local and routed modes
 
 
@@ -64,6 +88,11 @@ def arrays(case: str) -> dict:
             i32((py - r) / np.float32(th), gh),
             i32(np.ceil((px + r + np.float32(1.0)) / np.float32(tw)), gw),
             i32(np.ceil((py + r + np.float32(1.0)) / np.float32(th)), gh))
+    if case in FIXED_RECTS:
+        rw, rh = FIXED_RECTS[case]
+        x0 = rng.integers(0, gw - rw + 1, n).astype(np.int32)
+        y0 = rng.integers(0, gh - rh + 1, n).astype(np.int32)
+        rect = (x0, y0, x0 + rw, y0 + rh)
     return dict(mean2d=mean2d, depth=depth, conic=conic,
                 color=np.zeros((n, 3), np.float32), opacity=opacity,
                 radius=radius, rect=rect, grid=(gh, gw))

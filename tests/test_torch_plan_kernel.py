@@ -63,7 +63,8 @@ def test_plan_inputs_are_checked():
 
 def test_plan_layout_matches_the_plain_version():
     """The static structure both versions share: slots and padding of
-    `tier_dims`, the sentinels, and the mode checks."""
+    `tier_dims`, the sentinels, and the mode checks; and the kernel's
+    layout, by rank where a tier is PLAN_WIDE_TIER wide."""
     lay = binning.plan_layout(300, 8, 8, gt.RenderConfig(
         tile_h=8, tile_w=8, tiers=((3, 1.0),)))
     assert (lay.s0, lay.pad, lay.sentinel) == (900, 124, 64)
@@ -74,6 +75,9 @@ def test_plan_layout_matches_the_plain_version():
         tile_h=8, tile_w=8, tiers=((3, 1.0),)), num_local_rows=3, row0=3,
         row_stride=4)
     assert (rows.num_rows, rows.row0, rows.sentinel) == (3, 3, 24)
+    assert not binning.plan_by_rank(lay)
+    assert binning.plan_by_rank(binning.plan_layout(300, 8, 8, gt.RenderConfig(
+        tile_h=8, tile_w=8, tiers=((1, 1.0), (33, 0.5)))))
     with pytest.raises(ValueError, match="whole grid"):
         binning.plan_layout(300, 11, 8, gt.RenderConfig(
             tile_h=8, tile_w=8, tiers=((3, 1.0),)), num_local_rows=3,
@@ -117,18 +121,46 @@ def test_cuda_kernel_matches_plain(case, mode):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(plan_cases.CASES))
 def test_cuda_prologue_matches_cull_bounds(case):
-    """The prologue's lam_min and cull_thresh on the card equal the plain
-    version's `cull_bounds` there, value for value: torch's (a - c) ** 2
-    is a product, its sqrt and log are the CUDA library's, and its
-    division by 0.98 ALPHA_MIN a true one by the float32 constant."""
+    """The slots launch's lam_min and cull_thresh on the card (its
+    arithmetic run alone, `binning.plan_cull`) equal the plain version's
+    `cull_bounds` there, value for value: torch's (a - c) ** 2 is a
+    product, its sqrt and log are the CUDA library's, and its division by
+    0.98 ALPHA_MIN a true one by the float32 constant."""
+    dev = _card()
+    prep, gh, gw, rcfg = _case(case, dev)
+    cull = binning.plan_cull(_kernels.load().lib, prep,
+                             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert plan_timing.cull_differ(prep, cull) == [0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k460", "k32768"])
+def test_cuda_ranks_across_blocks(case):
+    """The rank launch on the card: each Gaussian's rank (its bucket's
+    first rank in its block plus its rank there) is its place in the
+    plain version's stable ranking, over blocks of several rounds and a
+    wide table whose warp counts lie in scratch; the ticket is back to 0
+    and the counts zero."""
     dev = _card()
     prep, gh, gw, rcfg = _case(case, dev)
     lay = binning.plan_layout(prep.depth.shape[0], gh, gw, rcfg)
-    rec = binning.plan_prologue(_kernels.load().lib, prep, lay,
-                                rcfg.tiers[-1][0],
-                                torch.cuda.current_stream().cuda_stream)
+    k_last = rcfg.tiers[-1][0]
+    lib = _kernels.load().lib
+    ranks = binning.plan_rank(lib, prep, lay, k_last,
+                              torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
-    assert plan_timing.cull_differ(prep, rec) == [0, 0]
+    shape = binning.plan_shape(lib, lay.n, k_last)
+    assert shape.blocks > 1 and shape.rounds > 1
+    counts = torch.clamp(binning.tile_counts(prep, gh)[0], max=k_last)
+    block = torch.arange(lay.n, device=dev) // (256 * shape.rounds)
+    rank = ranks.table[k_last - counts.long(), block] + ranks.local
+    want = torch.empty_like(rank)
+    want[torch.sort(-counts, stable=True).indices] = torch.arange(
+        lay.n, dtype=rank.dtype, device=dev)
+    assert torch.equal(rank, want)
+    assert int(binning.plan_ticket(dev)) == 0
+    assert ranks.counters.tolist() == [0, 0, 0, 0]
 
 
 @pytest.mark.cuda

@@ -1,17 +1,22 @@
 """The tile plan kernel's CUDA source (`csrc/plan.cu`) run on the CPU:
 compiled by g++ against the host stand-in of the CUDA runtime in
 `tests/cuda_host/` (each block's threads real threads at a barrier, blocks
-one after another, the _rn intrinsics plain float operations built without
-contraction), its C entry points called through ctypes by the wrapper's
-own launcher (`binning.plan_tiers_launch`: the prologue, torch.sort of its
-keys, the slots), and every `TierPlan` field held, slot for slot, to the
-plain version (`plan_tiers_torch`) and to the reference's `plan_tiers` on
-the same arrays: the whole grid, row-local plans (4 devices, rows 0 + 4 r
-and 3 + 4 r) and routed plans (4 destinations); on the scenes of
+one after another, the warp's match and vote intrinsics through slots of
+its own, the _rn intrinsics plain float operations built without
+contraction, the dynamic shared memory a host array), its C entry points
+called through ctypes by the wrapper's
+own launcher (`binning.plan_tiers_launch`: the rank launch, then the
+slots), and every `TierPlan` field held, slot for slot, to the plain
+version (`plan_tiers_torch`) and to the reference's `plan_tiers` on the
+same arrays: the whole grid, row-local plans (4 devices, rows 0 + 4 r and
+3 + 4 r) and routed plans (4 destinations); on the scenes of
 `test_torch_binning.py` and on drawn states (`plan_cases.py`: a budgeted
 plan that drops tiles, ten tiers over a skewed scene, every splat culled,
-one Gaussian, a grid that needs padding); and with each width of sort
-key."""
+no Gaussian, one Gaussian, a grid that needs padding, one count over
+several blocks, k_last 255, 256 and 460 over blocks of several rounds, and
+wide bucket tables, k_last 32,767 and 32,768, whose warp counts lie in
+scratch). The rank launch's ranks are held to the stable ranking on their
+own."""
 
 import ctypes
 import functools
@@ -43,6 +48,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(os.path.dirname(HERE), "gsrast_tpu_torch", "csrc",
                       "plan.cu")
 LAUNCH = re.compile(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+),\s*(.*?)>>>\(")
+SHARED = "extern __shared__ int rank_shared[];"  # a host array in the build
 
 torch.set_num_threads(2)
 
@@ -56,6 +62,9 @@ def lib(tmp_path_factory):
     out = tmp_path_factory.mktemp("plan_host")
     with open(SOURCE) as f:
         src = LAUNCH.sub(r"launch(\2, \3, \1, ", f.read())
+    assert SHARED in src
+    src = src.replace(SHARED, "alignas(16) int rank_shared"
+                              "[kHostSharedPerSm / 4];")
     cpp, so = out / "plan_host.cpp", out / "libplan_host.so"
     cpp.write_text(src)
     subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
@@ -147,7 +156,7 @@ def test_source_matches_plain_and_reference(lib, case, mode):
     got = _check(lib, plan_cases.prep(a), ref, gh, gw, gt.RenderConfig(
         tile_h=th, tile_w=tw, tiers=tiers, backend="torch"), **kw)
     total = int(got.total)
-    if case == "culled":
+    if case in ("culled", "empty"):
         assert total == 0 and int(got.overflow_tile_cap) == 0
     elif mode == "whole":
         assert total > 0
@@ -177,69 +186,65 @@ def _cull_bounds_rounded(conic, opacity) -> tuple:
             - f(np.sqrt(disc.astype(np.float64))))
     lam = np.where(lam < 0, np.float32(0), lam)
     op = np.maximum(opacity, np.float32(1e-12)).astype(np.float64)
-    thr = f(2.0 * f(np.log(f(op / np.float32(binning.ALPHA_FLOOR)))))
+    thr = f(2.0 * f(np.log(f(op / np.float32(binning.ALPHA_FLOOR))
+                           .astype(np.float64))))
     return lam, thr
 
 
 @pytest.mark.parametrize("case", sorted(plan_cases.CASES))
 def test_source_prologue_records(lib, case):
-    """The prologue's records, Gaussian by Gaussian: the key k_last -
-    count, the rect's x_min, rw_safe and first row, the whole grid's
-    count clamped to k_last (`tile_counts`), the depth's bits, the mean,
-    and `cull_bounds`' lam_min and cull_thresh, each operation correctly
-    rounded (`_cull_bounds_rounded`; the logarithm within an ulp)."""
+    """The rank launch's records, Gaussian by Gaussian: its bucket's
+    first rank in its block (the table) plus its rank there (`local`) is
+    its place in the stable ranking by count, descending (`tile_counts`
+    clamped to k_last, ties in index order); its four counts are zeroed and
+    the ticket is back to 0. And the slots launch's cull values
+    (`binning.plan_cull`): lam_min and cull_thresh with every float32
+    operation correctly rounded (`_cull_bounds_rounded`; the logarithm
+    within an ulp)."""
     import gsrast_tpu_torch as gt
 
     a = plan_cases.arrays(case)
     gh, gw = a["grid"]
     _, _, _, (th, tw), tiers, *_ = plan_cases.CASES[case]
     prep = plan_cases.prep(a)
-    k_last = tiers[-1][0]
-    rec = binning.plan_prologue(lib, prep, binning.plan_layout(
-        prep.depth.shape[0], gh, gw, gt.RenderConfig(tile_h=th, tile_w=tw,
-                                                     tiers=tiers)), k_last)
-    counts, y0, rw = binning.tile_counts(prep, gh)
-    counts = torch.clamp(counts, max=k_last)
-    assert torch.equal(rec.key.long(), k_last - counts.long())
-    assert torch.equal(rec.rec_a, torch.stack(
-        [prep.rect.x_min, torch.clamp(rw, min=1), y0, counts], 1))
-    assert torch.equal(rec.rec_depth, prep.depth.view(torch.int32))
-    assert torch.equal(rec.rec_cull[:, :2], prep.mean2d)
+    n, k_last = prep.depth.shape[0], tiers[-1][0]
+    lay = binning.plan_layout(n, gh, gw, gt.RenderConfig(
+        tile_h=th, tile_w=tw, tiers=tiers))
+    ticket = binning.plan_ticket(prep.depth.device)
+    ranks = binning.plan_rank(lib, prep, lay, k_last)
+    shape = binning.plan_shape(lib, n, k_last)
+    assert ranks.table.shape == (k_last + 1, shape.blocks)
+    assert shape.table == ranks.table.numel()
+    assert (shape.warp_counts > 0) == (k_last + 1 > 1024)
+    counts = torch.clamp(binning.tile_counts(prep, gh)[0], max=k_last)
+    block = torch.arange(n) // (256 * shape.rounds)
+    rank = ranks.table[k_last - counts.long(), block] + ranks.local
+    want = torch.empty(n, dtype=torch.int32)
+    want[torch.sort(-counts, stable=True).indices] = torch.arange(
+        n, dtype=torch.int32)
+    assert torch.equal(rank, want)
+    assert ranks.counters.tolist() == [0, 0, 0, 0] and int(ticket) == 0
+    cull = binning.plan_cull(lib, prep)
     lam, thr = _cull_bounds_rounded(a["conic"], a["opacity"])
-    np.testing.assert_array_equal(rec.rec_cull[:, 2].numpy(), lam)
-    ulps = np.abs(rec.rec_cull[:, 3].numpy().view(np.int32).astype(np.int64)
+    np.testing.assert_array_equal(cull[:, 0].numpy(), lam)
+    ulps = np.abs(cull[:, 1].numpy().view(np.int32).astype(np.int64)
                   - thr.view(np.int32).astype(np.int64))
-    assert ulps.max() <= 1
-    dropped = int((binning.tile_counts(prep, gh)[0] - counts).sum())
-    assert int(rec.counters[1]) == dropped
+    assert ulps.max(initial=0) <= 1
 
 
-@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32])
-def test_source_every_key_width(lib, monkeypatch, dtype):
-    """The ranking is the same stable sort whatever the key's width: the
-    skewed 10-tier case (k_last 512) with its key forced to each type
-    that can hold k_last - count (uint8 only where k_last fits)."""
-    import gsrast_tpu_torch as gt
-
-    case = "skewed_10" if dtype != torch.uint8 else "budgeted"
-    a = plan_cases.arrays(case)
-    gh, gw = a["grid"]
-    _, _, _, (th, tw), tiers, *_ = plan_cases.CASES[case]
-    monkeypatch.setattr(binning, "plan_key_dtype", lambda k_last: dtype)
-    pcfg = gt.RenderConfig(tile_h=th, tile_w=tw, tiers=tiers, backend="torch")
-    prep = plan_cases.prep(a)
-    got = binning.plan_tiers_launch(lib, prep, gh, gw, pcfg)
-    assert differing(got, binning.plan_tiers_torch(
-        prep, gh, gw, pcfg)) == dict.fromkeys(FIELDS, 0)
-    assert got.tile_key.numel() > 0
-
-
-def test_key_widths():
-    assert binning.plan_key_dtype(12) == torch.uint8
-    assert binning.plan_key_dtype(255) == torch.uint8
-    assert binning.plan_key_dtype(256) == torch.int16
-    assert binning.plan_key_dtype(32_767) == torch.int16
-    assert binning.plan_key_dtype(32_768) == torch.int32
+@pytest.mark.parametrize("n, k_last, rounds", [
+    (100_000, 12, 1), (1_000_000, 12, 7), (116_000, 460, 26),
+    (1_000_000, 32_768, 64)])
+def test_source_rank_shape(lib, n, k_last, rounds):
+    """The rank launch's shape: the fewest rounds of 256 Gaussians a block
+    that keep the bucket table (blocks x (k_last + 1)) near 8,192 entries,
+    at most 64; one block at least (N = 0 still zeroes the counts)."""
+    shape = binning.plan_shape(lib, n, k_last)
+    assert shape.rounds == rounds
+    assert shape.blocks == -(-n // (256 * rounds))
+    assert shape.table == shape.blocks * (k_last + 1)
+    empty = binning.plan_shape(lib, 0, k_last)
+    assert (empty.rounds, empty.blocks) == (1, 1)
 
 
 def test_source_refuses_a_bad_table(lib):
