@@ -71,7 +71,9 @@ the optimizer kernel (phase 22: the SH rest-band scale, the live mask and
 Adam over the five groups in one launch, against its plain version bit for
 bit on the groups of the 1M, trained_116k and COLMAP train cells with real
 gradients and on edge cells of 1, 3 and 1,025 Gaussians and an unaligned
-one, two launches bit for bit, one launch an eager step; its time cold
+one, two launches bit for bit, one launch an eager step and one device
+operation an update (its graph's nodes and the profiler's kernels), the
+counts one more an update over three updates eager and replayed; its time cold
 and warm beside its byte bound, the plain version's and the library
 call's, torch.optim.Adam(fused=True), alone and after the scale and mask
 passes; phases 8, 9, 10, 12, 13 and 19 train through it), and the
@@ -89,7 +91,12 @@ table (k_last 32,768) and in a view that culls every splat, on
 trained_116k, the COLMAP init and --small; its cull values against
 `cull_bounds`; its time cold and warm beside its byte bound and the plain
 version's, split into its two launches; the kernels of one eager step's
-binning stage); and
+binning stage), and the tile order kernel (phase 25: its order equal to
+the plain version's element for element on the first views' plans of
+the three train cells and of the 1M bench scene at 3840x2160 (16,200
+tiles of 16x32, the tile shape bench picks there), as in phases
+3, 6, 12, 16 and 17; its time cold and warm beside the launch floor, its
+bound, the plain version's and a stable torch.sort of the buckets); and
 checks that each path went through the kernels.
 Each phase prints its lines before the next begins; the line before the last is the per-kernel
 JSON record, and the last is {"ok": true, "device": {...}}. Any failure
@@ -369,23 +376,172 @@ def order_bound(num_tiles: int) -> tuple:
 
 def order_err(order, tile_starts) -> float:
     """The order kernel's output against the plain `tile_order`: the
-    largest difference of the two sequences of buckets, which is 0 where
-    they match (the kernel leaves the tiles of one bucket in no fixed
-    order), or inf where the output is not a permutation of the tiles."""
-    from gsrast_tpu_torch.render.blend import (ORDER_BUCKET_POSITIONS,
-                                               ORDER_BUCKETS, tile_order)
-
-    lengths = tile_starts[1:] - tile_starts[:-1]
-
-    def buckets(o):
-        return torch.clamp(lengths[o.long()] // ORDER_BUCKET_POSITIONS,
-                           max=ORDER_BUCKETS - 1)
+    largest difference of the two sequences of tiles, 0 where they are
+    equal element for element (ties in tile order), or inf where the output
+    is not a permutation of the tiles."""
+    from gsrast_tpu_torch.render.blend import tile_order
 
     every_tile = torch.arange(len(order), device=order.device)
     if not torch.equal(torch.sort(order.long()).values, every_tile):
         return float("inf")
-    diff = buckets(order) - buckets(tile_order(tile_starts))
+    diff = order.long() - tile_order(tile_starts).long()
     return float(diff.abs().max()) if len(diff) else 0.0
+
+
+# The 4K order cell: the 1M bench scene (`benchmark.bench_scene_camera`) at
+# 3840x2160, with the tile shape and tier plan `bench --width 3840 --height
+# 2160` derives for it (`benchmark.bench_render_config`: 16x32, 135 x 120 =
+# 16,200 tiles).
+ORDER_4K = (3840, 2160)
+ORDER_4K_TILES = 16_200
+ORDER_CELLS = ("trained_116k", "1M", "colmap", "4K")
+
+
+def plan_starts(scene, cam, rcfg) -> torch.Tensor:
+    """The tile_starts of (scene, cam) under rcfg, as the render's
+    `sort_pack` makes them from its tile plan."""
+    from gsrast_tpu_torch.ops import binning
+    from gsrast_tpu_torch.ops.preprocess import preprocess
+    from gsrast_tpu_torch.render.pipeline import feature_rows, sort_pack
+
+    with torch.inference_mode():
+        gh, gw = rcfg.grid_shape(cam.height, cam.width)
+        prep = preprocess(scene.activated(), cam, rcfg)
+        plan = binning.plan_tiers(prep, gh, gw, rcfg)
+        return sort_pack(feature_rows(prep), plan, gh * gw)[1]
+
+
+def order_4k_inputs(dev, n: int = N_NORTH_STAR) -> tuple:
+    """(scene, camera, config) of the 4K order cell: the bench scene of n
+    Gaussians at ORDER_4K, its config `bench_render_config`'s on backend
+    'cuda' where dev is a card (else 'torch')."""
+    from gsrast_tpu_torch.benchmark import (bench_render_config,
+                                            bench_scene_camera)
+
+    scene, cam = bench_scene_camera(n, *ORDER_4K, device=dev)
+    backend = "cuda" if torch.device(dev).type == "cuda" else "torch"
+    return scene, cam, bench_render_config(scene, cam, backend)
+
+
+def order_4k_starts(dev, n: int = N_NORTH_STAR) -> torch.Tensor:
+    """(ORDER_4K_TILES + 1,) int32 tile_starts of the 4K order cell
+    (`order_4k_inputs`); raises where the config's tiles are not
+    ORDER_4K_TILES."""
+    scene, cam, rcfg = order_4k_inputs(dev, n)
+    starts = plan_starts(scene, cam, rcfg)
+    if len(starts) != ORDER_4K_TILES + 1:
+        raise AssertionError(
+            f"4K order cell: {rcfg.tile_h}x{rcfg.tile_w} tiles give "
+            f"{len(starts) - 1} tiles, not {ORDER_4K_TILES}")
+    return starts
+
+
+def order_cells(dev) -> dict:
+    """Per order cell, its tile_starts: the first view's tile plan of each
+    train cell of phase 19 (`diag.profile_step.train_cell`: trained_116k in
+    2,040 tiles of 16x64, the 1M SH-3 scene in 4,080 of 16x32, the COLMAP
+    SfM init in 1,020 of 32x64) and the 4K cell (`order_4k_starts`), as
+    the render's `sort_pack` makes them (`plan_starts`)."""
+    from gsrast_tpu_torch.diag.profile_step import train_cell
+
+    cells = {}
+    for key, name in (("trained_116k", "train_trained_116k"),
+                      ("1M", "train_default"),
+                      ("colmap", "train_colmap")):
+        cell = train_cell(name, dev)
+        cells[key] = plan_starts(cell.scene, cell.views[0], cell.rcfg)
+        del cell
+    cells["4K"] = order_4k_starts(dev)
+    torch.cuda.empty_cache()
+    return cells
+
+
+def launch_floor(dev) -> dict:
+    """The launch floor: a one-element fill (a launch that does nearly
+    nothing), timed as `order_cell` times the order kernel, cold and
+    warm."""
+    x = torch.empty(1, device=dev)
+    return {"ms": cold_ms(x.zero_, dev),
+            "warm_ms": cuda_ms(lambda: [x.zero_() for _ in range(
+                RAW_REPS)]) / RAW_REPS}
+
+
+def order_cell(tile_starts, dev) -> dict:
+    """The order kernel on one cell's tile_starts: `tile_order_cuda`'s
+    output against the plain version (`order_err`, exact), the kernel's
+    raw launch (`order_launch`) cold (`cold_ms`, its `ms`) and warm
+    (RAW_REPS back to back), the bound and the share of it, the plain
+    version's time and the library call's: one stable descending
+    torch.sort of the tiles' buckets, made beforehand."""
+    from gsrast_tpu_torch.render.blend import (ORDER_BUCKET_POSITIONS,
+                                               ORDER_BUCKETS, tile_order,
+                                               tile_order_cuda)
+
+    num_tiles = len(tile_starts) - 1
+    res = {"tiles": num_tiles,
+           "longest": int((tile_starts[1:] - tile_starts[:-1]).max()),
+           "max_abs_err": order_err(tile_order_cuda(tile_starts),
+                                    tile_starts)}
+    launch = order_launch(tile_starts)
+    assert launch() == 0
+    res["ms"] = cold_ms(launch, dev)
+    res["warm_ms"] = cuda_ms(lambda: [launch() for _ in range(
+        RAW_REPS)]) / RAW_REPS
+    res.update(zip(("bound_ms", "bound_by"), order_bound(num_tiles)))
+    res["share"] = res["bound_ms"] / res["ms"]
+    res["plain_ms"] = cuda_ms(lambda: tile_order(tile_starts))
+    bucket = torch.clamp((tile_starts[1:] - tile_starts[:-1])
+                         // ORDER_BUCKET_POSITIONS, max=ORDER_BUCKETS - 1)
+    res["library_ms"] = cuda_ms(lambda: torch.sort(
+        bucket, descending=True, stable=True))
+    return res
+
+
+def render_4k(dev) -> dict:
+    """The 4K order cell's scene rendered forward through `render` with its
+    config (`order_4k_inputs`): its tiles, the launches of the forward's
+    kernels (one of each) and whether the image is finite and of the
+    cell's shape."""
+    from gsrast_tpu_torch import _kernels
+    from gsrast_tpu_torch.render.api import render
+
+    scene, cam, rcfg = order_4k_inputs(dev)
+    _kernels.reset_launch_counts()
+    with torch.inference_mode():
+        image = render(scene, cam, rcfg).image
+    torch.cuda.synchronize()
+    launches = {k: _kernels.launch_counts[k] for k in FORWARD_KERNELS}
+    gh, gw = rcfg.grid_shape(cam.height, cam.width)
+    return {"tile": [rcfg.tile_h, rcfg.tile_w], "tiles": gh * gw,
+            "launches": launches,
+            "image_ok": bool(image.shape == (ORDER_4K[1], ORDER_4K[0], 3)
+                             and torch.isfinite(image).all())}
+
+
+def phase_order(dev) -> dict:
+    """Phase 25: the order kernel (`order_cell`) on the order cells
+    (`order_cells`) beside the launch floor, each order equal to the plain
+    version's element for element; and the 4K cell's scene rendered
+    through `render` (`render_4k`), which launches the order kernel on its
+    16,200 tiles."""
+    out = {"render_4k": render_4k(dev)}
+    print(f"phase 25 4K render: {json.dumps(out['render_4k'])}", flush=True)
+    assert out["render_4k"]["image_ok"], out["render_4k"]
+    assert out["render_4k"]["tiles"] == ORDER_4K_TILES, out["render_4k"]
+    assert all(v == 1 for v in out["render_4k"]["launches"].values()), out
+    out["floor"] = launch_floor(dev)
+    for key, starts in order_cells(dev).items():
+        out[key] = order_cell(starts, dev)
+        print(f"phase 25 tile order {key} ({out[key]['tiles']} tiles, "
+              f"longest segment {out[key]['longest']}): "
+              f"{out[key]['ms']:.4f} ms cold, {out[key]['warm_ms']:.4f} warm "
+              f"(launch floor {out['floor']['ms']:.4f} / "
+              f"{out['floor']['warm_ms']:.4f}), plain "
+              f"{out[key]['plain_ms']:.4f} ms, stable torch.sort of the "
+              f"buckets {out[key]['library_ms']:.4f} ms; {json.dumps(out[key])}",
+              flush=True)
+        assert out[key]["max_abs_err"] == 0.0, (key, out[key])
+    return out
 
 
 def order_launch(tile_starts):
@@ -393,16 +549,17 @@ def order_launch(tile_starts):
     allocated here, not counted. Returns the launcher, which returns the
     launch's CUDA error code."""
     from gsrast_tpu_torch import _kernels
+    from gsrast_tpu_torch.render.blend import order_args
 
     num_tiles = len(tile_starts) - 1
     out = torch.empty((num_tiles,), dtype=torch.int32,
                       device=tile_starts.device)
-    fn = _kernels.load().lib.gsrast_tile_order
-    ptrs = (tile_starts.data_ptr(), num_tiles, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+    lib = _kernels.load().lib
+    ptrs, table = order_args(lib, tile_starts, out,
+                             torch.cuda.current_stream().cuda_stream)
 
-    def launch(_alive=out):  # its output lives as long as it
-        return fn(*ptrs)
+    def launch(_alive=(out, table)):  # its buffers live as long as it
+        return lib.gsrast_tile_order(*ptrs)
     return launch
 
 
@@ -1344,6 +1501,7 @@ def phase_sharded_kernels(dev) -> dict:
         feat, starts = sort_pack(feature_rows(prep), plan, rpd * gw)
         local = dict(num_tiles=rpd * gw, tile_map=tmap)
         order = tile_order_cuda(starts)
+        order_diff = order_err(order, starts)
         fwd = blend_forward_cuda(feat, starts, gh, gw, th, tw, order, **local)
         cmp_f = compare_blend(fwd, blend_forward_torch(feat, starts, gh, gw,
                                                        th, tw, **local),
@@ -1371,13 +1529,14 @@ def phase_sharded_kernels(dev) -> dict:
           f"{ms_fp:.3f} ms) {json.dumps(cmp_f)}; {work_line(work, 'fwd', ms_f)}"
           f"; backward {ms_b:.3f} ms (plain {ms_bp:.3f} ms), rows "
           f"{json.dumps(cmp_b['row_rel_err'])} of their scale, bitwise equal "
-          f"over two launches {same}; {work_line(work, 'bwd', ms_b)}",
-          flush=True)
+          f"over two launches {same}; {work_line(work, 'bwd', ms_b)}; tile "
+          f"order against the plain version {order_diff}", flush=True)
     assert cmp_f["err_rgb"] <= ATOL and cmp_f["err_final_t"] <= ATOL
     assert cmp_f["nc_mismatch_share"] <= MAX_NC_MISMATCH
     assert cmp_f["mismatch_at_boundary"] and same
     assert max(cmp_b["row_rel_err"]) <= BWD_RTOL and (
         cmp_b["dead_abs_sum"] == 0.0), cmp_b
+    assert order_diff == 0.0, order_diff
     res = {
         "blend_forward": {"ms": ms_f, "plain_ms": ms_fp,
                           "max_abs_err": cmp_f["max_abs_err"],
@@ -1643,7 +1802,7 @@ def phase_legacy(dev, tier_ms: dict) -> dict:
                                                blend_backward_torch,
                                                blend_forward_cuda,
                                                blend_forward_torch,
-                                               tile_order, tile_order_cuda)
+                                               tile_order_cuda)
     from gsrast_tpu_torch.render.pipeline import pack_features
     from gsrast_tpu_torch.scene.ply import load_ply
 
@@ -1715,16 +1874,9 @@ def phase_legacy(dev, tier_ms: dict) -> dict:
         ms_fp = cuda_ms(lambda: blend_forward_torch(*args), iters=3)
         ms_bp = cuda_ms(lambda: blend_backward_torch(*bargs), iters=3)
         seg = starts[1:] - starts[:-1]
-        launch = order_launch(starts)
-        assert launch() == 0
-        res["tile_order"] = {
-            "launches": launches["tile_order"],
-            "ms": cuda_ms(lambda: [launch() for _ in range(RAW_REPS)])
-            / RAW_REPS,
-            "plain_ms": cuda_ms(lambda: tile_order(starts)),
-            "max_abs_err": order_err(order, starts),
-            **dict(zip(("bound_ms", "bound_by"), order_bound(gh * gw))),
-            "library_ms": None}
+        res["tile_order"] = {"launches": launches["tile_order"],
+                             **order_cell(starts, dev)}
+        assert order_err(order, starts) == 0.0
     print(f"phase 17 blend kernels on the legacy inputs, 1M SH3 "
           f"{WIDTH}x{HEIGHT} tiles {th}x{tw} (capacity {feat.shape[1]}, "
           f"isect={int(starts[-1])}, longest segment {int(seg.max())}): "
@@ -2953,6 +3105,7 @@ ADAM_EDGE = {"edge_1": (3, 1, 0), "edge_3": (3, 3, 0),
              "edge_1025": (3, 1_025, 0), "edge_unaligned": (1, 4_099, 1)}
 ADAM_CELLS = ("1M", "trained_116k", "colmap", *ADAM_EDGE)
 ADAM_REST_SCALE = 1.0 / 20.0  # 1 / TrainConfig().lr_sh_rest_div
+ADAM_UPDATES = 3  # updates in a row, eager and replayed (`adam_counts`)
 
 
 def adam_edge_groups(dev, degree: int, capacity: int, offset: int = 0,
@@ -3028,6 +3181,36 @@ def compare_adam(groups, live, rest_scale: float = ADAM_REST_SCALE
                                for g, x in zip(groups, grads)),
         "finite": all(bool(torch.isfinite(t).all())
                       for t in adam_outputs(kernel))}
+
+
+def adam_counts(groups, live, rest_scale: float = ADAM_REST_SCALE) -> dict:
+    """ADAM_UPDATES updates in a row from copies of the same state, eager
+    and as replays of one captured update: each group's count's rise in
+    both, whether the replays' outputs equal the eager updates' bit for
+    bit, and the device operations of the captured update (its graph's
+    nodes)."""
+    from gsrast_tpu_torch.diag.adam_timing import graph_nodes
+    from gsrast_tpu_torch.train import adam
+
+    eager, replayed = adam_clone(groups), adam_clone(groups)
+    for _ in range(ADAM_UPDATES):
+        adam.adam_update_cuda(eager, live, rest_scale)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        adam.adam_update_cuda(replayed, live, rest_scale)
+    nodes = graph_nodes(graph)
+    graph.instantiate()
+    for _ in range(ADAM_UPDATES):
+        graph.replay()
+    torch.cuda.synchronize()
+    start = [float(g.step) for g in groups]
+    return {"graph_nodes": nodes,
+            "count_rise_eager": [float(g.step) - s
+                                 for g, s in zip(eager, start)],
+            "count_rise_replayed": [float(g.step) - s
+                                    for g, s in zip(replayed, start)],
+            "replays_equal_eager": all(torch.equal(a, b) for a, b in zip(
+                adam_outputs(eager), adam_outputs(replayed)))}
 
 
 def adam_values(groups) -> dict:
@@ -3125,19 +3308,25 @@ def adam_occupancy() -> dict:
 
 
 def adam_cell(label: str, groups, live, dev) -> dict:
-    """Phase 22 on one cell: `compare_adam`; the kernel's raw launches
-    timed back to back (RAW_REPS an interval, the L2 warm) and cold
-    (`cold_ms`, the time kept as its `ms`), with the bound and the share of
-    it; the plain version's time and the library call's two."""
+    """Phase 22 on one cell: `compare_adam`; `adam_counts`; the device
+    operations of one raw launch by the profiler (`plan_timing.split`);
+    the kernel's raw launches timed back to back (RAW_REPS an interval, the
+    L2 warm) and cold (`cold_ms`, the time kept as its `ms`), with the bound
+    and the share of it; the plain version's time and the library call's
+    two."""
     from gsrast_tpu_torch.train import adam
+
+    from gsrast_tpu_torch.diag import plan_timing
 
     res = {"capacity": live.numel(), "groups": {
         g.name: list(g.param.shape) for g in groups},
         **adam_values(groups), **compare_adam(groups, live),
-        **adam_work(groups, live)}
+        **adam_counts(groups, live), **adam_work(groups, live)}
     kernel = adam_clone(groups)
     launch = adam.update_launch(kernel, live, ADAM_REST_SCALE)
     assert launch.fn(*launch.args) == 0
+    ops = plan_timing.split(lambda: launch.fn(*launch.args))
+    res["device_ops"] = {key: ops[key] for key in ("ops", "kept", "names")}
     res["warm_ms"] = cuda_ms(lambda: [launch.fn(*launch.args)
                                       for _ in range(RAW_REPS)]) / RAW_REPS
     res["ms"] = cold_ms(lambda: launch.fn(*launch.args), dev)
@@ -3157,10 +3346,24 @@ def adam_cell(label: str, groups, live, dev) -> dict:
           f"passes; second moments zero {res['exp_avg_sq_zero_share']:.3f}"
           f", subnormal {res['exp_avg_sq_subnormal_share']:.3g}; bit-equal "
           f"to the plain version {res['bit_equal']} "
-          f"(max {res['max_ulps']} ulps, {res['max_abs_err']:.3g}); "
-          f"{json.dumps(res)}", flush=True)
+          f"(max {res['max_ulps']} ulps, {res['max_abs_err']:.3g}); device "
+          f"operations an update: {res['graph_nodes']} in its graph, "
+          f"{res['device_ops']['ops']} by the profiler "
+          f"({res['device_ops']['names']}); counts after {ADAM_UPDATES} "
+          f"updates +{res['count_rise_eager']} eager, "
+          f"+{res['count_rise_replayed']} replayed; {json.dumps(res)}",
+          flush=True)
     assert res["bit_equal"] and res["same_bits_twice"], res
     assert res["grads_untouched"] and res["finite"], res
+    # One device operation an update: exactly, by the graph's nodes; the
+    # profiler's traces (which in a long process have missed a launch,
+    # never added one) hold no other operation.
+    assert res["graph_nodes"] == 1 and res["device_ops"]["ops"] <= 1, res
+    assert all("adam_update_kernel" in name
+               for name in res["device_ops"]["names"]), res
+    assert res["count_rise_eager"] == res["count_rise_replayed"] == [
+        float(ADAM_UPDATES)] * len(groups), res
+    assert res["replays_equal_eager"], res
     return res
 
 
@@ -3692,7 +3895,7 @@ def main() -> int:
                                                blend_backward_torch,
                                                blend_forward_cuda,
                                                blend_forward_torch,
-                                               tile_order, tile_order_cuda)
+                                               tile_order_cuda)
     from gsrast_tpu_torch.render.pipeline import feature_rows, sort_pack
     from gsrast_tpu_torch.render.tiled import untile, untile_cf
     from gsrast_tpu_torch.scene.gaussians import random_scene
@@ -3755,29 +3958,19 @@ def main() -> int:
         args = (feat, starts, gh, gw, th, tw)
         order = tile_order_cuda(starts)
         order_err116 = order_err(order, starts)
-        launch = order_launch(starts)
-        assert launch() == 0
-        order_ms = {"kernel": cuda_ms(lambda: [launch() for _ in range(
-                        RAW_REPS)]) / RAW_REPS,
-                    "wrapper": cuda_ms(lambda: tile_order_cuda(starts)),
-                    "plain": cuda_ms(lambda: tile_order(starts))}
         out_k = blend_forward_cuda(*args, order=order)
         cmp116 = compare_blend(out_k, blend_forward_torch(*args),
                                cfg.TRANSMITTANCE_MIN)
         # Blended (pixel, position) pairs, skipped positions included.
         positions = int(out_k[2].sum())
-        n_tiles_116k = gh * gw
         ms_k = cuda_ms(lambda: blend_forward_cuda(*args, order=order))
         ms_p = cuda_ms(lambda: blend_forward_torch(*args))
         ab116 = order_ab(lambda o: blend_forward_cuda(*args, order=o), starts)
         work116 = blend_work(feat, starts, out_k[2], gw, th, tw)
         print(f"phase 3 tile order trained_116k ({gh * gw} tiles, longest "
               f"segment {int((starts[1:] - starts[:-1]).max())}): largest "
-              f"bucket difference from the plain version {order_err116}; "
-              f"kernel alone {order_ms['kernel']:.4f} ms, through the "
-              f"wrapper {order_ms['wrapper']:.4f} ms, plain "
-              f"{order_ms['plain']:.4f} ms, bound "
-              f"{order_bound(gh * gw)[0]:.6f} ms", flush=True)
+              f"difference from the plain version {order_err116} (its times: "
+              f"phase 25)", flush=True)
         print(f"phase 3 blend trained_116k {WIDTH}x{HEIGHT} tiles {th}x{tw} "
               f"tiers={rcfg.tiers} isect={int(plan.total)} "
               f"positions={positions}: "
@@ -4340,13 +4533,15 @@ def main() -> int:
         work0 = blend_work(feat0, starts0, fwd0[2], gw0, th0, tw0)
         ms_f0 = cuda_ms(lambda: blend_forward_cuda(*fargs0, order0))
         ms_b0 = cuda_ms(lambda: blend_backward_cuda(*bargs0, order0))
+        order_diff0 = order_err(order0, starts0)
     print(f"phase 12 blend kernels on the SfM init, view 0, tiles "
           f"{th0}x{tw0} isect={int(starts0[-1])}: forward {ms_f0:.3f} ms "
           f"{json.dumps(cmp_f0)}; {work_line(work0, 'fwd', ms_f0)}; "
           f"backward {ms_b0:.3f} ms, worst row "
           f"{max(cmp_b0['row_rel_err']):.3g} of its scale, bitwise equal "
-          f"over two launches {same0}; {work_line(work0, 'bwd', ms_b0)}",
-          flush=True)
+          f"over two launches {same0}; {work_line(work0, 'bwd', ms_b0)}; "
+          f"tile order against the plain version {order_diff0}", flush=True)
+    assert order_diff0 == 0.0, order_diff0
     assert cmp_f0["err_rgb"] <= ATOL and cmp_f0["err_final_t"] <= ATOL
     assert cmp_f0["nc_mismatch_share"] <= MAX_NC_MISMATCH
     assert cmp_f0["mismatch_at_boundary"] and same0
@@ -4505,6 +4700,12 @@ def main() -> int:
     plan_res = phase_plan(dev)
     print(f"phase 24 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- phase 25: the tile order kernel -----------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    order_res = phase_order(dev)
+    print(f"phase 25 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     b116 = bwd["trained_116k"]
     rows_full, tiles_full = int(full_starts[-1]) // 8, t
     print(json.dumps({"kernels": [{
@@ -4513,12 +4714,21 @@ def main() -> int:
         "replaces": "gsrast_tpu/render/pallas_blend.py:325",
         "launches": launches_cli_train["tile_order"],
         "replayed": replayed_cli_train["tile_order"],
-        "max_abs_err": order_err116, "ms": order_ms["kernel"],
-        "plain_ms": order_ms["plain"],
-        **dict(zip(("bound_ms", "bound_by"), order_bound(n_tiles_116k))),
-        "library_ms": None, "legacy_path": legacy["tile_order"],
-        "note": "one single-block launch, whose time is the launch itself; "
-                "the next kernel to redesign (ROADMAP.md)",
+        "max_abs_err": max([order_err116, legacy["tile_order"]["max_abs_err"],
+                            *(order_res[cell]["max_abs_err"]
+                              for cell in ORDER_CELLS)]),
+        **{key: order_res["trained_116k"][key] for key in (
+            "ms", "warm_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "library_call": "torch.sort(bucket, descending=True, stable=True)",
+        "ms_is": "cold: one raw launch after an L2 flush (cold_ms) on the "
+                 "first view of the trained_116k train cell (phase 25); "
+                 "warm_ms: the mean of RAW_REPS back-to-back launches",
+        "launch_floor": order_res["floor"],
+        "cells": {cell: {key: order_res[cell][key] for key in (
+            "tiles", "ms", "warm_ms", "plain_ms", "bound_ms", "share",
+            "library_ms")} for cell in ORDER_CELLS},
+        "legacy_path": legacy["tile_order"],
     }, {
         "name": "blend_forward", "route": "cuda",
         "source": "gsrast_tpu_torch/csrc/blend_forward.cu",
@@ -4591,9 +4801,10 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_with_glue_ms")},
         "launch": adam_res["launch"],
+        "device_ops_per_update": adam_res["1M"]["graph_nodes"],
         "cells": {cell: {key: adam_res[cell][key] for key in (
             "ms", "warm_ms", "plain_ms", "bound_ms", "share", "library_ms",
-            "library_with_glue_ms")} for cell in ADAM_CELLS},
+            "library_with_glue_ms", "graph_nodes")} for cell in ADAM_CELLS},
     }, {
         "name": "ellipsoids", "route": "cuda",
         "source": "gsrast_tpu_torch/csrc/ellipsoids.cu",

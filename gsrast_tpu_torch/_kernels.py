@@ -47,6 +47,28 @@ launch_counts = {"tile_order": 0, "blend_forward": 0, "blend_backward": 0,
 replayed_counts = dict.fromkeys(launch_counts, 0)
 
 
+# Zero int32 counters that a kernel keeps per device between launches (its
+# last block takes them back to zero: tickets, counts of the blocks done), by
+# kernel and device. A launch finds them zero only if no other launch of the
+# same kernel runs on the device at the same time.
+_DEVICE_COUNTERS: dict = {}
+
+
+def device_counters(kernel: str, device: torch.device,
+                    n: int = 1) -> torch.Tensor:
+    """Kernel `kernel`'s n counters on `device`, made (zero) at its first
+    launch there: outside a CUDA graph's capture, as every capture here
+    follows an eager warm-up."""
+    key = (kernel, device.type, device.index)
+    if key not in _DEVICE_COUNTERS:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"launch the {kernel} kernel on the device once "
+                               f"before capturing it in a CUDA graph")
+        _DEVICE_COUNTERS[key] = torch.zeros(n, dtype=torch.int32,
+                                            device=device)
+    return _DEVICE_COUNTERS[key]
+
+
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = replayed_counts[name] = 0
@@ -237,6 +259,16 @@ def set_ellipsoid_argtypes(lib) -> None:
         getattr(lib, name).restype = i32
 
 
+def set_order_argtypes(lib) -> None:
+    """The tile order's entry points' argument types (also for a build of
+    `csrc/tile_order.cu` alone)."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.gsrast_tile_order.argtypes = [vp, i32, vp, vp, vp, vp]
+    lib.gsrast_tile_order.restype = i32
+    lib.gsrast_tile_order_table.argtypes = [i32]
+    lib.gsrast_tile_order_table.restype = ctypes.c_longlong
+
+
 def set_plan_argtypes(lib) -> None:
     """The tile plan's entry points' argument types (also for a build of
     `csrc/plan.cu` alone; `ops/binning.py::plan_tiers_launch` calls them)."""
@@ -290,9 +322,7 @@ def load() -> Library:
     lib = ctypes.CDLL(str(path))
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
-    fn = lib.gsrast_tile_order
-    fn.argtypes = [vp, i32, vp, vp]
-    fn.restype = ctypes.c_int
+    set_order_argtypes(lib)
     fn = lib.gsrast_blend_forward
     fn.argtypes = [vp, i64, vp, vp, *[i32] * 6, f32, f32, f32, vp, vp, vp, vp]
     fn.restype = ctypes.c_int
@@ -334,7 +364,7 @@ def load() -> Library:
                    vp, vp, *[i64] * 3, vp]
     fn.restype = ctypes.c_int
     fn = lib.gsrast_adam_update
-    fn.argtypes = [i32, *[vp] * 5, f32, vp]
+    fn.argtypes = [i32, *[vp] * 5, f32, vp, vp]
     fn.restype = ctypes.c_int
     fn = lib.gsrast_adam_occupancy
     fn.argtypes = [vp] * 5

@@ -17,13 +17,15 @@ each in a process of its own that imports that tree's package and
 tree's launch (`train.adam.update_launch`) runs once, its outputs are saved
 on the tree's first run, and it is timed as phase 22 times it: cold
 (`chip_smoke.cold_ms`, the L2 flushed before each launch) and warm
-(`chip_smoke.cuda_ms` of RAW_REPS raw launches back to back); each run
-prints one JSON line of its ms. Last, one JSON line a cell: its bound
-(`chip_smoke.adam_work`) and per tree the ms of each run, the share of the
-bound at the best cold run, and its outputs against the first tree's. A
-tree must lie inside this checkout and hold `train/adam.py` (a variant:
-a copy under `_archive/`, which git ignores, with edited constants of
-`csrc/adam.cu`). Default tree: this checkout.
+(`chip_smoke.cuda_ms` of RAW_REPS raw launches back to back), and its
+device operations an update are counted as the nodes of a CUDA graph that
+captures one launch; each run prints one JSON line of its ms and nodes.
+Last, one JSON line a cell: its bound (`chip_smoke.adam_work`) and per
+tree the ms of each run, the share of the bound at the best cold run, its
+graph's nodes, and its outputs against the first tree's. A tree must lie
+inside this checkout and hold `train/adam.py` (a variant: a copy under
+`_archive/`, which git ignores, with an edited `csrc/adam.cu`). Default
+tree: this checkout.
 """
 
 from __future__ import annotations
@@ -74,6 +76,30 @@ def make_inputs(smoke, wanted) -> dict:
     return info
 
 
+def graph_nodes(graph) -> int:
+    """The nodes of a captured CUDA graph (made with keep_graph=True, not
+    yet instantiated): the device operations one replay runs."""
+    import ctypes
+
+    count = ctypes.c_size_t(0)
+    code = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    assert code == 0, f"cuGraphGetNodes: CUDA error {code}"
+    return count.value
+
+
+def update_nodes(make_launch) -> int:
+    """The device operations of one update: the nodes of a CUDA graph that
+    captures the launch make_launch() makes on the capture's stream."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        launch = make_launch()
+        assert launch.fn(*launch.args) == 0
+    return graph_nodes(graph)
+
+
 def run_tree(tree: Path) -> None:
     """Run and time one tree's kernel on the saved cells (run as a script,
     in a process of its own, so that the tree's package and smoke script are
@@ -105,7 +131,10 @@ def run_tree(tree: Path) -> None:
             "cold": smoke.cold_ms(lambda: launch.fn(*launch.args), dev),
             "warm": smoke.cuda_ms(lambda: [
                 launch.fn(*launch.args) for _ in range(smoke.RAW_REPS)]
-            ) / smoke.RAW_REPS}
+            ) / smoke.RAW_REPS,
+            "graph_nodes": update_nodes(
+                lambda: adam.update_launch(launch.held["groups"], live,
+                                           smoke.ADAM_REST_SCALE))}
         del launch, groups
     if keep is not None:
         torch.save(keep, saved)
@@ -132,6 +161,7 @@ def summarise(trees, info: dict) -> None:
             cold = [run["cold"] for run in runs]
             res["trees"][str(tree.relative_to(HERE))] = {
                 "cold_ms": cold, "warm_ms": [run["warm"] for run in runs],
+                "graph_nodes": sorted({run["graph_nodes"] for run in runs}),
                 "share": work["bound_ms"] / min(cold),
                 "differ": sum(int((a != b).sum())
                               for a, b in zip(out[key], first[key]))}

@@ -1,6 +1,7 @@
 """Time the bisection kernels of several checkouts in turns, on one card.
 
     python -m gsrast_tpu_torch.diag.bisect_timing [--tree DIR ...]
+        [--rounds R] [--order | --probe]
 
 Makes phase 11's inputs once with this checkout (`chip_smoke.bisect_sizes`:
 trained_116k's 1080p plan, 2,040 tiles, and its longest tile alone) and
@@ -19,6 +20,16 @@ kernel the ms at both sizes. A tree must lie inside this checkout (for the
 parent, `git archive` unpacked under `_archive/`, which git ignores).
 Default tree: this checkout.
 
+With `--order`, it times the tile order kernel alone instead, on phase
+25's order cells (`chip_smoke.order_cells`, made once with this checkout:
+the first views' plans of the trained_116k, 1M and COLMAP train cells and
+the 1M bench scene's plan at 3840x2160, 16,200 tiles): each run prints
+per cell the kernel's raw launch (`order_launch`) cold (`cold_ms`, the L2 flushed) and
+warm (RAW_REPS back to back), whether its order equals the tree's plain
+`tile_order` element for element, and the launch floor (a one-element
+fill) timed alike; then one JSON line a cell with its bound and per tree
+its runs and its share of the bound at the best cold run.
+
 With `--probe`, it then builds `diag/bisect_probe.cu` and prints one more
 JSON line: the L2 fetch-granularity limit, and the ms of a streaming read
 of every float, of one float every 8, 16 and 32 (32, 64 and 128 bytes
@@ -33,12 +44,15 @@ import functools
 import hashlib
 import json
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[2]  # the checkout holding this file
 INPUTS = HERE / "gsrast_tpu_torch" / "_build" / "bisect_timing_inputs.pt"
+ORDER_INPUTS = INPUTS.with_name("order_timing_inputs.pt")
+ORDER_RUNS = INPUTS.with_name("order_timing")  # one .jsonl a tree
 SIZES = ("full", "longest_tile")
 PROBE_SRC = Path(__file__).with_name("bisect_probe.cu")
 PROBE_STRIDES = (1, 8, 16, 32)  # floats between the reads
@@ -103,6 +117,79 @@ def run_tree(tree: Path) -> dict:
     res["tile_order"] = {"full": raw_ms(smoke.order_launch(
         inputs["full"]["starts"]))}
     return {"tree": str(tree), "raw_reps": smoke.RAW_REPS, "ms": res}
+
+
+def make_order_inputs() -> dict:
+    """Save the order cells' tile_starts to ORDER_INPUTS; per cell its
+    tile count and bound (`chip_smoke.order_bound`)."""
+    import torch
+
+    sys.path.insert(0, str(HERE))
+    import chip_smoke
+
+    cells = chip_smoke.order_cells(torch.device("cuda:0"))
+    ORDER_INPUTS.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({k: v.cpu() for k, v in cells.items()}, ORDER_INPUTS)
+    return {k: dict(zip(("bound_ms", "bound_by"), chip_smoke.order_bound(
+        len(v) - 1)), tiles=len(v) - 1) for k, v in cells.items()}
+
+
+def run_order_tree(tree: Path) -> dict:
+    """Time one tree's order kernel on the saved cells, and the launch
+    floor (run as a script, in a process of its own)."""
+    sys.path[0] = str(tree)
+    import torch
+
+    import chip_smoke as smoke
+    from gsrast_tpu_torch import _kernels
+    from gsrast_tpu_torch.render.blend import tile_order, tile_order_cuda
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    _kernels.load()
+
+    def times(launch) -> dict:
+        launch()
+        return {"cold": smoke.cold_ms(launch, dev),
+                "warm": smoke.cuda_ms(lambda: [launch() for _ in range(
+                    smoke.RAW_REPS)]) / smoke.RAW_REPS}
+
+    fill = torch.empty(1, device=dev)
+    res = {"floor": times(fill.zero_)}
+    for key, starts in torch.load(ORDER_INPUTS).items():
+        starts = starts.to(dev)
+        launch = smoke.order_launch(starts)
+        assert launch() == 0, key
+        res[key] = {**times(launch), "equal_to_plain": bool(torch.equal(
+            tile_order_cuda(starts), tile_order(starts)))}
+    line = {"tree": str(tree), "raw_reps": smoke.RAW_REPS, "ms": res}
+    with open(ORDER_RUNS / f"{tree_tag(tree)}.jsonl", "a") as f:
+        f.write(json.dumps(line) + "\n")
+    return line
+
+
+def tree_tag(tree: Path) -> str:
+    """The file name stem of a tree's readings under ORDER_RUNS."""
+    return "_".join(tree.relative_to(HERE).parts) or "here"
+
+
+def summarise_order(trees, info: dict) -> None:
+    """One JSON line a cell (and one for the floor): its bound and per
+    tree the runs' cold and warm ms and the share of the bound at the best
+    cold run."""
+    runs = {tree: [json.loads(line)["ms"] for line in (
+        ORDER_RUNS / f"{tree_tag(tree)}.jsonl").read_text().splitlines()]
+        for tree in trees}
+    for key, work in {"floor": {}, **info}.items():
+        res = {"cell": key, **work, "trees": {}}
+        for tree, ms in runs.items():
+            cold = [run[key]["cold"] for run in ms]
+            res["trees"][str(tree.relative_to(HERE))] = {
+                "cold_ms": cold, "warm_ms": [run[key]["warm"] for run in ms],
+                **({"share": work["bound_ms"] / min(cold),
+                    "equal_to_plain": [run[key]["equal_to_plain"]
+                                       for run in ms]} if work else {})}
+        print(json.dumps(res), flush=True)
 
 
 @functools.cache
@@ -179,10 +266,15 @@ def main(argv=None) -> int:
                          "default: this one)")
     ap.add_argument("--probe", action="store_true",
                     help="then run the memory probes of bisect_probe.cu")
+    ap.add_argument("--order", action="store_true",
+                    help="time the tile order kernel on the order cells "
+                         "instead of the bisection kernels")
+    ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(run_tree(Path(args.worker))), flush=True)
+        run = run_order_tree if args.order else run_tree
+        print(json.dumps(run(Path(args.worker))), flush=True)
         return 0
     sys.path.insert(0, str(HERE))
     from gsrast_tpu_torch.diag import turns
@@ -195,6 +287,20 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("bisect_timing: no CUDA device", file=sys.stderr)
         return 1
+    if args.order:
+        shutil.rmtree(ORDER_RUNS, ignore_errors=True)
+        ORDER_RUNS.mkdir(parents=True)
+        info = make_order_inputs()
+        for tree, path in turns.build(trees).items():
+            print(json.dumps({"tree": str(tree), "card": turns.card(),
+                              "res_usage": turns.resource_usage(
+                                  path, ("tile_order_kernel",))}),
+                  flush=True)
+        code = turns.in_turns(Path(__file__).resolve(), trees, ("--order",),
+                              rounds=args.rounds)
+        if code == 0:
+            summarise_order(trees, info)
+        return code
     make_inputs()
     names = ("bisect", "carry", "lanes")
     for tree, path in turns.build(trees).items():
@@ -202,7 +308,8 @@ def main(argv=None) -> int:
         print(json.dumps({"tree": str(tree), "card": turns.card(),
                           "res_usage": turns.resource_usage(path, names),
                           "sass": sass}), flush=True)
-    code = turns.in_turns(Path(__file__).resolve(), trees)
+    code = turns.in_turns(Path(__file__).resolve(), trees,
+                          rounds=args.rounds)
     if code != 0:
         return code
     if args.probe:

@@ -615,23 +615,11 @@ def plan_shape(lib, n: int, k_last: int) -> PlanShape:
     return PlanShape(*out)
 
 
-# A zero int32 a device, which the rank launch's last block takes back to
-# zero: its count of the blocks done (`csrc/plan.cu`). Per device and not per
-# caller: a plan's launches find it zero only if no other plan runs on the
-# device at the same time.
-_TICKETS: dict = {}
-
-
 def plan_ticket(device: torch.device) -> torch.Tensor:
-    """The device's ticket, made (zero) at its first plan: outside a CUDA
-    graph's capture, as every capture here follows an eager warm-up."""
-    key = (device.type, device.index)
-    if key not in _TICKETS:
-        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("make one plan on the device before capturing "
-                               "one in a CUDA graph")
-        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _TICKETS[key]
+    """The device's ticket (`_kernels.device_counters`), which the rank
+    launch's last block takes back to zero: its count of the blocks done
+    (`csrc/plan.cu`)."""
+    return _kernels.device_counters("plan_tiers", device)
 
 
 # A plan with a tier at least this wide has its slots written by rank

@@ -120,8 +120,8 @@ def tile_order(tile_starts: torch.Tensor) -> torch.Tensor:
     """(T,) int32: the tiles by segment length, longest first, in buckets of
     ORDER_BUCKET_POSITIONS positions (the last of ORDER_BUCKETS buckets takes
     every longer segment), ties in tile order. The plain version of
-    `tile_order_cuda`, whose kernel leaves the tiles of one bucket in no
-    fixed order."""
+    `tile_order_cuda`, whose kernel gives the same order, element for
+    element."""
     lengths = tile_starts[1:] - tile_starts[:-1]
     bucket = torch.clamp(lengths // ORDER_BUCKET_POSITIONS,
                          max=ORDER_BUCKETS - 1)
@@ -129,11 +129,36 @@ def tile_order(tile_starts: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
+# The order kernel's counters a device (`_kernels.device_counters`): its
+# tickets and counts of the blocks done, which its last block takes back to
+# zero.
+ORDER_COUNTERS = 4
+
+
+def order_args(lib, tile_starts: torch.Tensor, order: torch.Tensor,
+               stream) -> tuple:
+    """`gsrast_tile_order`'s arguments for contiguous tile_starts and the
+    output `order`: with its scratch table (allocated here where the tiles
+    take more than one slice) and the device's counters, which the caller
+    keeps alive until the launch has run."""
+    num_tiles = order.shape[0]
+    ints = lib.gsrast_tile_order_table(num_tiles)
+    table = counters = None
+    if ints:
+        table = torch.empty((ints,), dtype=torch.int32,
+                            device=tile_starts.device)
+        counters = _kernels.device_counters("tile_order", tile_starts.device,
+                                            ORDER_COUNTERS)
+    return (tile_starts.data_ptr(), num_tiles, order.data_ptr(),
+            None if table is None else table.data_ptr(),
+            None if counters is None else counters.data_ptr(), stream), table
+
+
 def tile_order_cuda(tile_starts: torch.Tensor) -> torch.Tensor:
     """The order in which the blend kernels' blocks take the tiles, by the
     hand-written kernel (`csrc/tile_order.cu`) on a CUDA tensor: (T,) int32,
-    longest segment first (`tile_order`). Runs on the current stream
-    without synchronising."""
+    `tile_order`'s order (longest segment first, ties in tile order). Runs
+    on the current stream without synchronising."""
     if tile_starts.device.type != "cuda" or tile_starts.dtype != (
             torch.int32) or tile_starts.dim() != 1:
         raise ValueError(f"tile_order_cuda needs (T+1,) int32 CUDA "
@@ -145,10 +170,11 @@ def tile_order_cuda(tile_starts: torch.Tensor) -> torch.Tensor:
     if num_tiles == 0:
         return order
     tile_starts = tile_starts.contiguous()
-    fn = _kernels.load().lib.gsrast_tile_order
+    lib = _kernels.load().lib
     with torch.cuda.device(tile_starts.device):
         stream = torch.cuda.current_stream(tile_starts.device).cuda_stream
-        code = fn(tile_starts.data_ptr(), num_tiles, order.data_ptr(), stream)
+        args, _table = order_args(lib, tile_starts, order, stream)
+        code = lib.gsrast_tile_order(*args)
     _kernels.launch_counts["tile_order"] += 1
     if code != 0:
         raise RuntimeError(f"tile_order kernel launch failed: CUDA error "

@@ -10,7 +10,8 @@ over the parameters. Here the same update has two versions:
   * `adam_update_torch`, the plain version in torch ops, on any device;
   * the hand-written kernel of `csrc/adam.cu` (`adam_update_cuda`, CUDA
     tensors only): one launch over all five groups that reads each
-    gradient, parameter and moment once and writes each output once.
+    gradient, parameter and moment once, writes each output once and adds
+    one to each count.
 
 Both take optax's order, in float32, each operation rounded alone:
   g' = g * (1 / rest_div) on SH bands 1..K-1 only, then g' *= live;
@@ -186,7 +187,10 @@ def kernel_args(groups: Sequence[Group], live: torch.Tensor,
     group's pointers (parameter, gradient, moments, count, and its rate
     where that is a device tensor), floats (rate, b1, b2, 1 - b1, 1 - b2,
     eps), element count and row shape (width, first rest-band element),
-    the mask, the rest-band scale and the stream."""
+    the mask, the rest-band scale, the mask's device's ticket (its
+    `_kernels.device_counters`, which the update's last block takes back
+    to zero: its count of the blocks that have read the counts) and the
+    stream."""
     n = len(groups)
     tensors = (ctypes.c_void_p * (TENSORS * n))(*[
         t for gr in groups for t in (
@@ -201,7 +205,7 @@ def kernel_args(groups: Sequence[Group], live: torch.Tensor,
     rows = (ctypes.c_int * (2 * n))(*[x for gr in groups
                                       for x in (gr.row, gr.rest)])
     return (n, tensors, scalars, numels, rows, live.data_ptr(), rest_scale,
-            stream)
+            _kernels.device_counters("adam", live.device).data_ptr(), stream)
 
 
 def update_launch(groups: Sequence[Group], live: torch.Tensor,
@@ -218,11 +222,11 @@ def update_launch(groups: Sequence[Group], live: torch.Tensor,
 def adam_update_cuda(groups: Sequence[Group], live: torch.Tensor,
                      rest_scale: float) -> None:
     """The hand-written kernel (`csrc/adam.cu`) on CUDA tensors:
-    `adam_update_torch`'s update, bit for bit, in one launch over all the
-    groups (and one more of a thread a group that adds one to each count,
-    after the update on the same stream). Runs on the current stream
-    without synchronising, allocates nothing and reads no count on the
-    host, so a CUDA graph captures it."""
+    `adam_update_torch`'s update, bit for bit, counts included, in one
+    launch over all the groups. Runs on the current stream without
+    synchronising, allocates nothing (after the device's first update
+    made its ticket) and reads no count on the host, so a CUDA graph
+    captures it."""
     _kernels.run(update_launch(groups, live, rest_scale), "adam")
 
 

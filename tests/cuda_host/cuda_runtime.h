@@ -6,7 +6,7 @@
 // blocks run one after another, and a kernel's dynamic shared memory is one
 // host array that the test defines. Each warp's 32 threads meet at a barrier of
 // their own in __syncwarp, and exchange values through slots of their own in the
-// vote and match intrinsics. The _rn intrinsics are plain float
+// vote, match and shuffle intrinsics. The _rn intrinsics are plain float
 // operations: build with -ffp-contract=off. `launch(grid, block, kernel,
 // args...)` stands for `kernel<<<grid, block, shared, stream>>>(args...)`.
 #pragma once
@@ -30,6 +30,7 @@ using std::min;
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(...)
+#define __grid_constant__
 #define __shared__ static
 
 struct dim3 {
@@ -73,6 +74,20 @@ template <class T>
 unsigned __match_any_sync(unsigned mask, T value) { return host_warp_vote(mask, value, true); }
 inline unsigned __ballot_sync(unsigned mask, int predicate) {
   return host_warp_vote(mask, static_cast<unsigned long long>(predicate != 0), false);
+}
+// __shfl_up_sync: lane l reads lane l - delta's value, its own below delta.
+template <class T>
+T __shfl_up_sync(unsigned, T value, unsigned delta) {
+  auto& slots = (*host_warp_slots)[threadIdx.x / 32];
+  const unsigned lane = threadIdx.x % 32;
+  unsigned long long bits = 0;
+  std::memcpy(&bits, &value, sizeof value);
+  slots[lane] = bits;
+  __syncwarp();
+  T out = value;
+  if (lane >= delta) std::memcpy(&out, &slots[lane - delta], sizeof out);
+  __syncwarp();
+  return out;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }

@@ -406,6 +406,23 @@ def test_cuda_kernel_matches_plain(degree, capacity, offset):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("degree,capacity", [(3, 1), (3, 100_003)])
+def test_cuda_counts_rise_once_an_update(degree, capacity):
+    """Three updates in a row, eager and as replays of one captured
+    update (`chip_smoke.adam_counts`): each count rises by three in both,
+    the replays equal the eager updates bit for bit, and the captured
+    update is one device operation."""
+    dev = _card()
+    groups, live = chip_smoke.adam_edge_groups(dev, degree, capacity)
+    chip_smoke.compare_adam(groups, live)  # the device's ticket, eagerly
+    res = chip_smoke.adam_counts(groups, live)
+    assert res["graph_nodes"] == 1, res
+    assert res["count_rise_eager"] == res["count_rise_replayed"] == [
+        float(chip_smoke.ADAM_UPDATES)] * len(groups), res
+    assert res["replays_equal_eager"], res
+
+
+@pytest.mark.cuda
 def test_cuda_train_step_launches_adam_once():
     """On the card a train step (backend 'cuda') launches the kernel once,
     eagerly and in a `TrainGraph` capture (a replay: none), and steps no

@@ -10,7 +10,9 @@ correctly rounded square root. Groups of SH degree 0, 1 and 3, capacities
 whose float counts leave ragged chunks of 1 to 3 floats, groups whose
 arrays are not 16-byte aligned, the rate from the table or from memory,
 and zero and subnormal moments and gradients (the operands the kernel
-keeps on its division's and square root's fast path)."""
+keeps on its division's and square root's fast path). The launch adds one
+to each count itself (its last block, by a ticket that wraps back to 0):
+updates in a row on grids of one block and of many."""
 
 import ctypes
 import os
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from gsrast_tpu_torch import _kernels
 from gsrast_tpu_torch.train import adam
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -42,6 +45,8 @@ def lib(tmp_path_factory):
     out = tmp_path_factory.mktemp("adam_host")
     with open(SOURCE) as f:
         src = LAUNCH.sub(r"launch(\2, \3, \1, ", f.read())
+    src += ('extern "C" void host_set_multiprocessors(int n) '
+            '{ host_multiprocessors = n; }\n')
     cpp, so = out / "adam_host.cpp", out / "libadam_host.so"
     cpp.write_text(src)
     subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
@@ -51,10 +56,11 @@ def lib(tmp_path_factory):
     dll = ctypes.CDLL(str(so))
     vp = ctypes.c_void_p
     dll.gsrast_adam_update.argtypes = [ctypes.c_int, *[vp] * 5,
-                                       ctypes.c_float, vp]
+                                       ctypes.c_float, vp, vp]
     dll.gsrast_adam_update.restype = ctypes.c_int
     dll.gsrast_adam_occupancy.argtypes = [vp] * 5
     dll.gsrast_adam_occupancy.restype = ctypes.c_int
+    dll.host_set_multiprocessors.argtypes = [ctypes.c_int]
     return dll
 
 
@@ -117,6 +123,49 @@ def _check(dll, degree, capacity, offset, lr_tensor):
     (0, 1), (1, 3), (3, 3), (3, 37), (0, 1_025), (1, 1_025)])
 def test_source_matches_plain(lib, degree, capacity, offset, lr_tensor):
     _check(lib, degree, capacity, offset, lr_tensor)
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("degree,capacity", [(0, 1), (3, 3), (1, 1_025),
+                                             (3, 4_099)])
+def test_source_updates_in_a_row(lib, degree, capacity, sms):
+    """Three updates in a row, the kernel's and the plain version's from
+    the same state, with fresh gradients each time: after each, every
+    output bit-equal, each count one more (4 to 5, 6, 7) and the ticket
+    back at 0. A thread a chunk would take one block of 256 chunks for
+    one and three Gaussians and 24 and 237 blocks for the others; on a
+    host card of one SM (32 blocks at once) the grid is capped at a wave,
+    and the 237 blocks' chunks are walked by 32."""
+    lib.host_set_multiprocessors(sms)
+    groups, live = _groups(degree, capacity, max(1, capacity // 2),
+                           seed=7 + capacity)
+    plain, kernel = _clone(groups), _clone(groups)
+    ticket = _kernels.device_counters("adam", live.device)
+    rng = np.random.default_rng(capacity)
+    for k in range(3):
+        grads = [torch.from_numpy(rng.standard_normal(g.grad.shape)
+                                  .astype(np.float32)) for g in groups]
+        plain = [g._replace(grad=x) for g, x in zip(plain, grads)]
+        kernel = [g._replace(grad=x) for g, x in zip(kernel, grads)]
+        adam.adam_update_torch(plain, live, REST_SCALE)
+        assert lib.gsrast_adam_update(
+            *adam.kernel_args(kernel, live, REST_SCALE, None)) == 0
+        for p, q in zip(plain, kernel):
+            for f in ("param", "exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(getattr(q, f), getattr(p, f)), (
+                    k, p.name, f)
+        assert [float(g.step) for g in kernel] == [5.0 + k] * len(kernel)
+        assert int(ticket) == 0
+    lib.host_set_multiprocessors(132)
+
+
+def test_source_needs_a_ticket(lib):
+    """The entry point refuses a null ticket before any launch."""
+    groups, live = _groups(1, 3, 2)
+    args = list(adam.kernel_args(groups, live, REST_SCALE, None))
+    args[-2] = None
+    assert lib.gsrast_adam_update(*args) != 0
+    assert float(groups[0].step) == 4.0
 
 
 def test_source_matches_plain_at_zeros_and_subnormals(lib):

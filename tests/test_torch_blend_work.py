@@ -98,8 +98,8 @@ def test_unsupported_tiles_raise(kernel, shape):
 def test_tile_order_longest_bucket_first():
     """A permutation of the tiles whose buckets of 32 positions never grow
     along it (segments of 8,160 or more share the last bucket), ties in
-    tile order: what the card's counting sort gives, up to the order
-    within a bucket."""
+    tile order: what the card's stable counting sort gives, element for
+    element (`chip_smoke.order_err` compares the two exactly)."""
     rng = np.random.default_rng(3)
     lengths = np.concatenate([rng.integers(0, 900, 500), [9000, 8160, 0]])
     starts = torch.tensor(np.concatenate([[0], np.cumsum(lengths)]),
@@ -254,12 +254,38 @@ def test_bisect_bound_counts(name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("num_tiles", [1_020, 4_080, 16_200])
+def test_cuda_tile_order_in_a_graph(num_tiles):
+    """The order kernel captured in a CUDA graph is one device operation
+    (one slice or several), and each replay writes the plain order again:
+    its counters go back to zero at the end of every launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from gsrast_tpu_torch.diag.adam_timing import graph_nodes
+    from gsrast_tpu_torch.render.blend import tile_order_cuda
+
+    dev = torch.device("cuda")
+    starts = chip_smoke.order_4k_starts(dev)[:num_tiles + 1].contiguous()
+    plain = tile_order(starts)
+    assert torch.equal(tile_order_cuda(starts), plain)  # eager, first
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        order = tile_order_cuda(starts)
+    assert graph_nodes(graph) == 1
+    graph.instantiate()
+    for _ in range(3):
+        order.fill_(-1)
+        graph.replay()
+        assert torch.equal(order, plain)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", WORK_CASES)
 def test_cuda_tile_order_matches_plain(case):
-    """The order kernel gives a permutation of the tiles with the plain
-    `tile_order`'s sequence of buckets, and the blend kernels' outputs do
-    not depend on the order their blocks take the tiles in: index order
-    and longest first give the same bits."""
+    """The order kernel gives the plain `tile_order`'s order element for
+    element, and the blend kernels' outputs do not depend on the order
+    their blocks take the tiles in: index order and longest first give
+    the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     from gsrast_tpu_torch.render.blend import (blend_backward_cuda,

@@ -1,8 +1,9 @@
 """The host stand-in of the CUDA runtime (`tests/cuda_host/`) that the
 kernel sources' CPU tests build against: its warp intrinsics
-(`__match_any_sync`, `__ballot_sync`, `__popc`, `__ffs`), `__threadfence`,
-`atomicInc` and `__ldcg`, each checked by a small kernel of its own run
-through the stand-in's `launch` against what the card does."""
+(`__match_any_sync`, `__ballot_sync`, `__shfl_up_sync`, `__popc`, `__ffs`),
+`__threadfence`, `atomicInc` and `__ldcg`, each checked by a small kernel
+of its own run through the stand-in's `launch` against what the card
+does."""
 
 import ctypes
 import os
@@ -24,6 +25,11 @@ __global__ void match_kernel(const int* values, unsigned* out) {
 __global__ void ballot_kernel(const int* values, unsigned* out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   out[i] = __ballot_sync(0xffffffffu, values[i] > 0);
+}
+
+__global__ void shfl_up_kernel(const int* values, int* out, unsigned delta) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  out[i] = __shfl_up_sync(0xffffffffu, values[i], delta);
 }
 
 __global__ void popc_kernel(const unsigned* values, int* out) {
@@ -56,6 +62,9 @@ extern "C" void run_match(const int* values, unsigned* out, int blocks, int thre
 }
 extern "C" void run_ballot(const int* values, unsigned* out, int blocks, int threads) {
   launch(blocks, threads, ballot_kernel, values, out);
+}
+extern "C" void run_shfl_up(const int* values, int* out, int threads, unsigned delta) {
+  launch(1, threads, shfl_up_kernel, values, out, delta);
 }
 extern "C" void run_popc(const unsigned* values, int* out, int n) {
   launch(1, n, popc_kernel, values, out);
@@ -118,6 +127,17 @@ def test_ballot_sync(host):
         want = sum(1 << lane for lane in range(width)
                    if values[w0 + lane] > 0)
         assert out[t] == want
+
+
+@pytest.mark.parametrize("delta", [1, 4, 16])
+def test_shfl_up_sync(host, delta):
+    """Lane l gets lane l - delta's value of its own warp, and keeps its
+    own where l < delta."""
+    values = np.random.default_rng(2).integers(-99, 99, 64).astype(np.int32)
+    out = np.zeros(64, np.int32)
+    host.run_shfl_up(_ptr(values), _ptr(out), 64, delta)
+    for t in range(64):
+        assert out[t] == values[t - delta if t % 32 >= delta else t]
 
 
 def test_popc_and_ffs(host):
