@@ -2607,7 +2607,7 @@ def compare_preprocess(got, ref, act, cam, rcfg) -> dict:
     return res
 
 
-def preprocess_cell(label: str, act, cam, rcfg, gen) -> dict:
+def preprocess_cell(label: str, act, cam, rcfg, gen, floor: dict) -> dict:
     """Phase 20 on one cell's activated Gaussians and camera (from
     `preprocess_cells`): the forward kernel against
     `preprocess_torch` (`compare_preprocess`); the backward through
@@ -2617,8 +2617,9 @@ def preprocess_cell(label: str, act, cam, rcfg, gen) -> dict:
     both kernels captured in a CUDA graph and replayed with a second camera
     (`cam` turned by ROT_Y) copied into the captured camera's tensors,
     against eager calls on it; the raw launches' and the plain versions'
-    ms by CUDA events, with their bounds and shares; and the backward's
-    launch (`backward_occupancy`)."""
+    ms by CUDA events, with their bounds and shares, the forward also cold
+    (`cold_ms`) beside the launch floor `floor` (`launch_floor`); and the
+    kernels' launches (`forward_occupancy`, `backward_occupancy`)."""
     from gsrast_tpu_torch import _kernels
     from gsrast_tpu_torch.camera import (CAMERA_TENSORS, device_camera,
                                          matmul_f32)
@@ -2708,11 +2709,27 @@ def preprocess_cell(label: str, act, cam, rcfg, gen) -> dict:
         res[kind].update(ms=ms, bound_ms=bound_ms, bound_by=by,
                          share=bound_ms / ms,
                          plain_ms=cuda_ms(plains[kind], iters=3, warmup=1))
+    fwd_launch = launches["forward"]
+    res["forward"]["warm_ms"] = res["forward"]["ms"]
+    res["forward"]["cold_ms"] = cold_ms(
+        lambda: fwd_launch.fn(*fwd_launch.args), dev)
+    res["forward"]["cold_share"] = (res["forward"]["bound_ms"]
+                                    / res["forward"]["cold_ms"])
+    res["forward"]["launch_floor"] = floor
+    fl = res["forward"]["launch"] = forward_occupancy(n, k, degree)
     launch = res["backward"]["launch"] = backward_occupancy(k, degree)
+    fwd = res["forward"]
     print(f"phase 20 preprocess kernels, {label} ({n} Gaussians, SH "
           f"{used} of {k} rows, {cam.width}x{cam.height}, tiles "
-          f"{rcfg.tile_h}x{rcfg.tile_w}): forward {res['forward']['ms']:.4f}"
-          f" ms (plain {res['forward']['plain_ms']:.3f}), backward "
+          f"{rcfg.tile_h}x{rcfg.tile_w}): forward {fwd['warm_ms']:.4f} ms "
+          f"warm, {fwd['cold_ms']:.4f} cold ({fwd['share']:.3f} / "
+          f"{fwd['cold_share']:.3f} of its {fwd['bound_ms']:.4f} ms bound; "
+          f"launch floor {floor['ms']:.4f} cold, {floor['warm_ms']:.4f} "
+          f"warm; plain {fwd['plain_ms']:.3f}); forward launch: "
+          f"{fl['registers']} registers, {fl['local_bytes']} B local "
+          f"(spills), shared {fl['static_shared']} + {fl['dynamic_shared']}"
+          f" B a block of {fl['threads']} threads, {fl['resident_warps']} "
+          f"resident warps an SM, grid {fl['grid']}; backward "
           f"{res['backward']['ms']:.4f} ms (plain "
           f"{res['backward']['plain_ms']:.3f}, "
           f"{res['backward']['share']:.3f} of its bound); backward launch: "
@@ -2794,6 +2811,28 @@ def preprocess_cells(dev, colmap_dir=None) -> list:
     return cells
 
 
+def forward_occupancy(n: int, k: int, degree: int) -> dict:
+    """The preprocess forward's launch for n Gaussians with SH rows of k
+    coefficients at SH degree `degree`, as the library reports it
+    (`gsrast_preprocess_forward_occupancy`): threads and dynamic shared
+    bytes a block, the blocks one SM holds at once and the grid's blocks;
+    the kernel's registers and local (spilled) bytes a thread and static
+    shared bytes a block; and the warps that one SM holds at once."""
+    import ctypes
+
+    from gsrast_tpu_torch import _kernels
+
+    keys = ("threads", "dynamic_shared", "blocks_per_sm", "grid",
+            "registers", "local_bytes", "static_shared")
+    out = [ctypes.c_int(0) for _ in keys]
+    code = _kernels.load().lib.gsrast_preprocess_forward_occupancy(
+        n, k, degree, *(ctypes.byref(x) for x in out))
+    assert code == 0, f"CUDA error {code}"
+    res = dict(zip(keys, (x.value for x in out)))
+    res["resident_warps"] = res["blocks_per_sm"] * res["threads"] // 32
+    return res
+
+
 def backward_occupancy(k: int, degree: int) -> dict:
     """The preprocess backward's launch for SH rows of k coefficients at SH
     degree `degree`, as the library reports it
@@ -2824,9 +2863,10 @@ def phase_preprocess(dev, colmap_dir: str) -> dict:
     from gsrast_tpu_torch.diag import profile_step
 
     gen = torch.Generator(device=dev).manual_seed(20)
-    out = {}
+    out = {"launch_floor": launch_floor(dev)}
     for key, label, act, cam, rcfg in preprocess_cells(dev, colmap_dir):
-        out[key] = preprocess_cell(label, act, cam, rcfg, gen)
+        out[key] = preprocess_cell(label, act, cam, rcfg, gen,
+                                   out["launch_floor"])
     del act
     torch.cuda.empty_cache()
     prof = profile_step.profile_cell(
@@ -4774,8 +4814,18 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "cells": {cell: {key: pre[cell][kind][key] for key in (
-            "ms", "plain_ms", "bound_ms", "share")}
+            "ms", "plain_ms", "bound_ms", "share", *(
+                ("cold_ms", "warm_ms", "cold_share", "launch")
+                if kind == "forward" else ()))}
             for cell in ("1M", "trained_116k", "colmap", "edge")},
+        **({"cold_ms": pre["1M"][kind]["cold_ms"],
+            "warm_ms": pre["1M"][kind]["warm_ms"],
+            "launch_floor": pre["launch_floor"],
+            "launch": pre["1M"][kind]["launch"],
+            "ms_is": "warm: the median of 10 intervals of RAW_REPS "
+                     "back-to-back raw launches, over RAW_REPS, on the 1M "
+                     "cell of phase 20; cold_ms: one raw launch after an L2 "
+                     "flush (cold_ms)"} if kind == "forward" else {}),
     } for kind in ("forward", "backward")] + [{
         "name": f"loss_{kind}", "route": "cuda",
         "source": "gsrast_tpu_torch/csrc/loss.cu",

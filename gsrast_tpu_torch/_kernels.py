@@ -238,6 +238,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def set_preprocess_argtypes(lib) -> None:
+    """The preprocess kernels' entry points' argument types (also for a
+    build of `csrc/preprocess.cu` alone)."""
+    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_float)
+    fn = lib.gsrast_preprocess_forward
+    fn.argtypes = [*[vp] * 8, *[i32] * 9, *[f32] * 5, *[vp] * 8]
+    fn.restype = ctypes.c_int
+    fn = lib.gsrast_preprocess_backward
+    fn.argtypes = [*[vp] * 6, *[i32] * 5, *[f32] * 3, vp, i64, i64, vp, i64,
+                   vp, i64, i64, vp, i64, i64, vp, i64, *[vp] * 6]
+    fn.restype = ctypes.c_int
+    fn = lib.gsrast_preprocess_forward_occupancy
+    fn.argtypes = [*[i32] * 3, *[vp] * 7]
+    fn.restype = ctypes.c_int
+    fn = lib.gsrast_preprocess_backward_occupancy
+    fn.argtypes = [i32, i32, *[vp] * 6]
+    fn.restype = ctypes.c_int
+
+
 # The inputs of the ellipsoid kernel's entry points (`viz/ellipsoids.py::
 # frame_args`): the activated Gaussians' pointers and the SH row's floats,
 # the mask, the camera's four pointers, then N, height, width.
@@ -339,16 +359,7 @@ def load() -> Library:
     fn = lib.gsrast_bisect_d
     fn.argtypes = [vp, i32, vp, vp, vp, vp, vp, vp, vp]
     fn.restype = ctypes.c_int
-    fn = lib.gsrast_preprocess_forward
-    fn.argtypes = [*[vp] * 8, *[i32] * 9, *[f32] * 5, *[vp] * 8]
-    fn.restype = ctypes.c_int
-    fn = lib.gsrast_preprocess_backward
-    fn.argtypes = [*[vp] * 6, *[i32] * 5, *[f32] * 3, vp, i64, i64, vp, i64,
-                   vp, i64, i64, vp, i64, i64, vp, i64, *[vp] * 6]
-    fn.restype = ctypes.c_int
-    fn = lib.gsrast_preprocess_backward_occupancy
-    fn.argtypes = [i32, i32, *[vp] * 6]
-    fn.restype = ctypes.c_int
+    set_preprocess_argtypes(lib)
     fn = lib.gsrast_loss_partials
     fn.argtypes = [i32, i32, i32]
     fn.restype = ctypes.c_int

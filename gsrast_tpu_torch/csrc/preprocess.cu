@@ -28,8 +28,22 @@
 //   Camera's device tensors (camera.py::device_camera), never host scalars, copied into
 //   shared memory once a block: a CUDA graph that captured a launch reads the camera
 //   copied into its static tensors at each replay.
-// - The forward: one thread a Gaussian over all N, 256 a block, the SH rows read in
-//   place, (N, K, 3) with K the scene's stride.
+// - The forward (preprocess_forward_kernel): a warp takes chunks of 32 consecutive
+//   Gaussians, a lane a Gaussian, in a grid of one wave (the blocks of 4 warps the
+//   card holds at once), each warp walking chunks in strides of the grid's warps.
+//   Each chunk's inputs are copied into shared memory by cp.async, consecutive lanes
+//   on consecutive words: each array's run (16 bytes a lane where it is 16-byte
+//   aligned), and of each SH row, (N, K, 3) with K the scene's stride, only the
+//   (D + 1)^2 coefficients degree D reads, at an odd stride so that the lanes read
+//   their rows from 32 banks. The copies of a warp's next chunk run while it
+//   computes this one (two stages). A thread a Gaussian reading its own rows in
+//   place makes each warp-wide load of an SH coefficient touch 32 rows 192 B apart,
+//   and moves the 3- and 4-float rows one word a thread; its grid at 116k Gaussians
+//   is under one wave, with one Gaussian's loads in flight a thread. The arithmetic
+//   is the same helpers' (project_geometry, shade, the extents) on the staged
+//   values, so the outputs' bits are those of a thread a Gaussian. The outputs are
+//   stored in place: gathering mean2d, conic and colour in shared memory to store
+//   them as 16-byte vectors took longer on every cell timed (PERF.md section 6).
 // - The backward recomputes the forward's intermediates from the saved inputs and
 //   the camera (the reference CUDA rasterizer's recipe): nothing per Gaussian is
 //   kept between the two. It writes each Gaussian's gradients once, with no atomics,
@@ -57,9 +71,9 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
-namespace {
+#include <atomic>
 
-constexpr int kThreads = 256;
+namespace {
 
 // The camera block (camera.py::device_camera): view (4x4, row-major), full
 // projection (4x4), position (3), focal_x, focal_y, tan_fov_x, tan_fov_y.
@@ -279,59 +293,270 @@ __device__ __forceinline__ void shade(long long i, const float* cam,
   eval_sh<D>(sh_row, g.dir, g.rgb);
 }
 
+// The forward's warps a block (PERF.md section 6: 1, 2, 4 and 8 timed).
+constexpr int kFwdWarps = 4;
+constexpr int kFwdThreads = 32 * kFwdWarps;
+
+// Floats between two staged SH rows of K coefficients: 3K made odd, so that the 32
+// lanes reading coefficient c of their own rows (words t * stride + c) fall in 32
+// different banks; 3K = 48 apart they would fall in two. (Rows stored coefficient-
+// major would serve those reads as well, but would put the copy's consecutive words
+// 32 floats apart, in one bank.)
+__host__ __device__ constexpr int staged_stride(int sh_stride) { return (3 * sh_stride) | 1; }
+
+// The floats of an SH row that degree D evaluates: (D + 1)^2 coefficients of 3
+// channels; the forward stages only these, staged_stride((D + 1)^2) floats apart.
+__host__ __device__ constexpr int sh_used(int degree) { return 3 * (degree + 1) * (degree + 1); }
+__host__ __device__ constexpr int fwd_sh_stride(int degree) {
+  return staged_stride((degree + 1) * (degree + 1));
+}
+
+// One stage of a forward warp's chunk of 32 consecutive Gaussians in shared memory:
+// their inputs, each array at a 16-byte boundary, the SH rows' used floats at
+// fwd_sh_stride(D) floats a row.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-preprocess_forward_kernel(const float* __restrict__ cam_g, const float* __restrict__ means,
-                          const float* __restrict__ scales, const float* __restrict__ quats,
-                          const float* __restrict__ opacities, const float* __restrict__ sh,
-                          const unsigned char* __restrict__ mask,
-                          const float* __restrict__ mean2d_delta, int n, int sh_stride,
-                          Consts k, int grid_h, int grid_w, int tile_h, int tile_w,
-                          float inv_threshold, float extent_cap, float* __restrict__ mean2d,
-                          float* __restrict__ depth, float* __restrict__ conic,
-                          float* __restrict__ color, float* __restrict__ opacity,
-                          int* __restrict__ radius, int* __restrict__ rect) {
-  __shared__ float cam[kCamFloats];
-  if (threadIdx.x < kCamFloats) cam[threadIdx.x] = cam_g[threadIdx.x];
-  __syncthreads();
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
-  Geometry g;
-  project_geometry(i, cam, means, scales, quats, mask, k, g);
-  shade<D>(i, cam, means, sh + i * sh_stride * 3, g);
-  const bool visible = g.frustum && g.valid;
+struct alignas(16) FwdStage {
+  float means[96];
+  float scales[96];
+  float quats[128];
+  float opacity[32];
+  float delta[64];
+  float sh[32 * fwd_sh_stride(D)];
+  unsigned char mask[32];
+};
 
-  R px = g.px, py = g.py;
-  if (mean2d_delta != nullptr) {
-    px = px + mean2d_delta[2 * i];
-    py = py + mean2d_delta[2 * i + 1];
+// A forward warp's shared memory: two stages.
+template <int D>
+__host__ __device__ constexpr size_t fwd_warp_bytes() {
+  return 2 * sizeof(FwdStage<D>);
+}
+
+// The forward's blocks of degree D that an SM's shared memory holds (228 KB an SM,
+// 1 KB of it reserved a block), at most 32 warps: its register budget. At degree 3
+// shared memory holds 3 blocks of 4 warps, which could take 170 registers a thread
+// (ptxas takes 64); at degrees 0 and 1 the cap of 32 warps leaves 64.
+template <int D>
+__host__ __device__ constexpr int fwd_min_blocks() {
+  constexpr size_t block = kFwdWarps * fwd_warp_bytes<D>() + sizeof(float) * kCamFloats + 1024;
+  constexpr size_t most = 32 / kFwdWarps;
+  return static_cast<int>(233472 / block < most ? 233472 / block : most);
+}
+
+// cp.async of `floats` consecutive floats of one array from src (device memory) to
+// dst (shared, 16-byte aligned), the warp's lanes on consecutive words. A whole
+// chunk's run of an array of W floats a Gaussian (floats = 32 W) whose rows start at
+// 16-byte boundaries (`vec`; a chunk's first row does where the array's first does)
+// is one 16-byte copy for each of the first 8 W lanes; a part-chunk, or an array that
+// is not so aligned, goes 4 bytes a lane.
+template <int W>
+__device__ __forceinline__ void copy_run(float* dst, const float* __restrict__ src,
+                                         int floats, bool vec, int lane) {
+  if (vec && floats == 32 * W) {
+    if (lane < 8 * W) __pipeline_memcpy_async(dst + 4 * lane, src + 4 * lane, 16);
+    return;
   }
-  mean2d[2 * i] = px.v;
-  mean2d[2 * i + 1] = py.v;
-  depth[i] = g.mv[2].v;
-  conic[3 * i] = (g.c * g.inv_det).v;
-  conic[3 * i + 1] = (-g.b * g.inv_det).v;
-  conic[3 * i + 2] = (g.a * g.inv_det).v;
+  for (int w = lane; w < floats; w += 32) __pipeline_memcpy_async(dst + w, src + w, 4);
+}
+
+// Bits of FwdArgs::vec: the arrays whose first float lies on a 16-byte boundary.
+enum : unsigned { kVecMeans = 1, kVecScales = 2, kVecQuats = 4, kVecOpacity = 8, kVecDelta = 16 };
+
+// The forward's inputs and outputs, as the entry point takes them.
+struct FwdArgs {
+  const float* cam;
+  const float* means;
+  const float* scales;
+  const float* quats;
+  const float* opacities;
+  const float* sh;
+  const unsigned char* mask;
+  const float* mean2d_delta;  // or null
+  int n, sh_stride;
+  unsigned vec;  // kVec* bits
+  Consts k;
+  int grid_h, grid_w, tile_h, tile_w;
+  float inv_threshold, extent_cap;
+  float* mean2d;
+  float* depth;
+  float* conic;
+  float* color;
+  float* opacity;
+  int* radius;
+  int* rect;
+};
+
+// Issues the cp.async copies of chunk `chunk`'s inputs into stage `st`: each array's
+// run of its `rows` Gaussians (copy_run), and of each SH row only the used floats
+// (rows 3 sh_stride floats apart in device memory), 4 bytes a lane on consecutive
+// words of the rows' used floats.
+// Returns the lane's mask byte, a plain load (cp.async copies 4 bytes at least, from a
+// 4-byte boundary, which a byte mask need not keep), used one chunk later.
+template <int D>
+__device__ __forceinline__ unsigned char issue_chunk(const FwdArgs& a, long long chunk,
+                                                     FwdStage<D>& st, int lane) {
+  constexpr int u = sh_used(D), su = fwd_sh_stride(D);
+  const long long first = 32 * chunk;
+  const int rows = static_cast<int>(min(32LL, a.n - first));
+  copy_run<3>(st.means, a.means + 3 * first, 3 * rows, a.vec & kVecMeans, lane);
+  copy_run<3>(st.scales, a.scales + 3 * first, 3 * rows, a.vec & kVecScales, lane);
+  copy_run<4>(st.quats, a.quats + 4 * first, 4 * rows, a.vec & kVecQuats, lane);
+  copy_run<1>(st.opacity, a.opacities + first, rows, a.vec & kVecOpacity, lane);
+  if (a.mean2d_delta != nullptr) {
+    copy_run<2>(st.delta, a.mean2d_delta + 2 * first, 2 * rows, a.vec & kVecDelta, lane);
+  }
+  const int rf = 3 * a.sh_stride;
+  const float* src = a.sh + first * rf;
+  constexpr int dr = 32 / u, dc = 32 % u;  // a step of 32 words in rows and columns
+  int r = lane / u, c = lane % u;
+  for (int w = lane; w < rows * u; w += 32) {
+    __pipeline_memcpy_async(st.sh + r * su + c, src + static_cast<long long>(r) * rf + c, 4);
+    r += dr;
+    c += dc;
+    if (c >= u) {
+      c -= u;
+      ++r;
+    }
+  }
+  return lane < rows ? a.mask[first + lane] : 0;
+}
+
+// The forward of chunk `chunk` from its staged inputs: per lane one Gaussian, through
+// the same helpers, in the same order of operations, as a thread a Gaussian computes
+// it from device memory; its outputs stored in place.
+template <int D>
+__device__ __forceinline__ void forward_chunk(const FwdArgs& a, const float* cam,
+                                              long long chunk, FwdStage<D>& st,
+                                              unsigned char mask_byte, int lane) {
+  const long long first = 32 * chunk;
+  const int rows = static_cast<int>(min(32LL, a.n - first));
+  if (lane < rows) {
+    const long long i = first + lane;
+    st.mask[lane] = mask_byte;
+    Geometry g;
+    project_geometry(lane, cam, st.means, st.scales, st.quats, st.mask, a.k, g);
+    shade<D>(lane, cam, st.means, st.sh + lane * fwd_sh_stride(D), g);
+    const bool visible = g.frustum && g.valid;
+
+    R px = g.px, py = g.py;
+    if (a.mean2d_delta != nullptr) {
+      px = px + st.delta[2 * lane];
+      py = py + st.delta[2 * lane + 1];
+    }
+    a.mean2d[2 * i] = px.v;
+    a.mean2d[2 * i + 1] = py.v;
+    a.depth[i] = g.mv[2].v;
+    a.conic[3 * i] = (g.c * g.inv_det).v;
+    a.conic[3 * i + 1] = (-g.b * g.inv_det).v;
+    a.conic[3 * i + 2] = (g.a * g.inv_det).v;
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    const float r = (g.rgb[ch] + 0.5f).v;
-    color[3 * i + ch] = isnan(r) ? r : fmaxf(r, 0.0f);
-  }
+    for (int ch = 0; ch < 3; ++ch) {
+      const float r = (g.rgb[ch] + 0.5f).v;
+      a.color[3 * i + ch] = isnan(r) ? r : fmaxf(r, 0.0f);
+    }
 
-  // The opacity-aware per-axis extents, the radius and the tile rectangle.
-  const float op = opacities[i];
-  const float cfac = clamp_nan((2.0f * R(logf((R(op) * inv_threshold).v))).v, 0.0f, extent_cap);
-  const float ext_x = ceilf(sqrtf((R(cfac) * (isnan(g.a.v) ? g.a.v : fmaxf(g.a.v, 0.0f))).v));
-  const float ext_y = ceilf(sqrtf((R(cfac) * (isnan(g.c.v) ? g.c.v : fmaxf(g.c.v, 0.0f))).v));
-  radius[i] = static_cast<int>(visible ? max_nan(ext_x, ext_y) : 0.0f);
-  const float rx = visible ? ext_x : 0.0f, ry = visible ? ext_y : 0.0f;
-  const R inv_tw = R(1.0f) / static_cast<float>(tile_w);
-  const R inv_th = R(1.0f) / static_cast<float>(tile_h);
-  rect[i] = saturate_i32(((px - rx) * inv_tw).v, grid_w);
-  rect[n + i] = saturate_i32(((py - ry) * inv_th).v, grid_h);
-  rect[2LL * n + i] = saturate_i32(ceilf(((px + rx + 1.0f) * inv_tw).v), grid_w);
-  rect[3LL * n + i] = saturate_i32(ceilf(((py + ry + 1.0f) * inv_th).v), grid_h);
-  opacity[i] = visible ? op : 0.0f;
+    // The opacity-aware per-axis extents, the radius and the tile rectangle.
+    const float op = st.opacity[lane];
+    const float cfac =
+        clamp_nan((2.0f * R(logf((R(op) * a.inv_threshold).v))).v, 0.0f, a.extent_cap);
+    const float ext_x =
+        ceilf(sqrtf((R(cfac) * (isnan(g.a.v) ? g.a.v : fmaxf(g.a.v, 0.0f))).v));
+    const float ext_y =
+        ceilf(sqrtf((R(cfac) * (isnan(g.c.v) ? g.c.v : fmaxf(g.c.v, 0.0f))).v));
+    a.radius[i] = static_cast<int>(visible ? max_nan(ext_x, ext_y) : 0.0f);
+    const float rx = visible ? ext_x : 0.0f, ry = visible ? ext_y : 0.0f;
+    const R inv_tw = R(1.0f) / static_cast<float>(a.tile_w);
+    const R inv_th = R(1.0f) / static_cast<float>(a.tile_h);
+    const long long n = a.n;
+    a.rect[i] = saturate_i32(((px - rx) * inv_tw).v, a.grid_w);
+    a.rect[n + i] = saturate_i32(((py - ry) * inv_th).v, a.grid_h);
+    a.rect[2 * n + i] = saturate_i32(ceilf(((px + rx + 1.0f) * inv_tw).v), a.grid_w);
+    a.rect[3 * n + i] = saturate_i32(ceilf(((py + ry + 1.0f) * inv_th).v), a.grid_h);
+    a.opacity[i] = visible ? op : 0.0f;
+  }
+  __syncwarp();  // the stage is free again
+}
+
+// The forward: a grid of one wave (the blocks the card holds at once), each warp
+// walking chunks of 32 consecutive Gaussians in strides of the grid's warps. While a
+// warp computes a chunk from one stage, the next chunk's inputs are being copied into
+// the other; the first chunk's copies are in flight while the block loads the camera.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, fwd_min_blocks<D>())
+preprocess_forward_kernel(const FwdArgs a) {
+  extern __shared__ float4 fwd_shared[];  // per warp: two FwdStage<D>
+  __shared__ float cam[kCamFloats];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  FwdStage<D>* stage = reinterpret_cast<FwdStage<D>*>(fwd_shared) + 2 * warp;
+  const long long chunks = (a.n + 31) / 32;
+  const long long step = static_cast<long long>(gridDim.x) * kFwdWarps;
+  long long chunk = static_cast<long long>(blockIdx.x) * kFwdWarps + warp;
+  unsigned char mask_byte = 0;
+  if (chunk < chunks) mask_byte = issue_chunk<D>(a, chunk, stage[0], lane);
+  __pipeline_commit();
+  for (int c = threadIdx.x; c < kCamFloats; c += kFwdThreads) cam[c] = a.cam[c];
+  __syncthreads();
+  for (int s = 0; chunk < chunks; chunk += step, s ^= 1) {
+    const long long next = chunk + step;
+    unsigned char next_mask = 0;
+    if (next < chunks) next_mask = issue_chunk<D>(a, next, stage[s ^ 1], lane);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);  // this chunk's copies, not the next one's
+    __syncwarp();
+    forward_chunk<D>(a, cam, chunk, stage[s], mask_byte, lane);
+    mask_byte = next_mask;
+  }
+}
+
+using ForwardKernel = decltype(&preprocess_forward_kernel<0>);
+
+bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15) == 0; }
+
+constexpr int kDevices = 64;  // devices whose forward occupancy is kept
+
+// The forward kernel of SH degree `degree`, its dynamic shared bytes a block, the
+// blocks of it one SM holds at once and the device's SMs; cudaErrorInvalidValue for a
+// degree outside 0-3 or rows shorter than it reads. The kernel's shared-memory limit
+// is raised and its occupancy asked once a device and degree (again if the device's
+// SM count changes); the SM count is read each call.
+cudaError_t prepare_forward(int degree, int sh_stride, ForwardKernel* kernel, size_t* shared,
+                            int* per_sm, int* sms) {
+  const ForwardKernel kernels[] = {preprocess_forward_kernel<0>, preprocess_forward_kernel<1>,
+                                   preprocess_forward_kernel<2>, preprocess_forward_kernel<3>};
+  const size_t bytes[] = {fwd_warp_bytes<0>(), fwd_warp_bytes<1>(), fwd_warp_bytes<2>(),
+                          fwd_warp_bytes<3>()};
+  if (degree < 0 || degree > 3 || sh_stride < (degree + 1) * (degree + 1)) {
+    return cudaErrorInvalidValue;
+  }
+  *kernel = kernels[degree];
+  *shared = kFwdWarps * bytes[degree];
+  static std::atomic<long long> known[kDevices][4];  // SMs << 32 | blocks an SM; 0: not asked
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const bool kept = dev >= 0 && dev < kDevices;
+  const long long seen = kept ? known[dev][degree].load(std::memory_order_relaxed) : 0;
+  if (seen != 0 && seen >> 32 == *sms) {
+    *per_sm = static_cast<int>(seen & 0xffffffff);
+    return cudaSuccess;
+  }
+  if (*shared > 48 * 1024) {
+    e = cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(*shared));
+    if (e != cudaSuccess) return e;
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, *kernel, kFwdThreads, *shared);
+  if (e != cudaSuccess) return e;
+  if (kept) known[dev][degree].store(static_cast<long long>(*sms) << 32 | *per_sm);
+  return cudaSuccess;
+}
+
+// The forward's grid for n Gaussians: one wave, fewer blocks where n leaves some
+// without a chunk.
+long long forward_blocks(int n, int per_sm, int sms) {
+  const long long chunks = (static_cast<long long>(n) + 31) / 32;
+  const long long wanted = (chunks + kFwdWarps - 1) / kFwdWarps;
+  return max(min(wanted, static_cast<long long>(per_sm) * sms), 1LL);
 }
 
 // A cotangent: rows of `cols` floats at (row stride s0, column stride s1); null is 0.
@@ -423,13 +648,6 @@ __device__ __forceinline__ void sh_backward(float* row, const R* dir, const floa
 constexpr int kBwdWarps = 4;
 constexpr int kBwdThreads = 32 * kBwdWarps;
 static_assert(kBwdThreads >= kCamFloats, "a block loads the camera one float a thread");
-
-// Floats between two staged SH rows of K coefficients: 3K made odd, so that the 32
-// lanes reading coefficient c of their own rows (words t * stride + c) fall in 32
-// different banks; 3K = 48 apart they would fall in two. (Rows stored coefficient-
-// major would serve those reads as well, but would put the copy's consecutive words
-// 32 floats apart, in one bank.)
-__host__ __device__ constexpr int staged_stride(int sh_stride) { return (3 * sh_stride) | 1; }
 
 // The backward block's dynamic shared memory: each warp's 32 staged rows.
 inline size_t bwd_shared_bytes(int sh_stride) {
@@ -671,8 +889,6 @@ cudaError_t prepare_backward(int degree, int sh_stride, BackwardKernel* kernel,
                               static_cast<int>(*shared));
 }
 
-inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
-
 }  // namespace
 
 // Inputs (N rows, float32 unless stated, contiguous): cam (kCamFloats,), means (N, 3),
@@ -690,21 +906,21 @@ extern "C" int gsrast_preprocess_forward(
     float dilation, float inv_threshold, float extent_cap, float* mean2d, float* depth,
     float* conic, float* color, float* opacity, int* radius, int* rect, void* stream) {
   if (n == 0) return static_cast<int>(cudaSuccess);
+  ForwardKernel kernel;
+  size_t shared;
+  int per_sm = 0, sms = 0;
+  const cudaError_t e = prepare_forward(degree, sh_stride, &kernel, &shared, &per_sm, &sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const Consts k{width, height, near_depth, ndc_margin, dilation};
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (degree) {
-#define GSRAST_LAUNCH(D)                                                                  \
-  case D:                                                                                 \
-    preprocess_forward_kernel<D><<<blocks_for(n), kThreads, 0, s>>>(                      \
-        cam, means, scales, quats, opacities, sh, mask, mean2d_delta, n, sh_stride, k,    \
-        grid_h, grid_w, tile_h, tile_w, inv_threshold, extent_cap, mean2d, depth, conic,  \
-        color, opacity, radius, rect);                                                    \
-    break;
-    GSRAST_LAUNCH(0) GSRAST_LAUNCH(1) GSRAST_LAUNCH(2) GSRAST_LAUNCH(3)
-#undef GSRAST_LAUNCH
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const unsigned vec = (aligned16(means) ? kVecMeans : 0) | (aligned16(scales) ? kVecScales : 0) |
+                       (aligned16(quats) ? kVecQuats : 0) |
+                       (aligned16(opacities) ? kVecOpacity : 0) |
+                       (aligned16(mean2d_delta) ? kVecDelta : 0);
+  const FwdArgs a{cam, means, scales, quats, opacities, sh, mask, mean2d_delta, n,
+                  sh_stride, vec, k, grid_h, grid_w, tile_h, tile_w, inv_threshold,
+                  extent_cap, mean2d, depth, conic, color, opacity, radius, rect};
+  const auto blocks = static_cast<unsigned>(forward_blocks(n, per_sm, sms));
+  kernel<<<blocks, kFwdThreads, shared, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -762,4 +978,31 @@ extern "C" int gsrast_preprocess_backward_occupancy(int sh_stride, int degree, i
   *static_shared_bytes = static_cast<int>(attr.sharedSizeBytes);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, kernel, kBwdThreads, shared));
+}
+
+// The forward's launch for n Gaussians at SH degree `degree` (SH rows of sh_stride
+// coefficients): threads and dynamic shared bytes a block, the blocks of it that one
+// SM of the current device holds at once, and the grid's blocks; the kernel's
+// registers a thread, local (spilled) bytes a thread and static shared bytes a block
+// (cudaFuncGetAttributes).
+extern "C" int gsrast_preprocess_forward_occupancy(int n, int sh_stride, int degree,
+                                                   int* threads, int* shared_bytes,
+                                                   int* blocks_per_sm, int* grid,
+                                                   int* registers, int* local_bytes,
+                                                   int* static_shared_bytes) {
+  ForwardKernel kernel;
+  size_t shared;
+  int sms = 0;
+  cudaError_t e = prepare_forward(degree, sh_stride, &kernel, &shared, blocks_per_sm, &sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *threads = kFwdThreads;
+  *shared_bytes = static_cast<int>(shared);
+  *grid = static_cast<int>(forward_blocks(n, *blocks_per_sm, sms));
+  *registers = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *static_shared_bytes = static_cast<int>(attr.sharedSizeBytes);
+  return 0;
 }

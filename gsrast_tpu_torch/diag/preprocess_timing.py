@@ -8,21 +8,28 @@ Makes phase 20's cells once with this checkout (`chip_smoke.preprocess_cells`,
 the COLMAP cell made without files), with seeded cotangents on every output
 of every Gaussian, and saves them under `_build/`. It builds every tree's
 kernels at once and prints one JSON line: the card's name and power limit,
-and per tree the `cuobjdump -res-usage` line of each preprocess backward
-kernel (registers, local and static shared bytes). Then it runs the trees
+and per tree the `cuobjdump -res-usage` line of each preprocess kernel
+(registers, local and static shared bytes). Then it runs the trees
 in turns (`diag/turns.py`: in the order given and back, R times), each in a
 process of its own that imports that tree's package and `chip_smoke.py`:
 on each cell the tree's forward and backward launches
 (`ops.preprocess.forward_launch`, `backward_launch`) run once, their
 outputs are saved on the tree's first run, and each is timed as phase 20
 times it (`chip_smoke.cuda_ms`: the median of 10 intervals of RAW_REPS raw
-launches); each run prints one JSON line of its ms. Last, one JSON line a
-cell: per kernel its bound (`chip_smoke.preprocess_bound`) and per tree the
-ms of each run, the share of the bound at the best, and each output against
-the first tree's (elements that differ, largest difference). A tree must
-lie inside this checkout (the parent: `git archive` unpacked under
-`_archive/`, which git ignores; a variant: such a copy with an edited
-`csrc/preprocess.cu`). Default tree: this checkout.
+launches, warm), the forward also cold (`chip_smoke.cold_ms`: one launch
+after an L2 flush) beside the launch floor (`chip_smoke.launch_floor`),
+and alone on the device (`diag/plan_timing.py`'s cold and warm times, a
+spin holding the stream while the host enqueues the launch), and the
+forward's launch where the tree reports it (`chip_smoke.forward_occupancy`:
+registers, spills, shared bytes, resident warps, grid); each run prints
+one JSON line of its readings. Last, one JSON line a cell: per kernel its
+bound (`chip_smoke.preprocess_bound`) and per tree the ms of each run, the
+share of the bound at the best, the forward's cold ms, device times,
+launch floors and launch, and each output against the first tree's
+(elements that differ, largest difference). A tree must lie inside this
+checkout (the parent: `git archive` unpacked under `_archive/`, which git
+ignores; a variant: such a copy with an edited `csrc/preprocess.cu`).
+Default tree: this checkout.
 """
 
 from __future__ import annotations
@@ -105,7 +112,10 @@ def run_tree(tree: Path) -> None:
     _kernels.load()
     saved = OUT / f"{tag(tree)}.pt"
     keep = {} if not saved.exists() else None
-    ms = {}
+    from gsrast_tpu_torch.diag import plan_timing
+
+    occupancy = getattr(smoke, "forward_occupancy", None)
+    ms, cold, device, launch_of = {}, {}, {}, {}
     for key, (act, cam, rcfg, cot) in torch.load(
             INPUTS, weights_only=False).items():
         dcam = device_camera(cam)
@@ -121,11 +131,21 @@ def run_tree(tree: Path) -> None:
             ms[key][kind] = smoke.cuda_ms(lambda: [
                 launch.fn(*launch.args) for _ in range(smoke.RAW_REPS)]
             ) / smoke.RAW_REPS
-        del launches
+        fwd = launches["forward"]
+        cold[key] = smoke.cold_ms(lambda: fwd.fn(*fwd.args), dev)
+        device[key] = {
+            "cold_ms": plan_timing.cold_ms(lambda: fwd.fn(*fwd.args), dev),
+            "warm_ms": plan_timing.warm_ms(lambda: fwd.fn(*fwd.args))}
+        if occupancy is not None:
+            n, k = act.sh.shape[:2]
+            launch_of[key] = occupancy(n, k, pp.sh_degree(act, rcfg))
+        del launches, fwd
     if keep is not None:
         torch.save(keep, saved)
     line = json.dumps({"tree": str(tree), "raw_reps": smoke.RAW_REPS,
-                       "ms": ms})
+                       "ms": ms, "cold_ms": cold, "device": device,
+                       "launch_floor": smoke.launch_floor(dev),
+                       "launch": launch_of or None})
     with open(OUT / f"{tag(tree)}.jsonl", "a") as f:
         f.write(line + "\n")
     print(line, flush=True)
@@ -147,7 +167,8 @@ def compare(a, b) -> dict:
 def summarise(trees, info: dict) -> None:
     """One JSON line a cell: per kernel the bound, and per tree its ms, its
     share of the bound at the best and its outputs against the first
-    tree's."""
+    tree's; the forward's also its cold ms and cold share at the best, the
+    launch floor of each run and its launch, where the runs hold them."""
     import torch
 
     first = torch.load(OUT / f"{tag(trees[0])}.pt")
@@ -160,16 +181,25 @@ def summarise(trees, info: dict) -> None:
                               "trees": {}}
     for tree in trees:
         out = torch.load(OUT / f"{tag(tree)}.pt")
-        runs = [json.loads(line)["ms"] for line in
+        runs = [json.loads(line) for line in
                 (OUT / f"{tag(tree)}.jsonl").read_text().splitlines()]
         for key in info:
             for kind in KINDS:
-                ms = [run[key][kind] for run in runs]
+                ms = [run["ms"][key][kind] for run in runs]
                 entry = res[key][kind]
-                entry["trees"][str(tree.relative_to(HERE))] = {
+                got = entry["trees"][str(tree.relative_to(HERE))] = {
                     "ms": ms, "share": entry["bound_ms"] / min(ms),
                     "against_first": {f: compare(x, first[key][kind][f])
                                       for f, x in out[key][kind].items()}}
+                if kind == "forward" and "cold_ms" in runs[0]:
+                    cold = [run["cold_ms"][key] for run in runs]
+                    got.update(cold_ms=cold,
+                               cold_share=entry["bound_ms"] / min(cold),
+                               launch_floor=[run["launch_floor"]
+                                             for run in runs],
+                               launch=(runs[-1]["launch"] or {}).get(key))
+                if kind == "forward" and "device" in runs[0]:
+                    got["device"] = [run["device"][key] for run in runs]
         del out
     for line in res.values():
         print(json.dumps(line), flush=True)
@@ -205,7 +235,7 @@ def main(argv=None) -> int:
     shutil.rmtree(OUT, ignore_errors=True)
     OUT.mkdir(parents=True)
     info = make_inputs(smoke, args.cells.split(","))
-    names = ("preprocess_backward",)
+    names = ("preprocess_forward", "preprocess_backward")
     print(json.dumps({"card": turns.card(), "res_usage": {
         str(tree.relative_to(HERE)): turns.resource_usage(path, names)
         for tree, path in turns.build(trees).items()}}), flush=True)

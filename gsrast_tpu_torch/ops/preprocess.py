@@ -164,10 +164,10 @@ def preprocess_vjp_torch(inputs: ActivatedGaussians, camera: Camera,
 
 
 def _check_inputs(inputs: ActivatedGaussians, camera: DeviceCamera,
-                  mean2d_delta=None) -> dict:
-    """The kernels' inputs checked (one CUDA device, float32, the shapes of
-    N Gaussians with K SH rows) and made contiguous (no copy where they
-    are), by name; the mask as bytes."""
+                  mean2d_delta=None, cuda: bool = True) -> dict:
+    """The kernels' inputs checked (one device, CUDA where `cuda`, float32,
+    the shapes of N Gaussians with K SH rows) and made contiguous (no copy
+    where they are), by name; the mask as bytes."""
     n = inputs.means.shape[0]
     k = inputs.sh.shape[1] if inputs.sh.dim() == 3 else -1
     shapes = {"means": (n, 3), "scales": (n, 3), "quats": (n, 4),
@@ -181,10 +181,10 @@ def _check_inputs(inputs: ActivatedGaussians, camera: DeviceCamera,
     for name, x in tensors.items():
         dtype = torch.bool if name == "mask" else torch.float32
         if tuple(x.shape) != shapes[name] or x.dtype != dtype or (
-                x.device != dev) or dev.type != "cuda":
+                x.device != dev) or (cuda and dev.type != "cuda"):
             raise ValueError(
                 f"the preprocess kernels need {name} {shapes[name]} {dtype} "
-                f"on one CUDA device, got {tuple(x.shape)} {x.dtype} on "
+                f"on one {'CUDA ' if cuda else ''}device, got {tuple(x.shape)} {x.dtype} on "
                 f"{x.device}")
     if n >= 2**31:
         raise ValueError(f"{n} Gaussians exceed the kernels' int32 count")
@@ -203,12 +203,21 @@ def _constants():
             float(inv), cfg.GAUSSIAN_EXTENT_SIGMA ** 2)
 
 
-def forward_launch(inputs: ActivatedGaussians, camera: DeviceCamera,
-                   render_cfg: cfg.RenderConfig,
-                   mean2d_delta: torch.Tensor | None = None) -> _kernels.Launch:
-    """The forward kernel's launch on checked inputs; `out` is a
-    Preprocessed of empty outputs."""
-    t = _check_inputs(inputs, camera, mean2d_delta)
+def _stream(dev: torch.device, cuda: bool):
+    """The device's current CUDA stream where `cuda`, else None."""
+    return torch.cuda.current_stream(dev).cuda_stream if cuda else None
+
+
+def forward_args(inputs: ActivatedGaussians, camera: DeviceCamera,
+                 render_cfg: cfg.RenderConfig,
+                 mean2d_delta: torch.Tensor | None = None,
+                 cuda: bool = True) -> tuple:
+    """The arguments of `gsrast_preprocess_forward` on checked inputs: on
+    one CUDA device and its current stream where `cuda`, else on any
+    device and no stream (a host build of the source). (args, a
+    Preprocessed of empty outputs, the tensors the arguments point
+    into)."""
+    t = _check_inputs(inputs, camera, mean2d_delta, cuda)
     n, k = inputs.sh.shape[:2]
     grid_h, grid_w = render_cfg.grid_shape(camera.height, camera.width)
     dev = inputs.means.device
@@ -226,9 +235,18 @@ def forward_launch(inputs: ActivatedGaussians, camera: DeviceCamera,
             n, k, sh_degree(inputs, render_cfg), camera.width, camera.height,
             grid_h, grid_w, render_cfg.tile_h, render_cfg.tile_w,
             *_constants(), *(x.data_ptr() for x in out[:6]), rect.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            _stream(dev, cuda))
+    return args, out, dict(t, rect=rect)
+
+
+def forward_launch(inputs: ActivatedGaussians, camera: DeviceCamera,
+                   render_cfg: cfg.RenderConfig,
+                   mean2d_delta: torch.Tensor | None = None) -> _kernels.Launch:
+    """The forward kernel's launch on checked inputs; `out` is a
+    Preprocessed of empty outputs."""
+    args, out, held = forward_args(inputs, camera, render_cfg, mean2d_delta)
     return _kernels.Launch(_kernels.load().lib.gsrast_preprocess_forward,
-                           args, out, dict(t, rect=rect), dev)
+                           args, out, held, inputs.means.device)
 
 
 def _cotangent_args(cotangents: Cotangents, n: int, dev) -> list:
@@ -248,13 +266,14 @@ def _cotangent_args(cotangents: Cotangents, n: int, dev) -> list:
     return args
 
 
-def backward_launch(inputs: ActivatedGaussians, camera: DeviceCamera,
-                    render_cfg: cfg.RenderConfig,
-                    cotangents: Cotangents) -> _kernels.Launch:
-    """The backward kernel's launch on checked inputs and the cotangents
-    with their strides (no copy); `out` holds the empty gradients by
-    field."""
-    t = _check_inputs(inputs, camera)
+def backward_args(inputs: ActivatedGaussians, camera: DeviceCamera,
+                  render_cfg: cfg.RenderConfig, cotangents: Cotangents,
+                  cuda: bool = True) -> tuple:
+    """The arguments of `gsrast_preprocess_backward` on checked inputs and
+    the cotangents with their strides (no copy), as `forward_args` takes
+    the device and stream: (args, the empty gradients by field, the tensors
+    the arguments point into)."""
+    t = _check_inputs(inputs, camera, cuda=cuda)
     n, k = inputs.sh.shape[:2]
     dev = inputs.means.device
     grads = {f: torch.empty_like(t[f]) for f in INPUT_FIELDS}
@@ -264,10 +283,19 @@ def backward_launch(inputs: ActivatedGaussians, camera: DeviceCamera,
             t["mask"].data_ptr(), n, k, sh_degree(inputs, render_cfg),
             camera.width, camera.height, near, margin, dilation,
             *_cotangent_args(cotangents, n, dev),
-            *(grads[f].data_ptr() for f in INPUT_FIELDS),
-            torch.cuda.current_stream(dev).cuda_stream)
+            *(grads[f].data_ptr() for f in INPUT_FIELDS), _stream(dev, cuda))
+    return args, grads, dict(t, cotangents=cotangents)
+
+
+def backward_launch(inputs: ActivatedGaussians, camera: DeviceCamera,
+                    render_cfg: cfg.RenderConfig,
+                    cotangents: Cotangents) -> _kernels.Launch:
+    """The backward kernel's launch on checked inputs and the cotangents
+    with their strides (no copy); `out` holds the empty gradients by
+    field."""
+    args, grads, held = backward_args(inputs, camera, render_cfg, cotangents)
     return _kernels.Launch(_kernels.load().lib.gsrast_preprocess_backward,
-                           args, grads, dict(t, cotangents=cotangents), dev)
+                           args, grads, held, inputs.means.device)
 
 
 def preprocess_forward_cuda(inputs: ActivatedGaussians, camera: DeviceCamera,

@@ -443,6 +443,45 @@ def test_preprocess_timing_summary(tmp_path, monkeypatch, capsys):
         "depth": {"differ": 0, "max_abs_diff": 0.0}}
 
 
+def test_preprocess_timing_summary_cold(tmp_path, monkeypatch, capsys):
+    """Runs that hold the forward's cold ms, the launch floor and the
+    forward's launch: the summary gives per tree the cold ms of every run,
+    the cold share at the best, each run's floor and the last run's launch
+    (None for a tree that does not report it)."""
+    import json
+
+    from gsrast_tpu_torch.diag import preprocess_timing as pt
+
+    monkeypatch.setattr(pt, "HERE", tmp_path)
+    monkeypatch.setattr(pt, "OUT", tmp_path / "out")
+    pt.OUT.mkdir()
+    trees = [tmp_path / "_archive" / "parent", tmp_path]
+    launch = {"registers": 96, "resident_warps": 12}
+    for tree, cold, reported in zip(trees, ([0.2, 0.25], [0.1, 0.125]),
+                                    (None, {"1M": launch})):
+        torch.save({"1M": {"forward": {"depth": torch.ones(2)},
+                           "backward": {"sh": torch.ones(2)}}},
+                   pt.OUT / f"{pt.tag(tree)}.pt")
+        (pt.OUT / f"{pt.tag(tree)}.jsonl").write_text("".join(
+            json.dumps({"ms": {"1M": {"forward": 0.1, "backward": 0.2}},
+                        "cold_ms": {"1M": c},
+                        "launch_floor": {"ms": 0.005, "warm_ms": 0.002},
+                        "launch": reported}) + "\n" for c in cold))
+    info = {"1M": {"label": "1M SH3", "gaussians": 2,
+                   "bounds": {"forward": (0.05, "bytes"),
+                              "backward": (0.1, "bytes")}}}
+    pt.summarise(trees, info)
+    fwd = json.loads(capsys.readouterr().out)["forward"]["trees"]
+    parent, here = fwd["_archive/parent"], fwd["."]
+    assert parent["cold_ms"] == [0.2, 0.25] and here["cold_ms"] == [0.1,
+                                                                      0.125]
+    assert parent["cold_share"] == pytest.approx(0.25)
+    assert here["cold_share"] == pytest.approx(0.5)
+    assert here["launch_floor"] == [{"ms": 0.005, "warm_ms": 0.002}] * 2
+    assert parent["launch"] is None and here["launch"] == launch
+    assert here["against_first"]["depth"]["differ"] == 0
+
+
 # -- on the card ------------------------------------------------------------
 
 def _card():
@@ -580,3 +619,26 @@ def test_cuda_backward_occupancy():
             assert camera <= launch["static_shared"] < camera + 16, launch
             assert 0 < launch["registers"] <= 255, launch
             assert launch["resident_warps"] >= 4, launch
+
+
+@pytest.mark.cuda
+def test_cuda_forward_occupancy():
+    """The forward's launch as the library reports it for each degree: 128
+    threads; per warp two stages of its chunk's inputs and its outputs in
+    dynamic shared memory; the camera's 39 floats of static shared memory;
+    registers within the 255 a thread, no spills; at least one block an
+    SM, a grid of one wave at 1M and of the chunks' blocks at 200
+    Gaussians (7 chunks: 2 blocks of 4 warps)."""
+    _card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for degree in range(4):
+        launch = chip_smoke.forward_occupancy(1_000_000, 16, degree)
+        assert launch["threads"] == 128, launch
+        assert launch["dynamic_shared"] % (4 * 16) == 0, launch
+        camera = 4 * CAMERA_FLOATS
+        assert camera <= launch["static_shared"] < camera + 16, launch
+        assert 0 < launch["registers"] <= 255, launch
+        assert launch["local_bytes"] == 0, launch
+        assert launch["blocks_per_sm"] >= 1, launch
+        assert launch["grid"] == sms * launch["blocks_per_sm"], launch
+        assert chip_smoke.forward_occupancy(200, 16, degree)["grid"] == 2
