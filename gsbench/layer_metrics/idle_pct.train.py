@@ -1,0 +1,6 @@
+"""The device's idle share of the traced train steps: one less the union of
+its operations' intervals over the window, percent."""
+
+
+def read(ctx):
+    return 100.0 * (1.0 - ctx["busy_s"] / ctx["window_s"])
