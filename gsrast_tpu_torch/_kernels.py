@@ -25,6 +25,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from .camera import CAMERA_TENSORS
+from .utils.profiling import span
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -38,7 +39,7 @@ launch_counts = {"tile_order": 0, "blend_forward": 0, "blend_backward": 0,
                  "bisect_a": 0, "bisect_b": 0, "bisect_c": 0, "bisect_d": 0,
                  "preprocess_forward": 0, "preprocess_backward": 0,
                  "loss_forward": 0, "loss_backward": 0, "adam": 0,
-                 "ellipsoids": 0, "plan_tiers": 0}
+                 "ellipsoids": 0, "plan_tiers": 0, "trace_mark": 0}
 
 
 # Runs per kernel inside CUDA graph replays since the last reset: a replay
@@ -54,18 +55,19 @@ replayed_counts = dict.fromkeys(launch_counts, 0)
 _DEVICE_COUNTERS: dict = {}
 
 
-def device_counters(kernel: str, device: torch.device,
-                    n: int = 1) -> torch.Tensor:
+def device_counters(kernel: str, device: torch.device, n: int = 1,
+                    dtype: torch.dtype = torch.int32) -> torch.Tensor:
     """Kernel `kernel`'s n counters on `device`, made (zero) at its first
     launch there: outside a CUDA graph's capture, as every capture here
-    follows an eager warm-up."""
+    follows an eager warm-up, and outside inference mode, so that work
+    with autograd on may add to them later."""
     key = (kernel, device.type, device.index)
     if key not in _DEVICE_COUNTERS:
         if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
             raise RuntimeError(f"launch the {kernel} kernel on the device once "
                                f"before capturing it in a CUDA graph")
-        _DEVICE_COUNTERS[key] = torch.zeros(n, dtype=torch.int32,
-                                            device=device)
+        with torch.inference_mode(False):
+            _DEVICE_COUNTERS[key] = torch.zeros(n, dtype=dtype, device=device)
     return _DEVICE_COUNTERS[key]
 
 
@@ -158,7 +160,10 @@ class ShapeGraphs:
     `captures` and `replays` count graphs captured and replays run;
     `captured`, per kernel of `launch_counts`, the launches the captures
     recorded. A replay launches no wrapper, so it adds nothing to
-    `launch_counts`, and its capture's launches to `replayed_counts`."""
+    `launch_counts`, and its capture's launches to `replayed_counts`.
+    A call's parts are the spans `graph.eager`, `graph.load` (the copies,
+    the one with device marks where tracing is on), `graph.capture` and
+    `graph.replay` (`utils/profiling.py`)."""
 
     def __init__(self, what: str):
         self.what = what
@@ -179,17 +184,21 @@ class ShapeGraphs:
                 camera.replace(**{name: getattr(camera, name).clone()
                                   for name in CAMERA_TENSORS}),
                 tuple(x.clone() for x in inputs))
-            return on_side_stream(lambda: fn(slot.camera, *slot.inputs),
-                                  camera.device)
-        slot.load(camera, inputs)
+            with span("eager", "graph"):
+                return on_side_stream(lambda: fn(slot.camera, *slot.inputs),
+                                      camera.device)
+        with span("load", "graph", camera.device):
+            slot.load(camera, inputs)
         if slot.graph is None:
-            slot.graph, slot.out, slot.launches = capture(
-                lambda: fn(slot.camera, *slot.inputs),
-                f"{self.what} ({shape[0]} x {shape[1]})")
+            with span("capture", "graph"):
+                slot.graph, slot.out, slot.launches = capture(
+                    lambda: fn(slot.camera, *slot.inputs),
+                    f"{self.what} ({shape[0]} x {shape[1]})")
             for name, count in slot.launches.items():
                 self.captured[name] += count
             self.captures += 1
-        replay(slot.graph, slot.launches)
+        with span("replay", "graph"):
+            replay(slot.graph, slot.launches)
         self.replays += 1
         return slot.out
 
@@ -289,6 +298,14 @@ def set_order_argtypes(lib) -> None:
     lib.gsrast_tile_order_table.restype = ctypes.c_longlong
 
 
+def set_trace_argtypes(lib) -> None:
+    """The device marks' entry points' argument types (`csrc/trace.cu`;
+    `utils/profiling.py` launches them)."""
+    lib.gsrast_trace_mark.argtypes = [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p]
+    lib.gsrast_trace_mark.restype = ctypes.c_int
+
+
 def set_plan_argtypes(lib) -> None:
     """The tile plan's entry points' argument types (also for a build of
     `csrc/plan.cu` alone; `ops/binning.py::plan_tiers_launch` calls them)."""
@@ -382,4 +399,5 @@ def load() -> Library:
     fn.restype = ctypes.c_int
     set_ellipsoid_argtypes(lib)
     set_plan_argtypes(lib)
+    set_trace_argtypes(lib)
     return Library(lib=lib, path=path, build_seconds=seconds, build_log=log)

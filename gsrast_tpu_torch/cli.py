@@ -308,9 +308,19 @@ def cmd_train(argv):
     (`train.trainer.TrainGraph`, the reference's jitted step), with
     densify, checkpoints and rollbacks written into its tensors between
     replays; the other backends step eagerly and say why. `--steps` counts
-    from 0, so a resumed run stops at the same step. Returns the final
-    `TrainState`."""
-    ap = argparse.ArgumentParser(prog="gsrast_tpu_torch train")
+    from 0, so a resumed run stops at the same step. With
+    GSRAST_TORCH_TRACE=1 (`utils/profiling.py`) each metrics line adds the
+    (splat, tile) pairs the tier plan dropped and the share of its granted
+    slots that were live, over the renders since the last line. Returns
+    the final `TrainState`."""
+    ap = argparse.ArgumentParser(
+        prog="gsrast_tpu_torch train",
+        epilog="GSRAST_TORCH_TRACE=1 in the environment turns tracing on: "
+               "device marks at every layer's start and end (they survive "
+               "a CUDA graph's replay, so a profiler trace names each "
+               "layer) and the tile plan's counters; each metrics line "
+               "then adds dropped=<pairs the plan granted no slot> and "
+               "fill=<live over granted slots> since the last line.")
     ap.add_argument("--scene", required=True,
                     help=".ply initialization, 'random:N', or 'colmap' "
                          "(initialize from --data's SfM points3D.bin)")
@@ -351,6 +361,7 @@ def cmd_train(argv):
     from .train.trainer import (TrainConfig, TrainGraph, init_train_state,
                                 make_train_step, maybe_densify,
                                 step_generator)
+    from .utils import profiling
 
     scene = None if args.scene == "colmap" else _load_scene(args.scene,
                                                             device)
@@ -382,9 +393,15 @@ def cmd_train(argv):
                   f"{camera.width})")
         maybe_densify(st, tc, step_generator(device, i), extent)
         if i % 100 == 0 or i == args.steps - 1:
-            print(f"step {i}: loss={float(metrics['loss']):.5f} "
-                  f"psnr={float(metrics['psnr']):.2f} "
-                  f"active={int(metrics['num_active'])}")
+            line = (f"step {i}: loss={float(metrics['loss']):.5f} "
+                    f"psnr={float(metrics['psnr']):.2f} "
+                    f"active={int(metrics['num_active'])}")
+            if profiling.tracing():  # read after the line's own syncs
+                counts = profiling.counters(reset=True)
+                granted = counts["plan.granted"]
+                fill = 100.0 * counts["plan.live"] / granted if granted else 0
+                line += f" dropped={counts['plan.dropped']} fill={fill:.1f}%"
+            print(line)
         return metrics
 
     rc = ResilienceConfig(ckpt_dir=args.ckpt_dir,

@@ -1,8 +1,10 @@
-"""Where a step's device time goes: one eager step and one chained
-replay of `bench`'s cells, and one eager and one graphed train step of the
-train cells, profiled by `utils.profiling.trace` (`torch.profiler`).
+"""Where a step's device time goes: one eager step, one chained replay
+and one graphed viewer frame of `bench`'s cells, and one eager and one
+graphed train step of the train cells, profiled by `utils.profiling.trace`
+(`torch.profiler`).
 
-    python -m gsrast_tpu_torch.diag.profile_step [--cells default,small,
+    [GSRAST_TORCH_TRACE=1] python -m gsrast_tpu_torch.diag.profile_step
+        [--cells default,small,
         trained_116k,train_trained_116k,train_default,train_colmap]
         [--out DIR]
         [--device cuda|cpu]
@@ -12,7 +14,7 @@ fwd+bwd, `--small` and `--scene tests/fixtures/trained_116k.ply` at
 1920x1080, each with `cli.bench_inputs`' config), after two warm-up steps
 and the capture of a `benchmark.StepChain` of CHAIN steps and one replay,
 it times TIMED unprofiled calls of each (`benchmark.timeit`), traces one
-`bench_step` and then one replay, and prints one JSON line:
+`bench_step`, one replay and one frame, and prints one JSON line:
   * `eager`: the device kernels the step launched, the device-busy ms (the
     union of its kernels', copies' and fills' intervals), the unprofiled
     step's best and median ms, and the idle share against each (1 - busy
@@ -27,7 +29,16 @@ it times TIMED unprofiled calls of each (`benchmark.timeit`), traces one
     device work `other_by_name` lists by name ([name, count, busy ms] a
     step, the OTHER_TOP busiest);
   * `chained`: the same numbers of a replay divided by the chain. A replay
-    has no host ops, so it has no stage split.
+    has no host ops, so it has no stage split;
+  * `frame`: the same numbers of one replay of the viewer's frame
+    (`render.frame.FrameGraph` of the cell's scene and camera, under
+    inference mode, after its eager call, capture and a replay).
+With GSRAST_TORCH_TRACE=1 (`utils/profiling.py`) the program's spans carry
+device marks into every replay, and each part whose trace holds them adds
+`spans` (`span_split`: device ms a step by innermost span, the ms outside
+every span and of the marks themselves, and the share of the busy time,
+marks left out, inside some span), and each cell the tile plan's counters
+over all its calls (`counters`: live, granted and dropped slots).
 A train cell (`train_cell`: trained_116k at 1920x1080 from the perturbed
 start of chip_smoke.py's phase 8, the 1M SH-3 scene of its phase 10, and
 the COLMAP scene of its phase 12 made in memory)
@@ -51,6 +62,7 @@ import collections
 import dataclasses
 import json
 import os
+import re
 from typing import Optional
 
 import torch
@@ -60,6 +72,7 @@ from ..render.pipeline import STAGES
 from ..scene.gaussians import GaussianScene
 from ..train.trainer import (TrainConfig, TrainGraph, TrainState,
                              init_train_state, make_train_step)
+from ..utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -74,11 +87,14 @@ CHAIN = 8  # steps of the chained replay, as phase 15 of chip_smoke.py
 TIMED = 10  # unprofiled calls timed of each part, as `bench --iters`
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # The host ranges a step's kernels are split by, range name -> stage: the
-# forward's stages (`render.pipeline.span`) and, in a train step, the loss
+# forward's stages (`utils.profiling.span`) and, in a train step, the loss
 # (`train.loss`, `trainer.make_train_step`).
 RENDER_RANGES = {f"render.{s}": s for s in STAGES}
 TRAIN_RANGES = {**RENDER_RANGES, "train.loss": "loss"}
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+# A device mark's kernel name: its span's index in `profiling.SPANS`, its
+# edge (`csrc/trace.cu`).
+MARK = re.compile(r"gsrast_span_mark<(\d+), ?(\d+)>")
 # `other`'s device work by name: the OTHER_TOP names of most busy ms, each
 # without "void " and "at::native::" and cut to NAME_CHARS characters.
 OTHER_TOP = 12
@@ -116,6 +132,41 @@ def _device_events(events: list, marker: str) -> tuple:
                   and e["ts"] >= mark["ts"]]
 
 
+def span_split(device: list, steps: int = 1) -> Optional[dict]:
+    """The device events `device` by the program's spans (see the module
+    docstring), per step of `steps`; None where they hold no mark. Each
+    operation belongs to the innermost span whose marks enclose it: the
+    marks and the work they bound run on one stream, so a walk in time
+    order with a stack of open spans finds it; an end mark closes its span
+    and any left open inside it."""
+    ops = sorted(device, key=lambda e: e["ts"])
+    if not any(MARK.search(e["name"]) for e in ops):
+        return None
+    stack, marks, by_span = [], [], collections.defaultdict(list)
+    for e in ops:
+        m = MARK.search(e["name"])
+        if m is None:
+            by_span[stack[-1] if stack else None].append(e)
+            continue
+        marks.append(e)
+        name = profiling.SPANS[int(m.group(1))]
+        if int(m.group(2)) == profiling.START:
+            stack.append(name)
+        elif name in stack:
+            del stack[stack.index(name):]
+
+    def ms(es):
+        return _union_ms((e["ts"], e["ts"] + e["dur"]) for e in es) / steps
+
+    busy = ms([e for es in by_span.values() for e in es])
+    inside = ms([e for s, es in by_span.items() if s is not None
+                 for e in es])
+    return {"spans_ms": {s: ms(es) for s, es in by_span.items()
+                         if s is not None},
+            "outside_ms": ms(by_span[None]), "marks_ms": ms(marks),
+            "cover_pct": 100.0 * inside / busy if busy > 0 else None}
+
+
 def kernel_names(events: list, marker: str) -> collections.Counter:
     """The kernels traced after the host range `marker` began, counted by
     name."""
@@ -138,6 +189,9 @@ def summarize(events: list, marker: str, steps: int = 1,
     out = {"kernels": len(kernels) / steps, "busy_ms": busy / steps,
            "traced_window_ms": window / steps,
            "traced_idle_share": 1.0 - busy / window if window > 0 else 0.0}
+    spans = span_split(device, steps)
+    if spans is not None:
+        out["spans"] = spans
     if not split:
         return out
     # The stage ranges of `ranges`; the autograd nodes made inside each (by
@@ -220,22 +274,39 @@ def _profile_parts(name: str, parts: tuple, out_dir: str, device,
 def profile_cell(name: str, out_dir: str, device) -> dict:
     from .. import benchmark
     from ..cli import bench_inputs
+    from ..render.api import render
+    from ..render.frame import FrameGraph
 
     n, width, height, scene_path = CELLS[name]
     backend = "cuda" if device.type == "cuda" else "torch"
     scene, camera, rcfg = bench_inputs(n, width, height, scene_path,
                                        backend, device)
+    profiling.counters(reset=True)
     steps = benchmark.StepChain(scene, camera, rcfg, chain=CHAIN)
     steps()
     for _ in range(2):
         benchmark.bench_step(scene, camera, rcfg)
+    with torch.no_grad():
+        act = scene.activated()
+    draw = FrameGraph(lambda c: render(act, c, rcfg).image, "gaussians",
+                      backend)
+
+    def frame():
+        with torch.inference_mode():
+            return draw(camera)
+
+    for _ in range(3):  # eager, capture + replay, replay
+        frame()
     res = {"cell": name, "gaussians": scene.capacity, "width": width,
            "height": height, "tile": [rcfg.tile_h, rcfg.tile_w],
            "chain": steps.chain, "captured": steps.captures == 1}
     res.update(_profile_parts(name, (
         ("eager", lambda: benchmark.bench_step(scene, camera, rcfg), 1,
          True),
-        ("chained", steps, steps.chain, False)), out_dir, device))
+        ("chained", steps, steps.chain, False),
+        ("frame", frame, 1, False)), out_dir, device))
+    if profiling.tracing():
+        res["counters"] = profiling.counters(reset=True)
     return res
 
 
@@ -375,6 +446,7 @@ def scene_extent(scene) -> float:
 
 def profile_train_cell(name: str, out_dir: str, device) -> dict:
     cell = train_cell(name, device)
+    profiling.counters(reset=True)
     state = cell.state()
     step = make_train_step(cell.rcfg, cell.tc, cell.extent)
     graph = TrainGraph(step)
@@ -405,6 +477,8 @@ def profile_train_cell(name: str, out_dir: str, device) -> dict:
     res["kernel_diff"] = {k: [names["eager"][k], names["graphed"][k]]
                           for k in sorted(names["eager"] | names["graphed"])
                           if names["eager"][k] != names["graphed"][k]}
+    if profiling.tracing():
+        res["counters"] = profiling.counters(reset=True)
     return res
 
 

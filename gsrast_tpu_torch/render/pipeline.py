@@ -29,7 +29,7 @@ cotangents over distinct addresses instead of queueing atomics on one.
 
 from __future__ import annotations
 
-import contextlib
+import dataclasses
 from typing import Tuple
 
 import torch
@@ -40,6 +40,8 @@ from ..ops import binning
 from ..ops.binning import sort_key
 from ..ops.preprocess import Preprocessed, preprocess
 from ..scene.gaussians import ActivatedGaussians
+from ..utils import profiling
+from ..utils.profiling import span
 from .blend import BlendFunction
 from .tiled import (RenderOutput, background_rgb, gather_sorted, untile,
                     untile_cf)
@@ -101,19 +103,14 @@ def pack_sorted_features(feat_t: torch.Tensor,
                      dim=0)
 
 
-# The forward's stages as named profiler ranges, `render.<stage>` (what
-# `diag/profile_step.py` splits a step's kernels by, the backward's through
-# the autograd nodes made inside each range): the stages of
-# `benchmark.stage_table`.
+# The forward's stages, each the span `render.<stage>`
+# (`utils/profiling.py`; `diag/profile_step.py` splits a step's kernels by
+# their host ranges, the backward's through the autograd nodes made inside
+# each range): the stages of `benchmark.stage_table`. The render's last
+# span, `render.untile`, assembles the image.
 STAGES = ("prep", "binning", "pack", "blend")
-
-
-def span(stage: str, layer: str = "render"):
-    """The profiler range `<layer>.<stage>` while a profiler runs; else
-    nothing, so that an unprofiled step pays no dispatcher calls."""
-    if torch.autograd.profiler._is_profiler_enabled:
-        return torch.profiler.record_function(f"{layer}.{stage}")
-    return contextlib.nullcontext()
+# The preprocess outputs the pack reads (`feature_rows`).
+FEATURE_FIELDS = ("mean2d", "conic", "opacity", "color")
 
 
 def render_tiled(gaussians: ActivatedGaussians, camera: Camera,
@@ -122,48 +119,97 @@ def render_tiled(gaussians: ActivatedGaussians, camera: Camera,
     """The 'cuda' and 'torch' backends' render. Stats, on both plans:
     num_visible, num_intersections, overflow_capacity (the legacy
     capacity's drops; 0 under tiers), overflow_tile_cap, overflow_per_tile
-    (0: the blend walks true ranges), radii."""
+    (0: the blend walks true ranges), radii.
+
+    Its stages are the spans `render.prep`, `render.binning` (which counts
+    the plan, `profiling.count_plan`), `render.pack`, `render.blend` and
+    `render.untile`; with tracing on, each differentiable stage's backward
+    is the span `<stage>.bwd` between nodes at its inputs and outputs
+    (`profiling.backward_end` / `backward_start`)."""
     tile_h, tile_w = render_cfg.tile_h, render_cfg.tile_w
     grid_h, grid_w = render_cfg.grid_shape(camera.height, camera.width)
     num_tiles = grid_h * grid_w
+    dev = gaussians.means.device
 
-    with span("prep"):
+    if profiling.tracing():
+        gaussians, mean2d_delta = _bound_inputs(gaussians, mean2d_delta)
+    with span("prep", device=dev):
         prep = preprocess(gaussians, camera, render_cfg, mean2d_delta)
-    zero = torch.zeros((), dtype=torch.int32, device=prep.depth.device)
+        num_visible = torch.sum(prep.radius > 0)
+    prep = _bound_features(prep, profiling.backward_start, "render.prep")
+    prep = _bound_features(prep, profiling.backward_end, "render.pack")
     if render_cfg.tiers:
-        with span("binning"):
+        with span("binning", device=dev):
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
             plan = binning.plan_tiers(prep.detach(), grid_h, grid_w,
                                       render_cfg)
-        with span("pack"):
+            profiling.count_plan(plan.total, plan.gauss.shape[0],
+                                 plan.overflow_tile_cap)
+        with span("pack", device=dev):
             feat, tile_starts = sort_pack(feature_rows(prep), plan,
                                           num_tiles)
         bin_stats = {"num_intersections": plan.total,
                      "overflow_capacity": zero,
                      "overflow_tile_cap": plan.overflow_tile_cap}
     else:
-        with span("binning"):
-            bins = binning.build_binning(
-                prep.detach(), grid_h, grid_w, render_cfg,
-                render_cfg.capacity(gaussians.means.shape[0]))
-        with span("pack"):
+        with span("binning", device=dev):
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            capacity = render_cfg.capacity(gaussians.means.shape[0])
+            bins = binning.build_binning(prep.detach(), grid_h, grid_w,
+                                         render_cfg, capacity)
+            profiling.count_plan(bins.num_intersections, capacity,
+                                 bins.overflow_tile_cap,
+                                 bins.overflow_capacity)
+        with span("pack", device=dev):
             feat, tile_starts = pack_features(prep, bins), bins.tile_starts
         bin_stats = {"num_intersections": bins.num_intersections,
                      "overflow_capacity": bins.overflow_capacity,
                      "overflow_tile_cap": bins.overflow_tile_cap}
-    with span("blend"):
+    feat = profiling.backward_start("render.pack", feat)
+    feat = profiling.backward_end("render.blend", feat)
+    with span("blend", device=dev):
         rgb_tiles, ft_tiles, nc_tiles = BlendFunction.apply(
             feat, tile_starts, grid_h, grid_w, tile_h, tile_w,
             render_cfg.backend)
+    rgb_tiles, ft_tiles = profiling.backward_start("render.blend", rgb_tiles,
+                                                   ft_tiles)
+    rgb_tiles, ft_tiles = profiling.backward_end("render.untile", rgb_tiles,
+                                                 ft_tiles)
+    with span("untile", device=dev):
+        background = background_rgb(render_cfg, dev)
+        image_cf = untile_cf(rgb_tiles, grid_h, grid_w, render_cfg,
+                             camera.height, camera.width)  # (3, H, W)
+        final_t = untile(ft_tiles, grid_h, grid_w, render_cfg,
+                         camera.height, camera.width)
+        n_contrib = untile(nc_tiles, grid_h, grid_w, render_cfg,
+                           camera.height, camera.width)
+        image_cf = image_cf + final_t[None] * background[:, None, None]
+    image = profiling.backward_start("render.untile",
+                                     image_cf.permute(1, 2, 0))
+    stats = {"num_visible": num_visible, "overflow_per_tile": zero,
+             "radii": prep.radius, **bin_stats}
+    return RenderOutput(image=image, final_t=final_t, n_contrib=n_contrib,
+                        stats=stats)
 
-    background = background_rgb(render_cfg, feat.device)
-    image_cf = untile_cf(rgb_tiles, grid_h, grid_w, render_cfg,
-                         camera.height, camera.width)  # (3, H, W)
-    final_t = untile(ft_tiles, grid_h, grid_w, render_cfg, camera.height,
-                     camera.width)
-    n_contrib = untile(nc_tiles, grid_h, grid_w, render_cfg, camera.height,
-                       camera.width)
-    image_cf = image_cf + final_t[None] * background[:, None, None]
-    stats = {"num_visible": torch.sum(prep.radius > 0),
-             "overflow_per_tile": zero, "radii": prep.radius, **bin_stats}
-    return RenderOutput(image=image_cf.permute(1, 2, 0), final_t=final_t,
-                        n_contrib=n_contrib, stats=stats)
+
+def _bound_inputs(gaussians: ActivatedGaussians,
+                  mean2d_delta: torch.Tensor | None) -> tuple:
+    """The preprocess's differentiable inputs through the node that ends
+    the span `render.prep.bwd` (with tracing on)."""
+    fields = ("means", "scales", "quats", "opacities", "sh")
+    inputs = [getattr(gaussians, f) for f in fields]
+    if mean2d_delta is not None:
+        inputs.append(mean2d_delta)
+    inputs = profiling.backward_end("render.prep", *inputs)
+    return (dataclasses.replace(gaussians, **dict(zip(fields, inputs))),
+            None if mean2d_delta is None else inputs[-1])
+
+
+def _bound_features(prep: Preprocessed, bound, layer: str) -> Preprocessed:
+    """prep with the outputs the pack reads through `bound`
+    (`profiling.backward_start` or `backward_end`) of `layer`; prep itself
+    with tracing off."""
+    if not profiling.tracing():
+        return prep
+    fields = bound(layer, *(getattr(prep, f) for f in FEATURE_FIELDS))
+    return prep._replace(**dict(zip(FEATURE_FIELDS, fields)))

@@ -19,6 +19,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils import profiling
+from ..utils.profiling import span
+
 
 PARAM_FIELDS = ("means", "log_scales", "quats", "opacity_logits", "sh")
 
@@ -77,17 +80,20 @@ class GaussianScene(nn.Module):
         return {name: getattr(self, name) for name in PARAM_FIELDS}
 
     def activated(self) -> ActivatedGaussians:
-        q = self.quats
-        norm = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
-        return ActivatedGaussians(
-            means=self.means,
-            scales=torch.exp(self.log_scales),
-            quats=q / (norm + 1e-12),
-            opacities=torch.where(
-                self.mask, torch.sigmoid(self.opacity_logits), 0.0),
-            sh=self.sh,
-            mask=self.mask,
-        )
+        """The span `scene.activate`; with tracing on, its backward is the
+        span `scene.activate.bwd` (`utils/profiling.py`)."""
+        params = profiling.backward_end(
+            "scene.activate", *(getattr(self, f) for f in PARAM_FIELDS))
+        means, log_scales, q, opacity_logits, sh = params
+        with span("activate", "scene", self.means.device):
+            norm = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
+            out = (means, torch.exp(log_scales), q / (norm + 1e-12),
+                   torch.where(self.mask, torch.sigmoid(opacity_logits), 0.0),
+                   sh)
+        means, scales, quats, opacities, sh = profiling.backward_start(
+            "scene.activate", *out)
+        return ActivatedGaussians(means=means, scales=scales, quats=quats,
+                                  opacities=opacities, sh=sh, mask=self.mask)
 
     def bbox(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Min and max corner over the live Gaussians (no gradient)."""

@@ -21,8 +21,9 @@ from .. import _kernels
 from .. import config as cfg
 from ..camera import Camera
 from ..render.api import render
-from ..render.pipeline import span
 from ..scene.gaussians import GaussianScene
+from ..utils import profiling
+from ..utils.profiling import span
 from . import adam
 from . import densify as densify_mod
 from .loss import psnr, rgb_loss
@@ -168,26 +169,39 @@ def make_train_step(render_cfg: cfg.RenderConfig, tc: TrainConfig,
     """The step (state, camera, target (H, W, 3)) -> metrics, updating
     `state` in place. A zero `mean2d_delta` that requires grad exposes the
     screen-space positional gradient (the densify signal) without a second
-    render. Metrics stay on the device: loss, psnr and num_active."""
+    render. Metrics stay on the device: loss, psnr and num_active.
+
+    Its spans (`utils/profiling.py`): `train.stats` (the densify signal's
+    zeros and `zero_grad`; after the update, the statistics and the
+    metrics), the render's, `train.loss`, `train.backward` (around
+    `loss.backward()`, holding the backward spans `train.loss.bwd` and the
+    render's), `train.adam`."""
 
     def train_step(state: TrainState, camera: Camera,
                    target: torch.Tensor) -> dict:
         scene = state.scene
-        delta = torch.zeros((scene.capacity, 2), device=scene.means.device,
-                            requires_grad=True)
+        dev = scene.means.device
+        with span("stats", "train", dev):
+            delta = torch.zeros((scene.capacity, 2), device=dev,
+                                requires_grad=True)
+            state.optimizer.zero_grad(set_to_none=True)
         out = render(scene, camera, render_cfg, mean2d_delta=delta)
-        with span("loss", "train"):
-            loss = rgb_loss(out.image, target, tc.ssim_weight,
+        image = profiling.backward_end("train.loss", out.image)
+        with span("loss", "train", dev):
+            loss = rgb_loss(image, target, tc.ssim_weight,
                             backend=render_cfg.backend)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        apply_gradients(state, tc, scene_extent, render_cfg.backend)
-        densify_mod.accumulate_stats(state.densify_state, delta.grad,
-                                     out.stats["radii"])
-        state.step += 1
-        return {"loss": loss.detach(),
-                "psnr": psnr(out.image.detach(), target),
-                "num_active": scene.num_active()}
+        loss = profiling.backward_start("train.loss", loss)
+        with span("backward", "train", dev):
+            loss.backward()
+        with span("adam", "train", dev):
+            apply_gradients(state, tc, scene_extent, render_cfg.backend)
+        with span("stats", "train", dev):
+            densify_mod.accumulate_stats(state.densify_state, delta.grad,
+                                         out.stats["radii"])
+            state.step += 1
+            return {"loss": loss.detach(),
+                    "psnr": psnr(out.image.detach(), target),
+                    "num_active": scene.num_active()}
 
     return train_step
 

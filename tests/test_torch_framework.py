@@ -307,26 +307,14 @@ def test_screenshot_timestamped(tmp_path):
 
 
 def test_profiling_on_the_cpu(tmp_path):
-    """StageTimer, a profiler trace written as Chrome JSON, throughput and
-    the memory report without a card."""
-    timer = profiling.StageTimer(device="cpu")
-    with timer.stage("sum"):
-        torch.arange(1000).sum()
-    out = timer.timeit("mul", torch.mul, torch.ones(8), 2.0, iters=3)
-    assert torch.equal(out, torch.full((8,), 2.0))
-    rep = timer.report()
-    assert rep["sum"]["count"] == 1 and rep["mul"]["count"] == 1
-    assert rep["mul"]["mean_ms"] >= 0.0
+    """A profiler trace written as Chrome JSON and the memory report
+    without a card."""
     with profiling.trace(str(tmp_path / "trace")) as prof:
         torch.mm(torch.ones(16, 16), torch.ones(16, 16))
     assert any("mm" in e.key for e in prof.key_averages())
     with open(tmp_path / "trace" / "trace.json") as f:
         assert "traceEvents" in json.load(f)
-    tput = profiling.throughput_report(2_000_000, 0.5, n_chips=2)
-    assert tput["mpixels_per_s"] == 4.0
-    assert tput["mpixels_per_s_per_chip"] == 2.0
     if not torch.cuda.is_available():
-        assert profiling.throughput_report(10, 1.0)["n_chips"] == 1
         assert profiling.device_memory_report() == [{"device": "cpu"}]
 
 
